@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels for the perf-critical hot spots.
+
+  optical_dft  — fused 4f pipeline: DAC quantize + DFT-as-matmul + |.|^2,
+                 two CUDA kernels (``csrc/optical_dft.cu``)
+
+``ops`` holds the public wrappers; ``ref`` the plain oracles; ``build``
+compiles ``csrc/*.cu`` with nvcc on first use.
+"""
+
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

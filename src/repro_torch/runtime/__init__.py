@@ -1,0 +1,155 @@
+"""Conversion-aware offload runtime (PyTorch port): execute hybrid
+host/optical plans on the CUDA card.
+
+Module map (each mirrors its counterpart in ``repro.runtime``):
+
+  backends   — registry of three interchangeable executors per op category:
+               ``host`` (pure PyTorch fft/conv/matmul), ``optical-sim``
+               (the fused DFT pipeline — two hand-written CUDA kernels on
+               the card — plus the 4f physics sim with the DAC/ADC boundary
+               applied, every batch priced with a ``StepCost``), ``ideal``
+               (exact values at the zero-conversion analog bound).
+  executor   — ``OffloadExecutor``: request queue that coalesces same-shape
+               calls into ONE batched invocation, pipelined two deep per
+               ``(category, backend)`` window (``flush_async``; readiness
+               through a ``torch.cuda.Event`` recorded after each
+               dispatch), tiled against the memory budget, with retry /
+               fallback / quarantine and opt-in operand residency.  Runs
+               on the CUDA card unless built with ``device="cpu"``.
+  telemetry  — ``RuntimeTelemetry``: measured per-category traffic emitted
+               as ``CategoryProfile``s so ``plan_offload`` re-plans from it.
+  fidelity   — ``FidelityChecker``: shadows optical-sim batches with the
+               host reference and scores them against the ENOB budget.
+  tiling     — ``MemoryBudget`` (L2-derived on CUDA, LLC-derived on the
+               CPU) / ``choose_tile`` / ``choose_blocks``.
+  residency  — ``ResidencyCache``: content-keyed operand residency.
+  router     — ``PlanRouter``: applies an ``OffloadPlan`` and closes the
+               profile -> plan -> execute -> re-profile loop.
+  faults     — ``RetryPolicy``, ``DispatchWatchdog``, ``Quarantine``.
+  tracing / metrics — opt-in span tracer, percentile metrics, drift report.
+  specs      — shared demo design points (``BATCHED_4F``).
+
+Not ported yet (later slices): ``scheduler``, ``trace_export``,
+``sharded`` and the chaos backends of ``faults``.
+
+Quick start::
+
+    from repro_torch.runtime import OffloadExecutor, PlanRouter
+    ex = OffloadExecutor(BATCHED_4F, max_batch=16)   # on the CUDA card
+    router = PlanRouter(ex)                   # all-host profiling mode
+    ex.telemetry.start()
+    outs = [router.run("fft", img) for img in imgs]
+    ex.telemetry.stop()
+    plan = router.replan()                    # measured plan; routes updated
+"""
+
+from repro_torch.runtime.backends import (
+    CATEGORIES,
+    CONV_CAPTURES,
+    BackendContext,
+    ExecutionBackend,
+    HostBackend,
+    IdealBackend,
+    OpticalSimBackend,
+    available_backends,
+    get_backend,
+    register_backend,
+)
+from repro_torch.runtime.executor import OffloadExecutor, OffloadResult
+from repro_torch.runtime.faults import (
+    DispatchWatchdog,
+    FaultError,
+    Quarantine,
+    QuarantineEvent,
+    RetryPolicy,
+    TransientDispatchError,
+    advance_or_sleep,
+)
+from repro_torch.runtime.fidelity import (FidelityChecker, FidelityReport,
+                                          enob_error_bound)
+from repro_torch.runtime.metrics import (
+    Counter,
+    DriftReport,
+    Histogram,
+    MetricsRegistry,
+    StageDrift,
+    drift_report,
+)
+from repro_torch.runtime.residency import (
+    DELTA_THRESHOLD,
+    ResidencyCache,
+    ResidencyEntry,
+    operating_point,
+    residency_key,
+)
+from repro_torch.runtime.router import PlanRouter
+from repro_torch.runtime.specs import BATCHED_4F, CAMERA_ADC, SLM_DAC
+from repro_torch.runtime.telemetry import (
+    BackendStats,
+    DeltaStats,
+    DeviceStats,
+    RuntimeTelemetry,
+    WindowStats,
+)
+from repro_torch.runtime.tiling import (
+    BlockPlan,
+    MemoryBudget,
+    TilePlan,
+    choose_blocks,
+    choose_tile,
+    tile_sizes,
+)
+from repro_torch.runtime.tracing import Span, Tracer
+
+__all__ = [
+    "CATEGORIES",
+    "CONV_CAPTURES",
+    "BackendContext",
+    "ExecutionBackend",
+    "HostBackend",
+    "IdealBackend",
+    "OpticalSimBackend",
+    "available_backends",
+    "get_backend",
+    "register_backend",
+    "OffloadExecutor",
+    "OffloadResult",
+    "DispatchWatchdog",
+    "FaultError",
+    "Quarantine",
+    "QuarantineEvent",
+    "RetryPolicy",
+    "TransientDispatchError",
+    "advance_or_sleep",
+    "FidelityChecker",
+    "FidelityReport",
+    "enob_error_bound",
+    "Counter",
+    "DriftReport",
+    "Histogram",
+    "MetricsRegistry",
+    "StageDrift",
+    "drift_report",
+    "DELTA_THRESHOLD",
+    "ResidencyCache",
+    "ResidencyEntry",
+    "operating_point",
+    "residency_key",
+    "PlanRouter",
+    "BATCHED_4F",
+    "CAMERA_ADC",
+    "SLM_DAC",
+    "BackendStats",
+    "DeltaStats",
+    "DeviceStats",
+    "RuntimeTelemetry",
+    "WindowStats",
+    "BlockPlan",
+    "MemoryBudget",
+    "TilePlan",
+    "choose_blocks",
+    "choose_tile",
+    "tile_sizes",
+    "Span",
+    "Tracer",
+]
