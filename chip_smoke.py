@@ -5,12 +5,21 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card, runs the main path
-(16 frames of 512x512 through ``OffloadExecutor`` + ``PlanRouter`` on the
-``optical-sim`` backend, spec ``BATCHED_4F``) with every kernel's launch
-count set to 0 just before and read just after, runs the 3-layer 512x512
-conv stack, times each kernel beside its plain version, a library call and
-its bound, and prints as its last line
+kernel against its plain PyTorch version on the card, and drives the port's
+two paths, each with every kernel's launch count set to 0 just before it
+and read just after:
+
+* the offload path: 16 frames of 512x512 through ``OffloadExecutor`` +
+  ``PlanRouter`` on the ``optical-sim`` backend (spec ``BATCHED_4F``), then
+  the 3-layer 512x512 conv stack;
+* the serving path: stablelm-1.6b at full width and depth (random weights
+  from a seed) serving 8 requests through ``ServingEngine`` with 4 slots,
+  every prefill's attention through the flash-attention kernel, with an
+  ``OffloadScheduler`` on the engine's aux hook carrying 512x512 ``fft``
+  frames through the DFT kernels.
+
+It times each kernel beside its plain version, a library call and its
+bound, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA card it exits with code 2.
@@ -35,15 +44,29 @@ FRAMES = 16          # one flush group: 16 frames tiled onto the 2048^2 SLM
 SIDE = 512           # frame side, as examples/optical_offload.py runs it
 TIMED_RUNS = 21      # CUDA-event samples per timing (median reported)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores
-# and HBM3 bandwidth.  The kernels run fp32 FMA on the CUDA cores.
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores,
+# bf16 on the tensor cores, and HBM3 bandwidth.  The DFT kernels take fp32
+# operands; the attention kernel's operands on the serving path are bf16.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
+# the serving path: stablelm-1.6b at full width, 4 cache slots
+ARCH = "stablelm-1.6b"
+SLOTS = 4
+MAX_LEN = 2048
+MAX_NEW = 16
+PROMPT_LENS = (200, 517, 1000, 333, 129, 777, 1023, 450)  # none divides by 64
+OFFLINE_RIDS = (1, 6)    # one request of each admission round
+AUX_FRAMES = 4           # 512x512 fft frames on the engine's aux hook
+ATTN_TIMED_LENS = (512, 1024)
+
 SOURCE = "src/repro_torch/csrc/optical_dft.cu"
+ATTN_SOURCE = "src/repro_torch/csrc/local_attention.cu"
 REPLACES = {
     "dft_stage1_batched": "src/repro/kernels/optical_dft.py:176",
     "dft_stage2_batched": "src/repro/kernels/optical_dft.py:305",
+    "local_flash_attention": "src/repro/kernels/local_attention.py:106",
 }
 
 
@@ -267,9 +290,9 @@ def phase_main_path(rt, od, dev) -> dict:
             "profiled_flush": profiled}
 
 
-def profile_flush(flush) -> dict:
-    """One flush under torch.profiler: device busy time by kernel name
-    against the flush's wall (both in ms)."""
+def profile_flush(flush, what: str = "flush") -> dict:
+    """One run of ``flush`` (which returns its host wall in ms) under
+    torch.profiler: device busy time by kernel name against the wall."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -283,7 +306,7 @@ def profile_flush(flush) -> dict:
            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
            "top": [{"name": e.key[:60], "count": e.count,
                     "ms": e.self_device_time_total / 1e3} for e in top]}
-    print(f"  profiled flush: wall {wall_ms:.3f} ms, device busy "
+    print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms" + ("" if busy_ms else " (profiler reported no "
                                 "device time: not measured)"))
     for t in out["top"]:
@@ -351,6 +374,7 @@ def stage_work(od, dev, b: int) -> dict:
 def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
     tile = main["tile_k"]
     at_tile = stage_work(od, dev, tile)
+    at_one = stage_work(od, dev, 1)   # the single-frame kernels 3 and 4
     rows = []
     for name, w in stage_work(od, dev, FRAMES).items():
         # alternate kernel and plain so drift hits both alike
@@ -362,6 +386,12 @@ def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
         tile_ms = median_ms(at_tile[name]["kernel"])
         t_ops = w["flops"] / PEAK_FP32_FLOPS * 1e3
         t_bytes = w["bytes"] / PEAK_BYTES_S * 1e3
+        one = at_one[name]
+        single = {"ms": median_ms(one["kernel"]),
+                  "plain_ms": median_ms(one["plain"]),
+                  "library_ms": median_ms(one["library"]),
+                  "bound_ms": max(one["flops"] / PEAK_FP32_FLOPS,
+                                  one["bytes"] / PEAK_BYTES_S) * 1e3}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -375,13 +405,308 @@ def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
             "tflops": w["flops"] / (kernel_ms * 1e-3) / 1e12,
             "ms_at_tile": tile_ms,
             "tile_shape": [tile, SIDE, SIDE, SIDE],
+            "at_batch_1": single,
         })
         print(f"  {name} ({FRAMES}, {SIDE}, {SIDE}, {SIDE}): kernel "
               f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms, "
               f"launches/flush {main['launches'][name]}, "
               f"{tile_ms:.4f} ms per launch at batch {tile}")
+        print(f"    at batch 1 (the single-frame kernel): kernel "
+              f"{single['ms']:.4f} ms, plain {single['plain_ms']:.4f} ms, "
+              f"library {single['library_ms']:.4f} ms, bound "
+              f"{single['bound_ms']:.4f} ms")
     return rows
+
+
+# --- phase 5: the serving path ---------------------------------------------------
+
+
+class CheckedLM:
+    """The engine's model with every logit checked for finiteness on the
+    card (one flag, read once at the end, so no step waits on it)."""
+
+    def __init__(self, model, dev):
+        self.model = model
+        self.finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def _check(self, logits):
+        self.finite &= torch.isfinite(logits).all()
+
+    def prefill(self, params, batch, *, max_len):
+        cache, logits = self.model.prefill(params, batch, max_len=max_len)
+        self._check(logits)
+        return cache, logits
+
+    def decode_step(self, params, cache, tokens):
+        logits, cache = self.model.decode_step(params, cache, tokens)
+        self._check(logits)
+        return logits, cache
+
+
+def lanes(cache: dict, n: int) -> dict:
+    """A 1-lane decode cache repeated onto n lanes (``pos`` has the lane
+    first; stablelm's layers are all stacked, lane second)."""
+    return {"pos": cache["pos"].repeat(n),
+            "stack": {key: {k: t.repeat_interleave(n, dim=1)
+                            for k, t in layer.items()}
+                      for key, layer in cache["stack"].items()}}
+
+
+def offline_greedy(model, params, prompt, new, n_lanes, dev) -> list[int]:
+    """One prompt's prefill followed by a greedy-decode loop, outside the
+    engine.  The prefilled cache is repeated onto ``n_lanes`` identical
+    lanes so that every product has the engine's shapes: cuBLAS picks its
+    kernel by shape, and a 1-row and a 4-row bf16 product may round
+    differently."""
+    cache, logits = model.prefill(
+        params, {"tokens": torch.tensor([prompt], device=dev)},
+        max_len=MAX_LEN)
+    cache = lanes(cache, n_lanes)
+    toks = [int(torch.argmax(logits[0]))]
+    for _ in range(new - 1):
+        lg, cache = model.decode_step(
+            params, cache, torch.full((n_lanes, 1), toks[-1], device=dev))
+        top = torch.argmax(lg, dim=-1).tolist()
+        check(len(set(top)) == 1, f"identical lanes decoded {top}")
+        toks.append(top[0])
+    return toks
+
+
+def attn_inputs(rng, bh, l, d, groups, dtype, dev):
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=dev, dtype=dtype)
+        for shape in ((bh, l, d), (bh // groups, l, d),
+                      (bh // groups, l, d)))
+
+
+def check_attention(la, dev, lens) -> float:
+    """Kernel 6 against its plain version on the card: every (1, 32, L, 64)
+    bf16 causal shape the serving run launched at 3e-2, and f32, GQA and
+    windowed cases at 2e-5.  Returns the max |err| of the bf16 shapes."""
+    rng = np.random.default_rng(SEED + 5)
+    err_bf16 = 0.0
+    cases = [(32, l, 64, 1, torch.bfloat16, True, 0) for l in lens]
+    cases += [(32, 1000, 64, 1, torch.float32, True, 0),
+              (32, 517, 64, 4, torch.float32, True, 0),
+              (32, 777, 64, 1, torch.float32, True, 256),
+              (16, 333, 128, 2, torch.float32, False, 64),
+              (32, 1023, 64, 8, torch.bfloat16, True, 200)]
+    for bh, l, d, g, dtype, causal, window in cases:
+        q, k, v = attn_inputs(rng, bh, l, d, g, dtype, dev)
+        got = la.local_flash_attention(q, k, v, causal=causal, window=window,
+                                       kv_groups=g)
+        want = la.local_flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, kv_groups=g)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        err = float((got.float() - want.float()).abs().max())
+        check(max_violation(got.float(), want.float(), tol, tol) <= 0.0,
+              f"attention ({bh}, {l}, {d}) groups {g} {dtype} causal "
+              f"{causal} window {window}: max |err| {err:.3e} > {tol}")
+        if dtype == torch.bfloat16 and g == 1 and window == 0:
+            err_bf16 = max(err_bf16, err)
+    print(f"  attention kernel vs plain: {len(cases)} shapes ok (bf16 "
+          f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}; f32, "
+          "GQA and windowed at 2e-5)")
+    return err_bf16
+
+
+def phase_serving(rt, od, la, dev) -> dict:
+    from repro_torch import configs
+    from repro_torch.models import init_params, param_counts
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = configs.get_config(ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+           cfg.vocab_size) == (24, 2048, 32, 64, 5632, 100352),
+          f"{ARCH} is not at full width and depth")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    ex = rt.OffloadExecutor(rt.BATCHED_4F, device="cuda")
+    sched = rt.OffloadScheduler(ex)
+    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
+                           offload=sched)
+    engine.model = CheckedLM(engine.model, dev)
+    torch.cuda.synchronize()
+    print(f"  {ARCH}: {param_counts(cfg)[0]:,} parameters, init + load "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # warm-up request (cuBLAS handles, the kernel library), not counted
+    engine.submit(Request(rid=-1, prompt=list(range(1, 101)),
+                          max_new_tokens=2))
+    engine.run_to_completion()
+    torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 4)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=MAX_NEW)
+            for i, n in enumerate(PROMPT_LENS)]
+    frames = [rng_frames(rng, (SIDE, SIDE), dev) for _ in range(AUX_FRAMES)]
+    torch.cuda.synchronize()
+
+    od.reset_launches()
+    la.reset_launches()
+    t_submit = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    aux, ttft, decode_steps, steps = [], {}, [], 0
+    while engine.queue or engine.active:
+        if steps % 2 == 0 and len(aux) < AUX_FRAMES:
+            aux.append(engine.submit_aux("fft", frames[len(aux)],
+                                         backend="optical-sim"))
+        before = {r.rid: len(r.out_tokens) for r in reqs}
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new = {r.rid: len(r.out_tokens) - before[r.rid] for r in reqs}
+        first = [rid for rid, n in new.items() if n and not before[rid]]
+        for rid in first:
+            ttft[rid] = t1 - t_submit
+        if not first:
+            decode_steps.append((t1 - t0, sum(new.values())))
+        steps += 1
+    sched.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_submit
+    launches = {"local_flash_attention": la.local_flash_attention.launches,
+                "dft_stage1_batched": od.dft_stage1_batched.launches,
+                "dft_stage2_batched": od.dft_stage2_batched.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  served {len(reqs)} requests in {steps} steps, {wall_s:.3f} s; "
+          f"launches {launches}; peak memory {peak_gb:.2f} GB")
+
+    check(launches["local_flash_attention"] == cfg.n_layers * len(reqs),
+          f"attention kernel launched {launches['local_flash_attention']} "
+          f"times for {len(reqs)} prefills of {cfg.n_layers} layers")
+    for name in ("dft_stage1_batched", "dft_stage2_batched"):
+        check(launches[name] > 0, f"{name} not launched under serving")
+    check(all(r.done and len(r.out_tokens) == MAX_NEW for r in reqs),
+          "a request did not return max_new_tokens tokens")
+    check(bool(engine.model.finite), "non-finite logits")
+
+    hosts = [ex.submit("fft", f, backend="host") for f in frames]
+    ex.flush()
+    levels = (1 << rt.BATCHED_4F.adc.bits) - 1
+    for i, (h, r) in enumerate(zip(aux, hosts)):
+        got, want = h.get(), r.value
+        bound = 2e-4 * float(want.max()) + float(got.max()) / levels
+        check(h.backend == "optical-sim" and got.shape == (SIDE, SIDE)
+              and float((got - want).abs().max()) <= bound,
+              f"aux frame {i}: backend {h.backend} or |optical - host| "
+              "outside 2e-4*max + one ADC step")
+    print(f"  {len(aux)} aux fft frames on optical-sim within 2e-4*max + "
+          "one ADC step of host")
+
+    model = engine.model.model
+    for rid in OFFLINE_RIDS:
+        req = reqs[rid]
+        want = offline_greedy(model, engine.params, req.prompt, MAX_NEW,
+                              SLOTS, dev)
+        check(req.out_tokens == want, f"request {rid}: engine tokens "
+              f"{req.out_tokens} != offline greedy {want}")
+    single = offline_greedy(model, engine.params, reqs[OFFLINE_RIDS[0]].prompt,
+                            MAX_NEW, 1, dev)
+    print(f"  engine tokens == offline prefill + greedy decode for requests "
+          f"{list(OFFLINE_RIDS)}; at 1 lane the offline tokens "
+          f"{'also agree' if single == reqs[OFFLINE_RIDS[0]].out_tokens else 'differ'}")
+    ex.close()
+
+    def decode() -> float:
+        tokens = torch.tensor([[t] for t in engine.last_token], device=dev)
+        t0 = time.perf_counter()
+        model.decode_step(engine.params, engine.cache, tokens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def prefill() -> float:
+        toks = torch.tensor([reqs[2].prompt], device=dev)
+        t0 = time.perf_counter()
+        model.prefill(engine.params, {"tokens": toks}, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # after the counted run: the engine's cache is spent, and launches here
+    # do not count
+    n = len(reqs[2].prompt)
+    unprofiled = {"decode_step_ms": [decode() for _ in range(5)],
+                  "prefill_ms": [prefill() for _ in range(3)],
+                  "prefill_tokens": n}
+    profiled = {"decode_step": profile_flush(decode, "decode step (4 lanes)"),
+                "prefill": profile_flush(prefill, f"prefill ({n} tokens)")}
+    print(f"  unprofiled: decode step {unprofiled['decode_step_ms']} ms, "
+          f"prefill of {n} tokens {unprofiled['prefill_ms']} ms")
+
+    ttfts = [ttft[r.rid] * 1e3 for r in reqs]
+    dec_s = sum(t for t, _ in decode_steps)
+    dec_tokens = sum(n for _, n in decode_steps)
+    step_ms = [t * 1e3 for t, _ in decode_steps]
+    out = {"arch": ARCH, "slots": SLOTS, "max_len": MAX_LEN,
+           "max_new_tokens": MAX_NEW, "prompt_lens": list(PROMPT_LENS),
+           "steps": steps, "wall_s": wall_s, "launches": launches,
+           "ttft_ms": ttfts, "ttft_ms_median": statistics.median(ttfts),
+           "decode_steps": len(decode_steps),
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_tokens_per_s": dec_tokens / dec_s,
+           "peak_memory_gb": peak_gb,
+           "offline_single_lane_agrees": single ==
+           reqs[OFFLINE_RIDS[0]].out_tokens,
+           "unprofiled": unprofiled, "profiled": profiled}
+    print(f"  time to first token (ms, from submit): "
+          f"{', '.join(f'{t:.1f}' for t in ttfts)}; decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s over {len(decode_steps)} "
+          f"steps without a prefill, median step "
+          f"{out['decode_step_ms_median']:.3f} ms")
+    return out
+
+
+def attention_times(la, dev, serving: dict, err: float) -> dict:
+    """Kernel 6 at (1, 32, L, 64) bf16 causal for L in ATTN_TIMED_LENS:
+    kernel, plain version and one ``scaled_dot_product_attention`` call
+    (the library yardstick; the port never calls it), with the bound."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(SEED + 6)
+    rows = {}
+    for l in ATTN_TIMED_LENS:
+        bh, d = 32, 64
+        q, k, v = attn_inputs(rng, bh, l, d, 1, torch.bfloat16, dev)
+        q4, k4, v4 = (t.view(1, bh, l, d) for t in (q, k, v))
+        kern = lambda: la.local_flash_attention(q, k, v, causal=True)
+        plain = lambda: la.local_flash_attention_plain(q, k, v, causal=True)
+        ms = [median_ms(kern), median_ms(plain), median_ms(plain),
+              median_ms(kern)]
+        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        flops = 2 * bh * l * l * d          # QK^T and PV, causal half each
+        nbytes = 4 * bh * l * d * 2         # q, k, v read, out written
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        rows[l] = {"ms": statistics.mean((ms[0], ms[3])),
+                   "plain_ms": statistics.mean((ms[1], ms[2])),
+                   "library_ms": library_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "flops": flops, "bytes": nbytes}
+        r = rows[l]
+        print(f"  local_flash_attention (1, {bh}, {l}, {d}) bf16 causal: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {flops / (r['ms'] * 1e-3) / 1e12:.2f} "
+              "TFLOP/s")
+    top = rows[max(ATTN_TIMED_LENS)]
+    return {"name": "local_flash_attention", "route": "cuda",
+            "source": ATTN_SOURCE,
+            "replaces": REPLACES["local_flash_attention"],
+            "launches": serving["launches"]["local_flash_attention"],
+            "max_abs_err": err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "shape": [1, 32, max(ATTN_TIMED_LENS), 64],
+            "dtype": "bfloat16", "causal": True,
+            "at": {str(l): rows[l] for l in ATTN_TIMED_LENS}}
 
 
 def main() -> int:
@@ -390,6 +715,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels import local_attention as la
     from repro_torch.kernels import optical_dft as od
     import repro_torch.runtime as rt
 
@@ -403,7 +729,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"  nvcc build {time.perf_counter() - t0:.2f} s")
-    print("  " + build.build_log("optical_dft").strip().replace("\n", "\n  "))
+    for stem in ("optical_dft", "local_attention"):
+        print("  " + build.build_log(stem).strip().replace("\n", "\n  "))
 
     budget = rt.MemoryBudget.detect(dev)
     tile_k = budget.tile_for_group(SIDE * SIDE, SIDE * SIDE, FRAMES,
@@ -417,7 +744,13 @@ def main() -> int:
 
     print("phase 4: times")
     rows = phase_times(od, dev, main_run, errs)
+
+    print("phase 5: serving path")
+    serving = phase_serving(rt, od, la, dev)
+    attn_err = check_attention(la, dev, PROMPT_LENS)
+    rows.append(attention_times(la, dev, serving, attn_err))
     print(json.dumps({"main_path": main_run}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

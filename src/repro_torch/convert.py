@@ -1,15 +1,19 @@
 """Carry state across from the JAX reference into the port.
 
-This system has no model weights: its state is the accelerator spec and
-the data (frames, conv kernels, matmul weights).  Both cross as plain
-Python and numpy values, so the port never imports the reference:
+The offload runtime's state is the accelerator spec and the data (frames,
+conv kernels, matmul weights); the LM stack's is its parameter tree.  All
+of it crosses as plain Python and numpy values, so the port never imports
+the reference:
 
-  :func:`spec_from_fields`  rebuilds the port's ``ConverterSpec``,
-                            ``OpticalFourierAcceleratorSpec`` or
-                            ``OpticalMVMAcceleratorSpec`` from
-                            ``dataclasses.asdict`` of the reference's spec
-                            (nested converters included).
-  :func:`tensor_from_numpy` hands an array over as a tensor on a device.
+  :func:`spec_from_fields`      rebuilds the port's ``ConverterSpec``,
+                                ``OpticalFourierAcceleratorSpec`` or
+                                ``OpticalMVMAcceleratorSpec`` from
+                                ``dataclasses.asdict`` of the reference's
+                                spec (nested converters included).
+  :func:`tensor_from_numpy`     hands an array over as a tensor on a device.
+  :func:`lm_params_from_numpy`  turns the reference's ``init_params`` tree,
+                                given as numpy arrays, into the port's
+                                parameters, so both compute the same thing.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ import torch
 from repro_torch.core.accelerator import (OpticalFourierAcceleratorSpec,
                                           OpticalMVMAcceleratorSpec)
 from repro_torch.core.conversion import ConverterSpec
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.params import model_templates
 
-__all__ = ["spec_from_fields", "tensor_from_numpy"]
+__all__ = ["spec_from_fields", "tensor_from_numpy", "lm_params_from_numpy"]
 
 _SPECS = (ConverterSpec, OpticalFourierAcceleratorSpec,
           OpticalMVMAcceleratorSpec)
@@ -61,3 +67,41 @@ def tensor_from_numpy(a, device: str | torch.device = "cuda",
     contiguous tensor on ``device``, in ``dtype`` when given."""
     t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
+    a = np.array(a)   # a writable copy: torch shares its memory
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: reinterpret bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's parameters from the reference's ``init_params`` tree
+    (nested dicts of arrays, e.g. ``jax.tree_util.tree_map(np.asarray,
+    params)``), on ``device`` in the config's ``param_dtype``.
+
+    The tree must have exactly the port's template keys and shapes for
+    ``cfg``; raises ``ValueError`` naming the first leaf that differs.
+    """
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def walk(spec_node, node, path):
+        if isinstance(spec_node, dict):
+            if not isinstance(node, Mapping) or set(node) != set(spec_node):
+                got = sorted(node) if isinstance(node, Mapping) else node
+                raise ValueError(f"{path or 'params'}: expected keys "
+                                 f"{sorted(spec_node)}, got {got}")
+            return {k: walk(spec_node[k], node[k], f"{path}/{k}")
+                    for k in spec_node}
+        shape = tuple(np.shape(node))
+        if shape != spec_node.shape:
+            raise ValueError(f"{path}: expected shape {spec_node.shape}, "
+                             f"got {shape}")
+        return _tensor(node, device, torch_dtype(spec_node.dtype)
+                       if spec_node.dtype else dtype)
+
+    return walk(model_templates(cfg), tree, "")

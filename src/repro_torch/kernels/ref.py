@@ -1,8 +1,9 @@
-"""Plain PyTorch oracles for the DFT kernels (the allclose targets).
+"""Plain PyTorch oracles for the port's kernels (the allclose targets).
 
-Each function is the semantic specification of its kernel, written with
-complex64 products and library FFTs rather than the kernels' (re, im)
-planes; tests sweep shapes and assert kernel-vs-oracle agreement.
+Each function is the semantic specification of its kernel: the DFT
+stages with complex64 products and library FFTs rather than the kernels'
+(re, im) planes, attention as a dense masked softmax with the KV heads
+repeated; tests sweep shapes and assert kernel-vs-oracle agreement.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ __all__ = [
     "optical_dft2_intensity_ref",
     "dft_stage1_ref",
     "dft_stage2_ref",
+    "local_attention_ref",
 ]
 
 
@@ -46,3 +48,27 @@ def optical_dft2_intensity_ref(a: torch.Tensor, *,
         a = _quantize(a, dac_bits)
     f = torch.fft.fft2(a.to(torch.complex64), norm="ortho")
     return f.abs() ** 2
+
+
+def local_attention_ref(q, k, v, *, scale=None, window: int = 0,
+                        causal: bool = True, kv_groups: int = 1):
+    """Dense masked softmax attention, (BH, Lq, D) x (BHkv, Lk, D)."""
+    bh, lq, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    if kv_groups > 1:
+        k = torch.repeat_interleave(k, kv_groups, dim=0)
+        v = torch.repeat_interleave(v, kv_groups, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    qi = torch.arange(lq, device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((lq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,206 @@
+"""Parameter templates, init and counts — one source of truth.
+
+Every block kind declares its parameters once as ``ParamSpec``s, in the
+reference's tree layout (``embed``, ``final_norm``, ``head`` and the
+repeated super-blocks stacked on a leading layer axis under ``stack``).
+From the same template tree come (a) real initialized tensors
+(:func:`init_params`, from an explicit ``torch.Generator``), (b) exact
+parameter counts (:func:`param_counts`), and (c) the shapes
+``repro_torch.convert.lm_params_from_numpy`` checks a carried-over tree
+against.  The port has the dense attention block (GQA + dense MLP); MoE,
+MLA, recurrent, encoder-decoder and frontend templates raise
+``NotImplementedError`` until their slices land (``ROADMAP.md``).
+Sharding specs wait for the distributed port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models.config import ModelConfig, torch_dtype
+
+__all__ = ["ParamSpec", "model_templates", "init_params", "param_counts",
+           "compute_params", "map_tree"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "fan_in"      # fan_in | normal02 | zeros | ones
+    dtype: str | None = None  # override config.param_dtype
+
+
+def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf over nested dicts of the same keys."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _leaves(tree: Any, path: tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _unported(cfg: ModelConfig) -> str | None:
+    if cfg.moe is not None:
+        return "MoE"
+    if cfg.mla is not None:
+        return "MLA"
+    if cfg.is_encdec:
+        return "encoder-decoder"
+    if cfg.frontend is not None:
+        return f"the {cfg.frontend} frontend"
+    if any(kind != "attn" for kind in cfg.layer_kinds()):
+        return "recurrent blocks"
+    return None
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot run."""
+    what = _unported(cfg)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported yet; see ROADMAP.md")
+
+
+# --- per-kind templates --------------------------------------------------------
+
+
+def _norm(d: int) -> ParamSpec:
+    return ParamSpec((d,), "ones")
+
+
+def _mlp_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    d, f = cfg.d_model, cfg.d_ff
+    t = {"w_in": ParamSpec((d, f)), "w_out": ParamSpec((f, d))}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        t["w_gate"] = ParamSpec((d, f))
+    return t
+
+
+def _attn_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    t = {
+        "w_q": ParamSpec((d, h * hd)),
+        "w_k": ParamSpec((d, hk * hd)),
+        "w_v": ParamSpec((d, hk * hd)),
+        "w_o": ParamSpec((h * hd, d)),
+    }
+    if cfg.attn_bias:
+        t.update({
+            "b_q": ParamSpec((h * hd,), "zeros"),
+            "b_k": ParamSpec((hk * hd,), "zeros"),
+            "b_v": ParamSpec((hk * hd,), "zeros"),
+        })
+    return t
+
+
+def block_templates(cfg: ModelConfig) -> dict[str, Any]:
+    """One dense attention block (``check_ported`` rules out the rest)."""
+    d = cfg.d_model
+    return {"ln1": _norm(d), "attn": _attn_templates(cfg),
+            "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+
+
+def _stack(tree: dict, n: int) -> dict:
+    """Prepend a layer axis of length n to every leaf spec."""
+    return map_tree(lambda s: ParamSpec((n,) + s.shape, s.init, s.dtype),
+                    tree)
+
+
+def model_templates(cfg: ModelConfig) -> dict:
+    check_ported(cfg)
+    plan = cfg.layer_plan()
+    d, vp = cfg.d_model, cfg.padded_vocab
+    t: dict[str, Any] = {
+        "embed": ParamSpec((vp, d), "normal02"),
+        "final_norm": _norm(d),
+    }
+    if not cfg.tie_embeddings:
+        t["head"] = ParamSpec((vp, d), "normal02")
+    if plan.prefix:
+        t["prefix"] = {f"{i}_{k}": block_templates(cfg)
+                       for i, k in enumerate(plan.prefix)}
+    if plan.n_super:
+        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg)
+                             for i, k in enumerate(plan.super_block)},
+                            plan.n_super)
+    if plan.tail:
+        t["tail"] = {f"{i}_{k}": block_templates(cfg)
+                     for i, k in enumerate(plan.tail)}
+    return t
+
+
+# --- materialization ---------------------------------------------------------------
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "normal02":
+        std = 0.02
+    else:  # fan_in: std = 1/sqrt(fan_in), fan_in = second-to-last dim
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(std).to(dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters from ``generator`` (a seed-0 generator on
+    ``device`` when None), in the config's ``param_dtype``.  The draws are
+    torch's, not ``jax.random``'s: to compute what the reference computes,
+    carry its parameters over with ``convert.lm_params_from_numpy``."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    dtype = torch_dtype(cfg.param_dtype)
+    return map_tree(
+        lambda s: _init_leaf(s, generator,
+                             torch_dtype(s.dtype) if s.dtype else dtype,
+                             device),
+        model_templates(cfg))
+
+
+# weights the reference casts to the activation dtype on every use
+# (``w.astype(x.dtype)``); norm scales it reads in float32
+_MATMUL_KEYS = frozenset({"w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
+                          "w_in", "w_gate", "w_out", "embed", "head"})
+
+
+def compute_params(cfg: ModelConfig, params: dict) -> dict:
+    """The tree a forward reads: every weight the reference casts to the
+    activation dtype on each call (``.astype(x.dtype)``) cast once here;
+    norm scales, which it reads in float32, left as they are.  The numbers
+    are the same; what it saves is a copy of every weight on every decode
+    step (3.3 GB of bf16 at stablelm-1.6b's full width)."""
+    act = cfg.activation_dtype
+
+    def walk(node: Any, key: str | None) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(act) if key in _MATMUL_KEYS else node
+
+    return walk(params, None)
+
+
+def param_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """(total, active-per-token) parameter counts from the template tree
+    (equal for the dense models the port runs)."""
+    total = sum(math.prod(spec.shape)
+                for _, spec in _leaves(model_templates(cfg)))
+    return total, total

@@ -23,14 +23,18 @@ Module map (each mirrors its counterpart in ``repro.runtime``):
   tiling     — ``MemoryBudget`` (L2-derived on CUDA, LLC-derived on the
                CPU) / ``choose_tile`` / ``choose_blocks``.
   residency  — ``ResidencyCache``: content-keyed operand residency.
+  scheduler  — ``OffloadScheduler``: admission-controlled continuous
+               batching over the executor (hold partially filled groups
+               across flushes; release when full, due or futile);
+               ``ManualClock`` makes admission deterministic in tests.
   router     — ``PlanRouter``: applies an ``OffloadPlan`` and closes the
                profile -> plan -> execute -> re-profile loop.
   faults     — ``RetryPolicy``, ``DispatchWatchdog``, ``Quarantine``.
   tracing / metrics — opt-in span tracer, percentile metrics, drift report.
   specs      — shared demo design points (``BATCHED_4F``).
 
-Not ported yet (later slices): ``scheduler``, ``trace_export``,
-``sharded`` and the chaos backends of ``faults``.
+Not ported yet (later slices): ``trace_export``, ``sharded`` and the
+chaos backends of ``faults``.
 
 Quick start::
 
@@ -83,6 +87,7 @@ from repro_torch.runtime.residency import (
     residency_key,
 )
 from repro_torch.runtime.router import PlanRouter
+from repro_torch.runtime.scheduler import ManualClock, OffloadScheduler
 from repro_torch.runtime.specs import BATCHED_4F, CAMERA_ADC, SLM_DAC
 from repro_torch.runtime.telemetry import (
     BackendStats,
@@ -136,6 +141,8 @@ __all__ = [
     "operating_point",
     "residency_key",
     "PlanRouter",
+    "ManualClock",
+    "OffloadScheduler",
     "BATCHED_4F",
     "CAMERA_ADC",
     "SLM_DAC",

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its executor on the card.
+"""The port's CUDA kernels, its executor and its LM stack on the card.
 
 Every test here needs a CUDA card and skips without one (the decision is
 made inside each test, through the ``cuda_device`` fixture).  The file
@@ -11,15 +11,24 @@ Bounds are the reference's (``tests/test_kernels.py``): stage 1 rtol 1e-4
 / atol 1e-5, stage 2 rtol 1e-4 / atol 1e-4*max, each kernel against its
 plain PyTorch version on the same card with TF32 off.  The executor's
 ``optical-sim`` frames are held to the ``host`` backend within 2e-4*max
-plus one 14-bit ADC step of the frame's full scale.
+plus one 14-bit ADC step of the frame's full scale.  The flash-attention
+kernel is held to its plain version at the reference's bounds
+(``tests/test_kernels.py``): rtol/atol 2e-5 in float32, 3e-2 in bfloat16.
+An LM prefill on the card goes through it once per layer and matches the
+same model's prefill on the CPU at the bf16 decode bound of
+``tests/test_models.py`` (5e-2).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs as tcfgs
 from repro_torch import runtime as trt
+from repro_torch.kernels import local_attention as la
+from repro_torch.kernels import ops
 from repro_torch.kernels import optical_dft as od
+from repro_torch.models import LM, compute_params, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +112,88 @@ def test_executor_launches_kernels_and_matches_host(cuda_device):
         top = float(r.value.max())
         err = float((h.value - r.value).abs().max())
         assert err <= 2e-4 * top + float(h.value.max()) / levels
+
+
+def _attn_inputs(seed, bh, lq, lk, d, groups, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=dev, dtype=dtype)
+        for shape in ((bh, lq, d), (bh // groups, lk, d),
+                      (bh // groups, lk, d)))
+
+
+@pytest.mark.parametrize("lq,lk,d,groups", [
+    (128, 128, 64, 1), (256, 128, 32, 2), (128, 256, 64, 4),
+    (77, 77, 64, 1), (200, 200, 16, 2), (1000, 1000, 64, 1),
+    (130, 70, 128, 2), (5, 300, 8, 8)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (False, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(cuda_device, lq, lk, d, groups,
+                                               causal, window, dtype):
+    q, k, v = _attn_inputs(40, 8, lq, lk, d, groups, dtype, cuda_device)
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, causal=causal, window=window,
+                                   kv_groups=groups)
+    want = la.local_flash_attention_plain(q, k, v, causal=causal,
+                                          window=window, kv_groups=groups)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_gqa_wrapper_launches_the_kernel(cuda_device):
+    q = torch.randn(2, 8, 517, 64, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.randn(2, 2, 517, 64, device=cuda_device, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    la.reset_launches()
+    got = ops.gqa_flash_attention(q, k, v)
+    want = la.local_flash_attention_plain(
+        q.reshape(16, 517, 64), k.reshape(4, 517, 64), v.reshape(4, 517, 64),
+        kv_groups=4).reshape(2, 8, 517, 64)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(
+        cuda_device):
+    q, k, v = _attn_inputs(41, 4, 64, 64, 64, 1, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        la.local_flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        la.local_flash_attention(q.transpose(1, 2), k, v)   # not contiguous
+    with pytest.raises(ValueError):
+        la.local_flash_attention(q[..., :48].contiguous(),
+                                 k[..., :48].contiguous(),
+                                 v[..., :48].contiguous())  # head dim 48
+    with pytest.raises(ValueError):
+        la.local_flash_attention(q, k.cpu(), v)             # mixed devices
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b"])
+def test_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
+    cfg = tcfgs.get_smoke_config(arch)
+    params = init_params(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(42).integers(
+        0, cfg.vocab_size, (2, 77)))
+    model = LM(cfg)
+    _, want = model.prefill(compute_params(cfg, params), {"tokens": toks},
+                            max_len=96)
+    on_card = compute_params(cfg, _to(params, cuda_device))
+    la.reset_launches()
+    cache, got = model.prefill(on_card, {"tokens": toks.to(cuda_device)},
+                               max_len=96)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+    lg, _ = model.decode_step(on_card, cache, toks[:, :1].to(cuda_device))
+    assert bool(torch.isfinite(lg).all())
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
