@@ -482,8 +482,13 @@ def attn_inputs(rng, bh, l, d, groups, dtype, dev):
 
 def check_attention(la, dev, lens) -> float:
     """Kernel 6 against its plain version on the card: every (1, 32, L, 64)
-    bf16 causal shape the serving run launched at 3e-2, and f32, GQA and
-    windowed cases at 2e-5.  Returns the max |err| of the bf16 shapes."""
+    bf16 causal shape the serving run launched, and f32, GQA and windowed
+    cases.  Returns the max |err| of the bf16 causal shapes.
+
+    Both sides compute in fp32 from the same inputs; in f32 they differ by
+    summation order only (2e-5).  In bf16 they differ by at most the final
+    rounding, one bf16 ulp (2^-7 relative), so rtol 1e-2 / atol 1e-3 holds
+    them to that and would catch a wrong bf16 load or store."""
     rng = np.random.default_rng(SEED + 5)
     err_bf16 = 0.0
     cases = [(32, l, 64, 1, torch.bfloat16, True, 0) for l in lens]
@@ -499,16 +504,17 @@ def check_attention(la, dev, lens) -> float:
         want = la.local_flash_attention_plain(q, k, v, causal=causal,
                                               window=window, kv_groups=g)
         torch.cuda.synchronize()
-        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
         err = float((got.float() - want.float()).abs().max())
-        check(max_violation(got.float(), want.float(), tol, tol) <= 0.0,
+        check(max_violation(got.float(), want.float(), rtol, atol) <= 0.0,
               f"attention ({bh}, {l}, {d}) groups {g} {dtype} causal "
-              f"{causal} window {window}: max |err| {err:.3e} > {tol}")
+              f"{causal} window {window}: max |err| {err:.3e} outside rtol "
+              f"{rtol} / atol {atol}")
         if dtype == torch.bfloat16 and g == 1 and window == 0:
             err_bf16 = max(err_bf16, err)
     print(f"  attention kernel vs plain: {len(cases)} shapes ok (bf16 "
-          f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}; f32, "
-          "GQA and windowed at 2e-5)")
+          f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}, at rtol "
+          "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5)")
     return err_bf16
 
 
@@ -600,6 +606,17 @@ def phase_serving(rt, od, la, dev) -> dict:
               "outside 2e-4*max + one ADC step")
     print(f"  {len(aux)} aux fft frames on optical-sim within 2e-4*max + "
           "one ADC step of host")
+    # the DFT kernels against their plain versions at every batch the aux
+    # hook dispatched them at under serving
+    aux_batches = sorted({h.batch for h in aux})
+    check(all(b >= 1 for b in aux_batches), f"aux batches {aux_batches}")
+    krng = np.random.default_rng(SEED + 7)
+    for b in aux_batches:
+        shape = (b, SIDE, SIDE, SIDE)
+        e1 = check_stage1(od, krng, shape, dev)
+        e2 = check_stage2(od, krng, shape, dev)
+        print(f"  stage 1/2 at the aux batch {shape}: max |err| {e1:.3e} / "
+              f"{e2:.3e}")
 
     model = engine.model.model
     for rid in OFFLINE_RIDS:
@@ -647,6 +664,7 @@ def phase_serving(rt, od, la, dev) -> dict:
     out = {"arch": ARCH, "slots": SLOTS, "max_len": MAX_LEN,
            "max_new_tokens": MAX_NEW, "prompt_lens": list(PROMPT_LENS),
            "steps": steps, "wall_s": wall_s, "launches": launches,
+           "aux_batches": aux_batches,
            "ttft_ms": ttfts, "ttft_ms_median": statistics.median(ttfts),
            "decode_steps": len(decode_steps),
            "decode_step_ms_median": statistics.median(step_ms),

@@ -39,7 +39,11 @@
 // GQA reads the shared K/V head in place, with no copies.
 //
 // C ABI: the entry point launches on the given stream, allocates nothing,
-// does not synchronise, and returns cudaGetLastError().
+// does not synchronise, and returns cudaGetLastError().  It launches on the
+// calling thread's current device, which the Python wrapper selects; it
+// never changes it.
+
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,6 +57,7 @@ constexpr int LANES = 4;                // lanes per query row
 constexpr int THREADS = BQ * LANES;     // 256
 constexpr int KEYS_PER_LANE = BK / LANES;
 constexpr float NEG = -1.0e30f;
+constexpr int kMaxDevices = 64;         // devices one process may launch on
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -189,10 +194,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int lq, int lk, int kv_groups, float scale, int causal,
            int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // The shared-memory opt-in is a per-device attribute of each
+  // instantiation: set it on a device's first launch only.
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[device].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(attention_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[device].store(true, std::memory_order_relaxed);
+  }
   const dim3 grid((lq + BQ - 1) / BQ, bh);
   attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -229,9 +244,7 @@ extern "C" {
 int local_attention_forward(const void* q, const void* k, const void* v,
                             void* out, int dtype, int bh, int lq, int lk,
                             int d, int kv_groups, float scale, int causal,
-                            int window, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                            int window, void* stream) {
   if (bh == 0 || lq == 0) return 0;
   if (kv_groups < 1 || bh % kv_groups != 0 || bh > 65535 || lk < 1)
     return static_cast<int>(cudaErrorInvalidValue);

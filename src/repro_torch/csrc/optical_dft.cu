@@ -37,7 +37,9 @@
 // by the Python wrapper and not used here.
 //
 // C ABI: every entry point launches on the given stream, allocates
-// nothing, does not synchronise, and returns cudaGetLastError().
+// nothing, does not synchronise, and returns cudaGetLastError().  It launches on the
+// calling thread's current device, which the Python wrapper selects; it
+// never changes it.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -227,9 +229,7 @@ extern "C" {
 int optical_dft_stage1_batched(const float* wr, const float* wi,
                                const float* a, float* tr, float* ti,
                                int batch, int m, int k, int n, int levels,
-                               int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+                               void* stream) {
   if (batch == 0 || m == 0 || n == 0) return 0;
   stage1_batched_kernel<<<grid_for(batch, m, n), THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -240,10 +240,8 @@ int optical_dft_stage1_batched(const float* wr, const float* wi,
 // I[b] = |T[b] @ W^T|^2.
 int optical_dft_stage2_batched(const float* tr, const float* ti,
                                const float* wr, const float* wi, float* out,
-                               int batch, int m, int k, int n, int device,
+                               int batch, int m, int k, int n,
                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || m == 0 || n == 0) return 0;
   stage2_batched_kernel<<<grid_for(batch, m, n), THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(

@@ -86,7 +86,7 @@ def _lib() -> ctypes.CDLL:
     lib = library("local_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.local_attention_forward.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                            ctypes.c_float, i, i, i, p]
+                                            ctypes.c_float, i, i, p]
     lib.local_attention_forward.restype = i
     lib.local_attention_error_string.argtypes = [i]
     lib.local_attention_error_string.restype = ctypes.c_char_p
@@ -121,7 +121,6 @@ def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, scale: float | None = None,
                           window: int = 0, causal: bool = True,
-                          block_q: int = 128, block_k: int = 128,
                           kv_groups: int = 1) -> torch.Tensor:
     """Flash attention with optional sliding window.
 
@@ -132,8 +131,9 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
       window: 0 = unlimited; w > 0 = each query attends to at most the
         ``w`` most recent keys.
       causal: lower-triangular masking (assumes aligned q/k positions).
-      block_q, block_k: the reference's Pallas block sizes; validated, and
-        the kernel uses its own 64 x 64 tiles.
+
+    The kernel tiles by 64 queries x 64 keys; unlike the reference's Pallas
+    kernel it takes no block sizes.
     """
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError("local_flash_attention: expected q (BH, Lq, D) and "
@@ -147,9 +147,8 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
                          f"{kv_groups}")
     if lk == 0:
         raise ValueError("local_flash_attention: no keys (Lk = 0)")
-    if block_q < 1 or block_k < 1 or window < 0:
-        raise ValueError("local_flash_attention: block sizes must be >= 1 "
-                         "and window >= 0")
+    if window < 0:
+        raise ValueError("local_flash_attention: window must be >= 0")
     if scale is None:
         scale = d ** -0.5
     if _on_cpu(q, k, v):
@@ -164,10 +163,11 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.local_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], bh, lq, lk, d, kv_groups, scale, int(causal),
-        window, q.device.index, stream)
+    with torch.cuda.device(q.device):   # the C entry launches on it
+        code = lib.local_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], bh, lq, lk, d, kv_groups, scale,
+            int(causal), window, stream)
     if code != 0:
         msg = lib.local_attention_error_string(code).decode()
         raise RuntimeError(f"local_flash_attention: CUDA error {code}: "

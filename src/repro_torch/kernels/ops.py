@@ -38,7 +38,6 @@ __all__ = [
 
 def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = 0, causal: bool = True,
-                        block_q: int = 128, block_k: int = 128,
                         ) -> torch.Tensor:
     """(B, Hq, L, D) grouped-query flash attention over 4-D operands.
 
@@ -55,7 +54,6 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.reshape(b * hq, lq, d).contiguous(),
         k.reshape(b * hkv, lk, d).contiguous(),
         v.reshape(b * hkv, lk, d).contiguous(),
-        window=window, causal=causal, block_q=block_q, block_k=block_k,
-        kv_groups=hq // hkv,
+        window=window, causal=causal, kv_groups=hq // hkv,
     )
     return out.reshape(b, hq, lq, d)

@@ -125,10 +125,10 @@ def _lib() -> ctypes.CDLL:
     lib = library("optical_dft")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.optical_dft_stage1_batched.argtypes = [p, p, p, p, p,
-                                               i, i, i, i, i, i, p]
+                                               i, i, i, i, i, p]
     lib.optical_dft_stage1_batched.restype = i
     lib.optical_dft_stage2_batched.argtypes = [p, p, p, p, p,
-                                               i, i, i, i, i, p]
+                                               i, i, i, i, p]
     lib.optical_dft_stage2_batched.restype = i
     lib.optical_dft_error_string.argtypes = [i]
     lib.optical_dft_error_string.restype = ctypes.c_char_p
@@ -190,10 +190,10 @@ def dft_stage1_batched(wr: torch.Tensor, wi: torch.Tensor, a: torch.Tensor,
     tr = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
     ti = torch.empty_like(tr)
     lib = _lib()
-    code = lib.optical_dft_stage1_batched(
-        wr.data_ptr(), wi.data_ptr(), a.data_ptr(), tr.data_ptr(),
-        ti.data_ptr(), batch, m, kdim, n, levels, a.device.index,
-        _stream(a))
+    with torch.cuda.device(a.device):   # the C entry launches on it
+        code = lib.optical_dft_stage1_batched(
+            wr.data_ptr(), wi.data_ptr(), a.data_ptr(), tr.data_ptr(),
+            ti.data_ptr(), batch, m, kdim, n, levels, _stream(a))
     _raise_on(lib, "dft_stage1_batched", code)
     dft_stage1_batched.launches += 1
     return tr, ti
@@ -259,9 +259,10 @@ def dft_stage2_batched(tr: torch.Tensor, ti: torch.Tensor, wr: torch.Tensor,
                          f"{_MAX_GRID_Z}")
     out = torch.empty((batch, m, n), dtype=torch.float32, device=tr.device)
     lib = _lib()
-    code = lib.optical_dft_stage2_batched(
-        tr.data_ptr(), ti.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-        out.data_ptr(), batch, m, kdim, n, tr.device.index, _stream(tr))
+    with torch.cuda.device(tr.device):  # the C entry launches on it
+        code = lib.optical_dft_stage2_batched(
+            tr.data_ptr(), ti.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+            out.data_ptr(), batch, m, kdim, n, _stream(tr))
     _raise_on(lib, "dft_stage2_batched", code)
     dft_stage2_batched.launches += 1
     return out

@@ -53,7 +53,7 @@ class Request:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, batch_slots: int = 4,
                  max_len: int = 256, eos_id: int | None = None,
-                 prompt_bucket: int = 1, offload: Any | None = None) -> None:
+                 offload: Any | None = None) -> None:
         self.cfg = cfg
         self.model = LM(cfg)
         self.params = compute_params(cfg, params)
@@ -61,13 +61,11 @@ class ServingEngine:
         self.slots = batch_slots
         self.max_len = max_len
         self.eos_id = eos_id
-        self.bucket = prompt_bucket
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}
         self.cache = self.model.init_cache(batch_slots, max_len,
                                            device=self.device)
         self.last_token = [0] * batch_slots
-        self.live = [False] * batch_slots
         # analog-offload hook: an OffloadScheduler / PlanRouter /
         # OffloadExecutor (duck-typed on submit/flush/pending, schedulers
         # additionally on poll) or None; aux submissions batch across
@@ -123,11 +121,9 @@ class ServingEngine:
         while free and self.queue:
             slot = free.pop(0)
             req = self.queue.pop(0)
-            plen = len(req.prompt)
-            # optional left-pad bucketing; pad tokens occupy real cache
-            # slots (set prompt_bucket=1 for exact)
-            pad = (-plen) % self.bucket
-            toks = torch.tensor([[0] * pad + req.prompt], dtype=torch.int64,
+            # prompts go in at their own length: eager PyTorch has no
+            # recompiles for the reference's prompt_bucket padding to bound
+            toks = torch.tensor([req.prompt], dtype=torch.int64,
                                 device=self.device)
             slot_cache, logits = self.model.prefill(
                 self.params, {"tokens": toks}, max_len=self.max_len)
@@ -135,7 +131,6 @@ class ServingEngine:
             nxt = int(torch.argmax(logits[0]))
             req.out_tokens.append(nxt)
             self.last_token[slot] = nxt
-            self.live[slot] = True
             self.active[slot] = req
 
     def step(self) -> list[Request]:
@@ -169,7 +164,6 @@ class ServingEngine:
                 req.done = True
                 finished.append(req)
                 del self.active[slot]
-                self.live[slot] = False
         return finished
 
     def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:

@@ -47,8 +47,7 @@ def _both(q, k, v, dtype, **kw):
         *(jnp.asarray(a, jdt) for a in (q, k, v)), block_q=64, block_k=64,
         **kw)
     got = tla.local_flash_attention(
-        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), block_q=64,
-        block_k=64, **kw)
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), **kw)
     assert got.dtype == tdt
     return np.asarray(want, np.float32), got.to(torch.float32).numpy()
 

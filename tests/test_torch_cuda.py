@@ -12,8 +12,10 @@ Bounds are the reference's (``tests/test_kernels.py``): stage 1 rtol 1e-4
 plain PyTorch version on the same card with TF32 off.  The executor's
 ``optical-sim`` frames are held to the ``host`` backend within 2e-4*max
 plus one 14-bit ADC step of the frame's full scale.  The flash-attention
-kernel is held to its plain version at the reference's bounds
-(``tests/test_kernels.py``): rtol/atol 2e-5 in float32, 3e-2 in bfloat16.
+kernel is held to its plain version at rtol/atol 2e-5 in float32, the
+reference's bound (``tests/test_kernels.py``), and at rtol 1e-2 / atol
+1e-3 in bfloat16: both sides compute in fp32 from the same inputs, so they
+differ by at most one bf16 rounding of the output (2^-7 relative).
 An LM prefill on the card goes through it once per layer and matches the
 same model's prefill on the CPU at the bf16 decode bound of
 ``tests/test_models.py`` (5e-2).
@@ -139,8 +141,9 @@ def test_flash_attention_matches_plain_version(cuda_device, lq, lk, d, groups,
                                           window=window, kv_groups=groups)
     torch.cuda.synchronize()
     assert la.local_flash_attention.launches == 1 and got.dtype == dtype
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 def test_gqa_wrapper_launches_the_kernel(cuda_device):
@@ -154,8 +157,8 @@ def test_gqa_wrapper_launches_the_kernel(cuda_device):
         kv_groups=4).reshape(2, 8, 517, 64)
     torch.cuda.synchronize()
     assert la.local_flash_attention.launches == 1
-    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
-                               atol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
 
 
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(

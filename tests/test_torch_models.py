@@ -300,6 +300,35 @@ def test_serving_matches_reference_engine_greedy(arch):
     assert all(len(r.out_tokens) == new for r in tdone)
 
 
+@pytest.mark.parametrize("stop", ["eos", "cache_full"])
+def test_serving_stops_like_reference_engine(stop):
+    """A request ends at its EOS token or when its cache lane is full, as
+    in the reference engine (float32 smoke qwen2, as above)."""
+    (jcfg, jp), (tcfg, tp) = _pair("qwen2-72b", dtype="float32")
+    prompt, new = [5, 9, 2, 7], 12
+    free = JEngine(jcfg, jp, batch_slots=2, max_len=64)
+    free.submit(JRequest(rid=0, prompt=prompt, max_new_tokens=new))
+    toks = free.run_to_completion()[0].out_tokens
+    kw = {"max_len": 64, "eos_id": None}
+    if stop == "eos":
+        # the first token that did not come before it, so it ends there
+        i = next(i for i in range(1, new) if toks[i] not in toks[:i])
+        kw["eos_id"] = toks[i]
+        want_len = i + 1
+    else:
+        kw["max_len"] = 10
+        want_len = None
+    jeng = JEngine(jcfg, jp, batch_slots=2, **kw)
+    teng = ServingEngine(tcfg, tp, batch_slots=2, **kw)
+    jeng.submit(JRequest(rid=0, prompt=prompt, max_new_tokens=new))
+    teng.submit(Request(rid=0, prompt=prompt, max_new_tokens=new))
+    jout = jeng.run_to_completion()[0].out_tokens
+    (treq,) = teng.run_to_completion()
+    assert treq.done and treq.out_tokens == jout
+    assert len(jout) < new and len(jout) == (want_len or len(jout))
+    assert treq.out_tokens == toks[:len(jout)]
+
+
 def test_serving_matches_offline_greedy():
     """Engine continuous batching == offline prefill + greedy decode, in
     the port alone (tests/test_system.py's test)."""

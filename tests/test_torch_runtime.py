@@ -320,8 +320,11 @@ def test_retry_exhaustion_falls_back_to_host():
             raise trt.TransientDispatchError("dropped handshake")
 
     trt.register_backend("flaky", Flaky)
+    # the executor's clock stands still, so the quarantine window (0.25 s)
+    # cannot lapse while the host frames below run on a busy machine
     ex = _ex(max_batch=4, retry=trt.RetryPolicy(max_attempts=2,
-                                                backoff_s=0.0))
+                                                backoff_s=0.0),
+             clock=trt.ManualClock())
     imgs = _tframes(3)
     hs = [ex.submit("fft", im, backend="flaky") for im in imgs]
     ex.flush()
