@@ -16,7 +16,15 @@ and read just after:
   from a seed) serving 8 requests through ``ServingEngine`` with 4 slots,
   every prefill's attention through the flash-attention kernel, with an
   ``OffloadScheduler`` on the engine's aux hook carrying 512x512 ``fft``
-  frames through the DFT kernels.
+  frames through the DFT kernels;
+* the training path: stablelm-1.6b at full width and depth taking 5 AdamW
+  steps (1 warm-up, 4 timed) through ``launch.train.train_loop`` on a
+  ``MarkovTask`` of 4 x 1024 tokens, every block rematerialized, every
+  attention through the flash-attention kernel's forward and its CUDA
+  backward;
+* the converter boundary's entry point ``ops.converter_boundary`` on a
+  2048x2048 float32 SLM frame and a 4096x2048 bfloat16 activation, with
+  and without noise.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -61,12 +69,29 @@ OFFLINE_RIDS = (1, 6)    # one request of each admission round
 AUX_FRAMES = 4           # 512x512 fft frames on the engine's aux hook
 ATTN_TIMED_LENS = (512, 1024)
 
+# the training path: stablelm-1.6b at full width, 4 x 1024 tokens a step
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 5          # 1 warm-up step + 4 timed
+TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+# the converter boundary: one BATCHED_4F SLM frame (2048^2, float32) and
+# stablelm-1.6b's activation at the training batch (4 x 1024 tokens x 2048)
+BOUNDARY_CASES = [((2048, 2048), torch.float32), ((4096, 2048),
+                                                  torch.bfloat16)]
+BOUNDARY_NOISE_STD = 0.02
+
 SOURCE = "src/repro_torch/csrc/optical_dft.cu"
 ATTN_SOURCE = "src/repro_torch/csrc/local_attention.cu"
+ADC_SOURCE = "src/repro_torch/csrc/adc_dac.cu"
 REPLACES = {
     "dft_stage1_batched": "src/repro/kernels/optical_dft.py:176",
     "dft_stage2_batched": "src/repro/kernels/optical_dft.py:305",
     "local_flash_attention": "src/repro/kernels/local_attention.py:106",
+    # the reference differentiates its chunked jnp attention instead
+    "local_flash_attention_backward":
+        "src/repro/kernels/local_attention.py:106",
+    "converter_boundary": "src/repro/kernels/adc_dac.py:62",
 }
 
 
@@ -107,6 +132,28 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20) -> tuple[float | None, dict]:
+    """Device time per call of ``fn`` under torch.profiler: the sum of its
+    CUDA kernels' time over ``calls`` back-to-back calls, divided by
+    ``calls``, and the same per kernel name.  For work so short that the
+    host's launches, not the card, set the event-timed wall.  (None, {})
+    when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: e.self_device_time_total / 1e3 / calls
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    total = sum(by_name.values())
+    return (total if total else None), by_name
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -727,13 +774,343 @@ def attention_times(la, dev, serving: dict, err: float) -> dict:
             "at": {str(l): rows[l] for l in ATTN_TIMED_LENS}}
 
 
+# --- phase 6: the training path ----------------------------------------------
+
+
+def attn_grads(fn, q, k, v, dout):
+    """(out, dq, dk, dv) of ``fn`` at fresh leaves made from q, k, v."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def check_attention_backward(la, dev) -> float:
+    """Kernel 6's backward against the plain version's autograd on the
+    card: the (128, 1024, 64) bf16 causal shape every training step
+    launched (within 2e-2 * max|plain|: the kernel takes its row sums
+    dO . O from the bf16-rounded output), and f32, GQA and windowed cases
+    (within 1e-4 * max|plain|: summation order only); then two launches
+    on the same inputs must give bit-equal gradients.  Returns the max
+    |err| of the training shape."""
+    rng = np.random.default_rng(SEED + 8)
+    bh = TRAIN_BATCH * 32
+    cases = [(bh, TRAIN_SEQ, 64, 1, torch.bfloat16, True, 0, 2e-2),
+             (32, 1000, 64, 1, torch.float32, True, 0, 1e-4),
+             (32, 517, 64, 4, torch.float32, True, 0, 1e-4),
+             (32, 777, 64, 1, torch.float32, True, 256, 1e-4),
+             (16, 333, 128, 2, torch.float32, False, 64, 1e-4),
+             (32, 1023, 64, 8, torch.bfloat16, True, 200, 2e-2)]
+    err_train = 0.0
+    for bhq, l, d, g, dtype, causal, window, tol in cases:
+        q, k, v = attn_inputs(rng, bhq, l, d, g, dtype, dev)
+        dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+        kw = dict(causal=causal, window=window, kv_groups=g)
+        got = attn_grads(lambda *t: la.local_flash_attention(*t, **kw),
+                         q, k, v, dout)
+        want = attn_grads(lambda *t: la.local_flash_attention_plain(
+            *t, **kw), q, k, v, dout)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            err = float((a.float() - b.float()).abs().max())
+            top = float(b.float().abs().max())
+            check(a.dtype == dtype and err <= tol * top,
+                  f"attention backward {name} ({bhq}, {l}, {d}) groups {g} "
+                  f"{dtype} causal {causal} window {window}: max |err| "
+                  f"{err:.3e} > {tol} * max|plain| {top:.3e}")
+            errs.append(err)
+        if (bhq, l, dtype) == (bh, TRAIN_SEQ, torch.bfloat16):
+            err_train = max(errs)
+        again = attn_grads(lambda *t: la.local_flash_attention(*t, **kw),
+                           q, k, v, dout)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"attention backward ({bhq}, {l}, {d}) {dtype}: two launches "
+              "on the same inputs differ")
+    print(f"  attention backward vs plain autograd: {len(cases)} shapes ok "
+          f"(bf16 causal ({bh}, {TRAIN_SEQ}, 64), the training shape: max "
+          f"|err| {err_train:.3e} within 2e-2 * max|plain|; f32, GQA and "
+          "windowed within 1e-4 * max|plain|); bit-equal on a repeat launch")
+    return err_train
+
+
+def phase_training(la, dev, card: str) -> dict:
+    import shutil
+    from repro_torch import configs
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import LM, param_counts
+    from repro_torch.models.params import leaves
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import loss_and_grads, make_train_step
+
+    cfg = configs.get_config(ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+           cfg.vocab_size) == (24, 2048, 32, 64, 5632, 100352),
+          f"{ARCH} is not at full width and depth")
+    n_params = param_counts(cfg)[0]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    starts: list[float] = []
+
+    def mark(step: int) -> None:
+        # runs at the start of every step; each step ends with the host
+        # reading its loss (log_every=1), so the gaps are step walls
+        starts.append(time.perf_counter())
+
+    la.reset_launches()
+    t0 = time.perf_counter()
+    state, losses, task = ttrain.train_loop(
+        ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, ckpt_dir=str(TRAIN_CKPT), log_every=1, seed=SEED,
+        fault_hook=mark, device=dev)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {"local_flash_attention": la.local_flash_attention.launches,
+                "local_flash_attention_backward":
+                    la.local_flash_attention.backward_launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
+    print(f"  {ARCH}: {n_params:,} parameters, {TRAIN_STEPS} steps of "
+          f"{tokens} tokens in {t_end - t0:.2f} s (init included); "
+          f"launches {launches}; peak memory {peak_gb:.2f} GB "
+          f"({held_gb:.2f} GB held by earlier phases)")
+
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(len(walls) == TRAIN_STEPS, f"{len(walls)} step marks")
+    check(launches["local_flash_attention"] == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"attention forward launched {launches['local_flash_attention']} "
+          f"times in {TRAIN_STEPS} steps (want 2 x {cfg.n_layers} a step: "
+          "forward and recompute)")
+    check(launches["local_flash_attention_backward"]
+          == cfg.n_layers * TRAIN_STEPS,
+          f"attention backward launched "
+          f"{launches['local_flash_attention_backward']} times in "
+          f"{TRAIN_STEPS} steps (want {cfg.n_layers} a step)")
+    check(not TRAIN_CKPT.exists() or not any(TRAIN_CKPT.iterdir()),
+          "the training phase wrote a checkpoint")
+
+    params, opt_state = state
+    model = LM(cfg)
+    batch = task.batch(TRAIN_STEPS, dev)
+    loss, _, grads = loss_and_grads(model, params, batch)
+    flat = {"/".join(path): g for path, g in leaves(grads)}
+    finite = all(bool(torch.isfinite(g).all()) for g in flat.values())
+    check(bool(torch.isfinite(loss)) and finite,
+          "a gradient leaf is not finite")
+    for name in ("w_q", "w_k", "w_v"):
+        g = flat[f"stack/0_attn/attn/{name}"]
+        check(all(float(g[i].abs().max()) > 0.0 for i in range(cfg.n_layers)),
+              f"{name}: a layer got no gradient")
+    print(f"  all {len(flat)} gradient leaves finite; w_q, w_k, w_v nonzero "
+          f"in all {cfg.n_layers} layers")
+    del grads, flat
+
+    opt = adamw(lambda s: warmup_cosine(s, peak_lr=3e-3,
+                                        warmup_steps=TRAIN_STEPS // 10 + 1,
+                                        total_steps=TRAIN_STEPS))
+    step_fn = make_train_step(model, opt)
+
+    def one_step() -> float:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch, TRAIN_STEPS)
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    profiled = profile_flush(one_step, "training step")
+    timed = walls[1:]
+    step_s = statistics.median(timed)
+    flops = 6 * n_params * tokens
+    out = {"arch": ARCH, "params": n_params, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "losses": losses,
+           "step_wall_s": walls, "step_wall_s_median": step_s,
+           "tokens_per_s": tokens / step_s,
+           "model_flops_per_step": flops,
+           "model_tflops": flops / step_s / 1e12,
+           "mfu_bf16": flops / step_s / PEAK_BF16_FLOPS,
+           "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+           "launches": launches, "profiled_step": profiled}
+    print(f"  [{card}] step walls (s) {', '.join(f'{w:.4f}' for w in walls)}"
+          f"; median of the 4 timed {step_s:.4f} s, "
+          f"{out['tokens_per_s']:.1f} tokens/s")
+    print(f"  [{card}] model FLOP/s (6 N T): {out['model_tflops']:.2f} "
+          f"TFLOP/s, {100 * out['mfu_bf16']:.2f} % of 989 TFLOP/s bf16; "
+          f"peak memory {peak_gb:.2f} GB; device busy share of one profiled "
+          f"step {profiled['device_busy_share']}")
+    return out
+
+
+def attention_train_times(la, dev, training: dict, err: float,
+                          card: str) -> tuple[dict, dict]:
+    """Kernel 6's forward (with its log-sum-exp, as training runs it) and
+    its backward at the training shape (128, 1024, 64) bf16 causal: kernel,
+    plain version (its autograd for the backward) and one
+    ``scaled_dot_product_attention`` forward and backward (the library
+    yardstick, timed only), with the bounds.  Returns (forward numbers,
+    the backward's kernel row)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(SEED + 9)
+    b, h, l, d = TRAIN_BATCH, 32, TRAIN_SEQ, 64
+    bh = b * h
+    q, k, v = attn_inputs(rng, bh, l, d, 1, torch.bfloat16, dev)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=dev, dtype=torch.bfloat16)
+    scale = d ** -0.5
+    out, lse = la._forward(q, k, v, scale, 0, True, 1, with_lse=True)
+    fwd = lambda: la._forward(q, k, v, scale, 0, True, 1, with_lse=True)
+    bwd = lambda: la._backward(q, k, v, out, lse, dout, scale, 0, True, 1)
+    qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+    plain_out = la.local_flash_attention_plain(qp, kp, vp, causal=True)
+    plain_fwd = lambda: la.local_flash_attention_plain(q, k, v, causal=True)
+    plain_bwd = lambda: torch.autograd.grad(plain_out, (qp, kp, vp), dout,
+                                            retain_graph=True)
+    q4, k4, v4 = (t.view(b, h, l, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_fwd = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                     is_causal=True)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (q4, k4, v4),
+                                          dout.view(b, h, l, d),
+                                          retain_graph=True)
+    ms = {}
+    for name, kern, plain in (("fwd", fwd, plain_fwd), ("bwd", bwd,
+                                                        plain_bwd)):
+        t = [median_ms(kern), median_ms(plain), median_ms(plain),
+             median_ms(kern)]
+        ms[name] = statistics.mean((t[0], t[3]))
+        ms["plain_" + name] = statistics.mean((t[1], t[2]))
+    ms["lib_fwd"] = median_ms(lib_fwd)
+    ms["lib_bwd"] = median_ms(lib_bwd)
+    flops_f = 2 * bh * l * l * d          # QK^T and PV, causal half each
+    flops_b = 5 * flops_f // 2            # dS, dQ, dK, dV and P: 2.5x
+    bytes_f = 2 * 4 * bh * l * d + 4 * bh * l          # q k v out + lse
+    bytes_b = 2 * 8 * bh * l * d + 4 * bh * l          # + dout, dq dk dv
+    bound = {}
+    for name, fl, by in (("fwd", flops_f, bytes_f), ("bwd", flops_b,
+                                                     bytes_b)):
+        t_ops = fl / PEAK_BF16_FLOPS * 1e3
+        t_bytes = by / PEAK_BYTES_S * 1e3
+        bound[name] = (max(t_ops, t_bytes),
+                       "operations" if t_ops >= t_bytes else "bytes")
+    for name, label in (("fwd", "forward (with lse)"), ("bwd", "backward")):
+        print(f"  [{card}] local_flash_attention {label} ({bh}, {l}, {d}) "
+              f"bf16 causal: kernel {ms[name]:.4f} ms, plain "
+              f"{ms['plain_' + name]:.4f} ms, SDPA {ms['lib_' + name]:.4f} "
+              f"ms, bound {bound[name][0]:.4f} ms ({bound[name][1]})")
+    print(f"  [{card}] forward + backward: kernel "
+          f"{ms['fwd'] + ms['bwd']:.4f} ms, SDPA "
+          f"{ms['lib_fwd'] + ms['lib_bwd']:.4f} ms")
+    fwd_row = {"shape": [bh, l, d], "dtype": "bfloat16", "causal": True,
+               "ms": ms["fwd"], "plain_ms": ms["plain_fwd"],
+               "library_ms": ms["lib_fwd"], "bound_ms": bound["fwd"][0],
+               "bound_by": bound["fwd"][1],
+               "launches": training["launches"]["local_flash_attention"]}
+    bwd_row = {"name": "local_flash_attention_backward", "route": "cuda",
+               "source": ATTN_SOURCE,
+               "replaces": REPLACES["local_flash_attention_backward"],
+               "launches": training["launches"][
+                   "local_flash_attention_backward"],
+               "max_abs_err": err, "ms": ms["bwd"],
+               "plain_ms": ms["plain_bwd"], "bound_ms": bound["bwd"][0],
+               "bound_by": bound["bwd"][1], "library_ms": ms["lib_bwd"],
+               "shape": [bh, l, d], "dtype": "bfloat16", "causal": True,
+               "fwd_plus_bwd_ms": ms["fwd"] + ms["bwd"],
+               "library_fwd_plus_bwd_ms": ms["lib_fwd"] + ms["lib_bwd"]}
+    return fwd_row, bwd_row
+
+
+# --- phase 7: the converter boundary -------------------------------------------
+
+
+def phase_boundary(cb, ops, dev, card: str) -> dict:
+    """``ops.converter_boundary`` at its shapes with and without noise,
+    launches counted; each result against the plain version at the
+    reference's bound (rtol 1e-6, atol 1.5 ADC steps); times against the
+    bytes bound (x and noise read once, out written once).  The wrapper's
+    host launches outlast its device work at these sizes, so its time is
+    the profiler's device time per call (the event-timed wall beside
+    it)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    inputs = []
+    for shape, dtype in BOUNDARY_CASES:
+        x = (torch.rand(shape, generator=gen, device=dev) if dtype ==
+             torch.float32 else torch.randn(shape, generator=gen,
+                                            device=dev)).to(dtype)
+        nz = torch.randn(shape, generator=gen, device=dev)
+        for noise in (nz, None):
+            inputs.append((x, noise))
+    torch.cuda.synchronize()
+    adc_bits = dac_bits = 8
+    kw = dict(dac_bits=dac_bits, adc_bits=adc_bits,
+              noise_std=BOUNDARY_NOISE_STD)
+    cb.reset_launches()
+    outs = [ops.converter_boundary(x, nz, **kw) for x, nz in inputs]
+    torch.cuda.synchronize()
+    launches = cb.converter_boundary.launches
+    check(launches == len(inputs), f"converter_boundary launched {launches} "
+          f"times for {len(inputs)} calls")
+    atol = 1.5 / ((1 << adc_bits) - 1)
+    err, rows = 0.0, []
+    for (x, nz), got in zip(inputs, outs):
+        want = cb.converter_boundary_plain(x, nz, **kw)
+        e = float((got.float() - want.float()).abs().max())
+        exact = bool(torch.equal(got, want))
+        check(got.dtype == x.dtype and got.shape == x.shape
+              and max_violation(got.float(), want.float(), 1e-6, atol) <= 0,
+              f"converter_boundary {tuple(x.shape)} {x.dtype} noise "
+              f"{nz is not None}: max |err| {e:.3e} outside rtol 1e-6 / "
+              f"atol {atol:.3e}")
+        err = max(err, e)
+        kern = lambda: ops.converter_boundary(x, nz, **kw)
+        plain = lambda: cb.converter_boundary_plain(x, nz, **kw)
+        wall = [median_ms(kern), median_ms(plain), median_ms(plain),
+                median_ms(kern)]
+        dev_ms, by_name = device_ms(kern)
+        plain_dev_ms, _ = device_ms(plain)
+        nbytes = 2 * x.numel() * x.element_size() + (
+            0 if nz is None else nz.numel() * nz.element_size())
+        row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+               "noise": nz is not None, "max_abs_err": e,
+               "bit_equal_to_plain": exact,
+               # device time of the wrapper (max reduction + kernel)
+               "ms": dev_ms, "plain_ms": plain_dev_ms,
+               "kernel_only_ms": sum(v for k, v in by_name.items()
+                                     if "converter_boundary_kernel" in k),
+               "wall_ms": statistics.mean((wall[0], wall[3])),
+               "plain_wall_ms": statistics.mean((wall[1], wall[2])),
+               "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bytes": nbytes}
+        rows.append(row)
+        print(f"  [{card}] converter_boundary {tuple(x.shape)} {row['dtype']}"
+              f" noise {row['noise']}: device time per call {row['ms']} ms "
+              f"(the kernel alone {row['kernel_only_ms']} ms), plain "
+              f"{row['plain_ms']} ms; event-timed wall {row['wall_ms']:.4f}"
+              f" ms, plain {row['plain_wall_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms (bytes); max |err| {e:.3e}, "
+              f"bit-equal {exact}")
+    main = rows[0]
+    return {"name": "converter_boundary", "route": "cuda",
+            "source": ADC_SOURCE, "replaces": REPLACES["converter_boundary"],
+            "launches": launches, "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "shape": main["shape"], "dtype": main["dtype"],
+            "noise_std": BOUNDARY_NOISE_STD, "at": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import adc_dac as cb
     from repro_torch.kernels import build
     from repro_torch.kernels import local_attention as la
+    from repro_torch.kernels import ops
     from repro_torch.kernels import optical_dft as od
     import repro_torch.runtime as rt
 
@@ -747,7 +1124,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"  nvcc build {time.perf_counter() - t0:.2f} s")
-    for stem in ("optical_dft", "local_attention"):
+    for stem in ("optical_dft", "local_attention", "adc_dac"):
         print("  " + build.build_log(stem).strip().replace("\n", "\n  "))
 
     budget = rt.MemoryBudget.detect(dev)
@@ -766,9 +1143,25 @@ def main() -> int:
     print("phase 5: serving path")
     serving = phase_serving(rt, od, la, dev)
     attn_err = check_attention(la, dev, PROMPT_LENS)
-    rows.append(attention_times(la, dev, serving, attn_err))
+    attn_row = attention_times(la, dev, serving, attn_err)
+
+    print("phase 6: training path")
+    training = phase_training(la, dev, card)
+    bwd_err = check_attention_backward(la, dev)
+    at_train, bwd_row = attention_train_times(la, dev, training, bwd_err,
+                                              card)
+    attn_row["launches_by_path"] = {
+        "serving": serving["launches"]["local_flash_attention"],
+        "training": training["launches"]["local_flash_attention"]}
+    attn_row["launches"] = sum(attn_row["launches_by_path"].values())
+    attn_row["at_training"] = at_train
+    rows += [attn_row, bwd_row]
+
+    print("phase 7: converter boundary")
+    rows.append(phase_boundary(cb, ops, dev, card))
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

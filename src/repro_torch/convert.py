@@ -14,6 +14,10 @@ the reference:
   :func:`lm_params_from_numpy`  turns the reference's ``init_params`` tree,
                                 given as numpy arrays, into the port's
                                 parameters, so both compute the same thing.
+  :func:`adamw_state_from_numpy` turns the reference's AdamW state
+                                (``{"m", "v"}`` trees of numpy arrays)
+                                into the port's, so training resumes
+                                where the reference left it.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from repro_torch.core.conversion import ConverterSpec
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.params import model_templates
 
-__all__ = ["spec_from_fields", "tensor_from_numpy", "lm_params_from_numpy"]
+__all__ = ["spec_from_fields", "tensor_from_numpy", "lm_params_from_numpy",
+           "adamw_state_from_numpy"]
 
 _SPECS = (ConverterSpec, OpticalFourierAcceleratorSpec,
           OpticalMVMAcceleratorSpec)
@@ -78,16 +83,12 @@ def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                         device: str | torch.device = "cuda") -> dict:
-    """The port's parameters from the reference's ``init_params`` tree
-    (nested dicts of arrays, e.g. ``jax.tree_util.tree_map(np.asarray,
-    params)``), on ``device`` in the config's ``param_dtype``.
-
-    The tree must have exactly the port's template keys and shapes for
-    ``cfg``; raises ``ValueError`` naming the first leaf that differs.
-    """
-    dtype = torch_dtype(cfg.param_dtype)
+def _from_template(tree: Mapping[str, Any], cfg: ModelConfig, device,
+                   dtype_of) -> dict:
+    """``tree`` as tensors on ``device``, checked leaf by leaf against the
+    port's parameter templates for ``cfg``; ``dtype_of(spec)`` gives each
+    leaf's dtype.  Raises ``ValueError`` naming the first leaf that
+    differs in keys or shape."""
 
     def walk(spec_node, node, path):
         if isinstance(spec_node, dict):
@@ -101,7 +102,34 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
         if shape != spec_node.shape:
             raise ValueError(f"{path}: expected shape {spec_node.shape}, "
                              f"got {shape}")
-        return _tensor(node, device, torch_dtype(spec_node.dtype)
-                       if spec_node.dtype else dtype)
+        return _tensor(node, device, dtype_of(spec_node))
 
     return walk(model_templates(cfg), tree, "")
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's parameters from the reference's ``init_params`` tree
+    (nested dicts of arrays, e.g. ``jax.tree_util.tree_map(np.asarray,
+    params)``), on ``device`` in the config's ``param_dtype``.
+
+    The tree must have exactly the port's template keys and shapes for
+    ``cfg``; raises ``ValueError`` naming the first leaf that differs.
+    """
+    dtype = torch_dtype(cfg.param_dtype)
+    return _from_template(tree, cfg, device, lambda spec: torch_dtype(
+        spec.dtype) if spec.dtype else dtype)
+
+
+def adamw_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,
+                           device: str | torch.device = "cuda") -> dict:
+    """The port's AdamW state from the reference's ``adamw(...).init`` /
+    ``update`` state ``{"m": tree, "v": tree}`` as numpy arrays: float32
+    moments on ``device``, each tree checked against the parameter
+    templates as :func:`lm_params_from_numpy` checks parameters."""
+    if not isinstance(state, Mapping) or set(state) != {"m", "v"}:
+        got = sorted(state) if isinstance(state, Mapping) else state
+        raise ValueError(f"AdamW state: expected keys ['m', 'v'], got {got}")
+    return {k: _from_template(state[k], cfg, device,
+                              lambda spec: torch.float32)
+            for k in ("m", "v")}

@@ -1,4 +1,5 @@
-"""Distributed runtime pieces of the port (so far: straggler deadlines)."""
+"""Distributed runtime pieces of the port (so far: straggler deadlines and
+the fault-tolerant training runner, ``distributed.fault``)."""
 
 from repro_torch.distributed.straggler import TrailingMedianDeadline
 

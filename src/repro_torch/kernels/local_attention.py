@@ -1,7 +1,9 @@
 """Blocked causal / sliding-window flash attention on Hopper.
 
-Used by every prefill of the LM stack (``models.attention.gqa_full``) and,
-in the reference, by the RecurrentGemma hybrid blocks' local attention.
+Used by every full-sequence attention of the LM stack
+(``models.attention.gqa_full``: each prefill, and each training step,
+forward and backward) and, in the reference, by the RecurrentGemma hybrid
+blocks' local attention.
 The kernel is hand-written CUDA for ``sm_90a``
 (``repro_torch/csrc/local_attention.cu``, built by
 :mod:`repro_torch.kernels.build` and called through ``ctypes``).  It
@@ -15,11 +17,20 @@ work (the reference's ``pick_block`` falls back to one whole-axis block).
 The source note says what bounds it on an H100 and what its design does
 about that.
 
+The kernel is differentiable: when autograd needs a gradient of q, k or
+v, the forward also writes each row's log-sum-exp and the backward is a
+CUDA kernel too (three launches in one call: delta, dK/dV, dQ), behind a
+``torch.autograd.Function``.  The reference has no backward kernel (it
+trains through ``_sdpa_chunked``); the port trains through this one.
+Without a gradient (serving) the forward writes no log-sum-exp.
+
 Beside it sits its plain PyTorch version,
 :func:`local_flash_attention_plain`: the dense masked softmax in fp32
-that the reference's ``_sdpa_chunked`` computes.  The wrapper takes it
-only for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  It counts its launches in ``local_flash_attention.launches``.
+that the reference's ``_sdpa_chunked`` computes, and its autograd is the
+backward's plain version.  The wrapper takes it only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.  It counts its
+forward launches in ``local_flash_attention.launches`` and its backward
+calls in ``local_flash_attention.backward_launches``.
 """
 
 from __future__ import annotations
@@ -85,9 +96,12 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import library
     lib = library("local_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.local_attention_forward.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                            ctypes.c_float, i, i, p]
+    lib.local_attention_forward.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                            i, ctypes.c_float, i, i, p]
     lib.local_attention_forward.restype = i
+    lib.local_attention_backward.argtypes = [p] * 10 + [i] * 6 + [
+        ctypes.c_float, i, i, p]
+    lib.local_attention_backward.restype = i
     lib.local_attention_error_string.argtypes = [i]
     lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -118,6 +132,82 @@ def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return False
 
 
+def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.local_attention_error_string(code).decode()
+        raise RuntimeError(f"local_flash_attention{what}: CUDA error "
+                           f"{code}: {msg}")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float, window: int, causal: bool, kv_groups: int,
+             with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch the forward kernel: (out, lse or None)."""
+    bh, lq, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if bh == 0 or lq == 0:
+        return out, lse
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):   # the C entry launches on it
+        code = lib.local_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype],
+            bh, lq, k.shape[1], d, kv_groups, scale, int(causal), window,
+            stream)
+    _check(lib, code, "")
+    local_flash_attention.launches += 1
+    return out, lse
+
+
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+              scale: float, window: int, causal: bool, kv_groups: int,
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels on the forward's inputs, output and
+    log-sum-exp and the output's gradient: (dq, dk, dv)."""
+    bh, lq, d = q.shape
+    dout = dout.to(q.dtype).contiguous()
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if bh == 0 or lq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.local_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], bh, lq, k.shape[1], d, kv_groups, scale,
+            int(causal), window, stream)
+    _check(lib, code, " backward")
+    local_flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel under autograd: the forward keeps its log-sum-exp, the
+    backward is the CUDA backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, causal, kv_groups):
+        out, lse = _forward(q, k, v, scale, window, causal, kv_groups,
+                            with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, window, causal, kv_groups)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, scale: float | None = None,
                           window: int = 0, causal: bool = True,
@@ -133,7 +223,9 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
       causal: lower-triangular masking (assumes aligned q/k positions).
 
     The kernel tiles by 64 queries x 64 keys; unlike the reference's Pallas
-    kernel it takes no block sizes.
+    kernel it takes no block sizes.  Gradients flow to q, k and v: through
+    the CUDA backward on the card, through the plain version's autograd on
+    the CPU.
     """
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError("local_flash_attention: expected q (BH, Lq, D) and "
@@ -158,27 +250,19 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if bh > _MAX_GRID_Y:
         raise ValueError(f"local_flash_attention: BH {bh} exceeds "
                          f"{_MAX_GRID_Y}")
-    out = torch.empty_like(q)
-    if bh == 0 or lq == 0:
-        return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):   # the C entry launches on it
-        code = lib.local_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], bh, lq, lk, d, kv_groups, scale,
-            int(causal), window, stream)
-    if code != 0:
-        msg = lib.local_attention_error_string(code).decode()
-        raise RuntimeError(f"local_flash_attention: CUDA error {code}: "
-                           f"{msg}")
-    local_flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, window, causal,
+                                     kv_groups)
+    return _forward(q, k, v, scale, window, causal, kv_groups,
+                    with_lse=False)[0]
 
 
 local_flash_attention.launches = 0
+local_flash_attention.backward_launches = 0
 
 
 def reset_launches() -> None:
-    """Set the kernel's launch counter to 0."""
+    """Set the kernel's forward and backward launch counters to 0."""
     local_flash_attention.launches = 0
+    local_flash_attention.backward_launches = 0

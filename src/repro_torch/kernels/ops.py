@@ -2,16 +2,17 @@
 
 Call sites import from here; the kernels and their build stay private.
 Each wrapper runs its CUDA kernel for tensors on the card and its plain
-PyTorch version for tensors on the CPU.  Ported: the DFT stages
-(``optical_dft``) and the flash attention (``local_flash_attention``,
-with the 4-D ``gqa_flash_attention`` wrapper).  The reference's
-``converter_boundary`` is not ported yet (``ROADMAP.md``).
+PyTorch version for tensors on the CPU: the DFT stages
+(``optical_dft``), the converter boundary (``converter_boundary``) and the
+flash attention (``local_flash_attention``, with the 4-D
+``gqa_flash_attention`` wrapper), which is differentiable.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.adc_dac import converter_boundary
 from repro_torch.kernels.local_attention import local_flash_attention
 from repro_torch.kernels.optical_dft import (
     dft_matrix_factors,
@@ -31,6 +32,7 @@ __all__ = [
     "dft_stage2",
     "dft_stage2_batched",
     "dft_matrix_factors",
+    "converter_boundary",
     "local_flash_attention",
     "gqa_flash_attention",
 ]

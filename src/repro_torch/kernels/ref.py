@@ -2,8 +2,9 @@
 
 Each function is the semantic specification of its kernel: the DFT
 stages with complex64 products and library FFTs rather than the kernels'
-(re, im) planes, attention as a dense masked softmax with the KV heads
-repeated; tests sweep shapes and assert kernel-vs-oracle agreement.
+(re, im) planes, the converter boundary as the reference's three passes,
+attention as a dense masked softmax with the KV heads repeated; tests
+sweep shapes and assert kernel-vs-oracle agreement.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ __all__ = [
     "optical_dft2_intensity_ref",
     "dft_stage1_ref",
     "dft_stage2_ref",
+    "converter_boundary_ref",
     "local_attention_ref",
 ]
 
@@ -48,6 +50,18 @@ def optical_dft2_intensity_ref(a: torch.Tensor, *,
         a = _quantize(a, dac_bits)
     f = torch.fft.fft2(a.to(torch.complex64), norm="ortho")
     return f.abs() ** 2
+
+
+def converter_boundary_ref(x, noise=None, *, dac_bits: int = 8,
+                           adc_bits: int = 8, noise_std: float = 0.0):
+    """DAC quantize -> + noise_std * noise -> ADC at max(max(x), 1e-20)."""
+    y = _quantize(x.to(torch.float32), dac_bits)
+    if noise is not None and noise_std > 0.0:
+        y = y + noise_std * noise.to(torch.float32)
+    scale = torch.clamp_min(torch.max(x), 1e-20).to(torch.float32)
+    z = torch.clamp(y / scale, 0.0, 1.0)
+    levels = (1 << adc_bits) - 1
+    return (torch.round(z * levels) / levels * scale).to(x.dtype)
 
 
 def local_attention_ref(q, k, v, *, scale=None, window: int = 0,

@@ -3,20 +3,23 @@
 Each function computes what its namesake in ``repro.models.layers`` does.
 A matmul weight is taken in the activation dtype (``w.to(x.dtype)``), as
 the reference casts it on every call; the port casts the weights once when
-a model is loaded (``repro_torch.models.params.compute_params``), after
-which ``.to`` returns the tensor itself and copies nothing.
-``chunked_ce_loss`` and ``causal_conv1d`` wait for the training and
-recurrent slices.
+a model is loaded for serving (``repro_torch.models.params.
+compute_params``), after which ``.to`` returns the tensor itself and
+copies nothing; training keeps the float32 master weights and casts them
+inside the graph on every call, so that the gradients land on them.
+``causal_conv1d`` waits for the recurrent slice.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "rope", "mlp_apply", "embed_tokens"]
+__all__ = ["rms_norm", "rope", "mlp_apply", "embed_tokens",
+           "chunked_ce_loss"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -72,3 +75,45 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens].to(cfg.activation_dtype)
+
+
+def _ce_chunk(xc: torch.Tensor, lc: torch.Tensor, hw: torch.Tensor,
+              vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of CE over valid positions, number of valid positions) of one
+    sequence chunk: xc (B, sc, D), lc (B, sc)."""
+    logits = (xc @ hw.T).to(torch.float32)               # (B, sc, Vp)
+    if hw.shape[0] != vocab:
+        col = torch.arange(hw.shape[0], device=xc.device)
+        logits = torch.where(col < vocab, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    lbl = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    valid = (lc >= 0).to(torch.float32)
+    return torch.sum((lse - lbl) * valid), torch.sum(valid)
+
+
+def chunked_ce_loss(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
+                    labels: torch.Tensor
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Cross-entropy with the vocab projection computed in sequence chunks.
+
+    Never materializes the full (B, S, V) logits: each of
+    ``cfg.logit_chunks`` chunks runs under ``torch.utils.checkpoint``, as
+    the reference ``jax.checkpoint``s its scan body, so backward recomputes
+    the chunk's (B, S/chunks, Vp) fp32 logits instead of saving them.
+    Padded vocab columns are masked with -1e30; ``labels == -1`` means
+    "ignore position".
+    """
+    b, s, _ = x.shape
+    chunks = cfg.logit_chunks if s % cfg.logit_chunks == 0 else 1
+    sc = s // chunks
+    hw = head.to(cfg.activation_dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(chunks):
+        t, n = checkpoint(_ce_chunk, x[:, c * sc:(c + 1) * sc],
+                          labels[:, c * sc:(c + 1) * sc], hw, cfg.vocab_size,
+                          use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"ce_sum": tot, "n_tokens": cnt}

@@ -2,13 +2,18 @@
 
 The reference compiles the stack as ``prefix + lax.scan over super-blocks
 + tail``; the port walks the same stacked parameters with a Python loop
-over the layer axis.  Its sharding constraints are identity off a mesh and
-are left out.  The port runs the dense ``attn`` block kind only: ``LM``
-refuses any other config (``params.check_ported``), and ``loss``
-(training) raises ``NotImplementedError`` until its slice lands
-(``ROADMAP.md``).
+over the layer axis (one ``unbind`` of each stacked leaf per traversal,
+so that backward stacks the layers' gradients once).  Its sharding
+constraints are identity off a mesh and are left out.  The port runs the
+dense ``attn`` block kind only: ``LM`` refuses any other config
+(``params.check_ported``).
 
 Entry points:
+  ``loss``         — training forward: every stacked block under
+                     ``torch.utils.checkpoint`` (the reference's default
+                     "full" remat policy), chunked cross-entropy; every
+                     layer's attention goes through the flash-attention
+                     kernel and its CUDA backward
   ``prefill``      — full-sequence forward that also builds the decode
                      cache; every layer's attention goes through the
                      flash-attention kernel
@@ -18,13 +23,16 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_tokens, mlp_apply, rms_norm
+from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
+                                       mlp_apply, rms_norm)
 from repro_torch.models.params import check_ported, map_tree
 
 __all__ = ["LM"]
@@ -125,8 +133,9 @@ class LM:
             if section not in params:
                 continue
             if section == "stack":
+                layers = map_tree(lambda t: t.unbind(0), params["stack"])
                 for i in range(self.cfg.layer_plan().n_super):
-                    lp = _layer(params["stack"], i)
+                    lp = map_tree(lambda ts: ts[i], layers)
                     for key in _ordered(lp):
                         yield section, key, i, lp[key]
             else:
@@ -134,14 +143,24 @@ class LM:
                     yield section, key, None, params[section][key]
 
     def _forward(self, params: dict, x: torch.Tensor, *,
-                 build_cache: bool = False):
+                 build_cache: bool = False, remat: bool = False):
         """Shared full-sequence traversal.  Returns (x, caches): caches in
-        the reference's layout, stacked layers on a leading axis."""
+        the reference's layout, stacked layers on a leading axis.  With
+        ``remat`` every stacked block runs under ``torch.utils.checkpoint``
+        (backward recomputes it), as the reference checkpoints its scan
+        body."""
         cfg = self.cfg
         caches: dict[str, Any] = {}
         stack: dict[str, list] = {}
         for section, key, i, lp in self._sections(params):
-            x, c = _block_full(cfg, lp, x, pos0=0, build_cache=build_cache)
+            if remat and i is not None and not build_cache:
+                # bind lp now: the recompute runs after the loop has moved on
+                x, c = checkpoint(functools.partial(
+                    _block_full, cfg, lp, pos0=0, build_cache=False), x,
+                    use_reentrant=False)
+            else:
+                x, c = _block_full(cfg, lp, x, pos0=0,
+                                   build_cache=build_cache)
             if not build_cache:
                 continue
             if i is None:
@@ -157,9 +176,24 @@ class LM:
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
 
     # ----- public entry points ---------------------------------------------------
-    def loss(self, params: dict, batch: dict):
-        raise NotImplementedError("training (loss, chunked_ce_loss) is not "
-                                  "ported yet; see ROADMAP.md")
+    def loss(self, params: dict, batch: dict, *, remat: bool = True):
+        """Mean next-token cross-entropy of ``batch`` ({"tokens",
+        "labels"}, labels -1 ignored).  Returns (ce + aux, {"ce_sum",
+        "n_tokens", "aux_loss"}); aux is 0 for the dense models.
+
+        ``params`` are the float32 master weights, not ``compute_params``:
+        each call casts them to the activation dtype inside the graph, so
+        that gradients land on the float32 leaves.  ``remat`` is the
+        reference's default "full" policy; its ``REPRO_REMAT_POLICY`` and
+        ``REPRO_REMAT_GROUP`` switches are not ported."""
+        cfg = self.cfg
+        x = self._inputs(params, batch)
+        x, _ = self._forward(params, x, remat=remat)
+        ce, metrics = chunked_ce_loss(cfg, self._head(params), x,
+                                      batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        metrics["aux_loss"] = aux
+        return ce + aux, metrics
 
     def prefill(self, params: dict, batch: dict, *, max_len: int):
         """Forward + cache build.  Returns (cache, last-position logits)."""

@@ -24,7 +24,7 @@ import torch
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 __all__ = ["ParamSpec", "model_templates", "init_params", "param_counts",
-           "compute_params", "map_tree"]
+           "compute_params", "map_tree", "leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +42,12 @@ def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def _leaves(tree: Any, path: tuple[str, ...] = ()):
+def leaves(tree: Any, path: tuple[str, ...] = ()):
+    """(path, leaf) over nested dicts, keys in sorted order at every level
+    (the order of ``jax.tree_util.tree_leaves``)."""
     if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
     else:
         yield path, tree
 
@@ -202,5 +204,5 @@ def param_counts(cfg: ModelConfig) -> tuple[int, int]:
     """(total, active-per-token) parameter counts from the template tree
     (equal for the dense models the port runs)."""
     total = sum(math.prod(spec.shape)
-                for _, spec in _leaves(model_templates(cfg)))
+                for _, spec in leaves(model_templates(cfg)))
     return total, total

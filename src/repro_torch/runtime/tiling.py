@@ -161,10 +161,17 @@ class MemoryBudget:
         every pass over it into a DRAM stream, which is precisely where
         monolithic batching measures slower than looping (reserve 0.5: the
         LLC is shared with everything else on the host).  ``device=None``
-        means the CUDA card when one is present, else the CPU.
+        means the CUDA card, and raises when there is none, as the
+        executor's default device does: a CPU budget is always asked for
+        (``detect("cpu")``).
         """
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "MemoryBudget.detect() sizes the CUDA card's budget by "
+                    "default and none is available; pass device='cpu' for "
+                    "the CPU's")
+            device = "cuda"
         dev = torch.device(device)
         if dev.type == "cuda":
             props = torch.cuda.get_device_properties(dev)

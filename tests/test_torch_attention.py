@@ -12,8 +12,16 @@ no 64-block divides.  Causal cases with lq > lk, which the reference test
 skips, are included: both sides mask by index (query i sees keys <= i),
 so they compute the same function there too, including the rows that a
 window leaves with no key at all (both give 0 there).
+
+The port's attention is differentiable (training runs through it): on
+the CPU its gradients are the plain version's autograd, held to
+``jax.grad`` of the reference's dense oracle ``ref.local_attention_ref``
+in float32 at rtol 2e-5 / atol 2e-5 * max|g| (summation order only), at
+causal, windowed and GQA cases where every query sees a key (the oracle
+averages uniformly over a row that sees none; the kernel gives 0).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +156,44 @@ def test_wrapper_rejects_bad_operands():
         tla.local_flash_attention(q, k[:, :0], v[:, :0], kv_groups=2)
     with pytest.raises(ValueError, match="group"):
         tops.gqa_flash_attention(q[None, :3], k[None], v[None])
+
+
+@pytest.mark.parametrize("lq,lk,d,groups,causal,window", [
+    (128, 128, 64, 1, True, 0), (77, 77, 32, 2, True, 0),
+    (128, 128, 16, 4, True, 24), (96, 128, 32, 2, False, 0),
+    (64, 200, 16, 1, False, 40), (200, 200, 64, 2, True, 64)])
+def test_gradients_match_reference_oracle(lq, lk, d, groups, causal, window):
+    q, k, v = _qkv(8, lq, lk, d, groups, seed=5)
+    dout = np.random.default_rng(6).standard_normal(q.shape).astype(
+        np.float32)
+    kw = dict(causal=causal, window=window, kv_groups=groups)
+    _, vjp = jax.vjp(lambda *a: jref.local_attention_ref(*a, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tla.local_flash_attention(*ts, **kw).backward(torch.from_numpy(dout))
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=2e-5,
+                                   atol=2e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def test_gqa_wrapper_gradients_reach_q_k_v():
+    """Through the 4-D wrapper ``gqa_flash_attention`` (what the model
+    calls), the gradients are the 3-D kernel's, reshaped."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 50, 16)).astype(
+        np.float32)).requires_grad_()
+    k = torch.from_numpy(rng.standard_normal((2, 2, 50, 16)).astype(
+        np.float32)).requires_grad_()
+    v = torch.from_numpy(rng.standard_normal((2, 2, 50, 16)).astype(
+        np.float32)).requires_grad_()
+    tops.gqa_flash_attention(q, k, v, window=20).square().sum().backward()
+    q3, k3, v3 = (t.detach().reshape(-1, 50, 16).requires_grad_()
+                  for t in (q, k, v))
+    tla.local_flash_attention(q3, k3, v3, window=20, kv_groups=2
+                              ).square().sum().backward()
+    for t, t3 in ((q, q3), (k, k3), (v, v3)):
+        torch.testing.assert_close(t.grad.reshape(t3.shape), t3.grad,
+                                   rtol=0, atol=0)

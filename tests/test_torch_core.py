@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import accelerator as jacc
 from repro.core import conversion as jconv
@@ -215,3 +216,15 @@ def test_choose_blocks_equal(shape, limit):
 def test_cpu_budget_detection_matches_reference():
     """On the CPU both packages derive the budget from the same LLC."""
     _eq(ttil.MemoryBudget.detect("cpu"), jtil.MemoryBudget.detect("cpu"))
+
+
+def test_budget_detection_defaults_to_the_card(monkeypatch):
+    """``MemoryBudget.detect()`` sizes the CUDA card's budget and raises
+    without one, as the executor's default device does; the CPU's LLC
+    budget is asked for by name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttil.MemoryBudget.detect()
+    cpu = ttil.MemoryBudget.detect("cpu")
+    assert cpu.source == "llc" and cpu.reserve == 0.5
+    assert cpu.bytes_limit == ttil._llc_bytes()

@@ -19,6 +19,16 @@ differ by at most one bf16 rounding of the output (2^-7 relative).
 An LM prefill on the card goes through it once per layer and matches the
 same model's prefill on the CPU at the bf16 decode bound of
 ``tests/test_models.py`` (5e-2).
+
+The attention backward is held to its plain version's autograd on the
+same inputs at 1e-4 * max|plain| in float32 (summation order only) and
+2e-2 * max|plain| in bfloat16 (the kernel takes the row sums dO . O from
+the bf16-rounded output, as flash-attention backwards do), and must give
+bit-equal gradients when launched twice.  The converter-boundary kernel
+is held to its plain version at rtol 1e-6 / atol 1.5 ADC steps, the
+reference's bound (``tests/test_kernels.py``): both compute the same
+IEEE operations in the same order.  A smoke-config training loss and its
+gradients on the card match the CPU's at the bf16 bound (5e-2).
 """
 
 import numpy as np
@@ -27,10 +37,14 @@ import torch
 
 from repro_torch import configs as tcfgs
 from repro_torch import runtime as trt
+from repro_torch.kernels import adc_dac
 from repro_torch.kernels import local_attention as la
 from repro_torch.kernels import ops
 from repro_torch.kernels import optical_dft as od
+from repro_torch.launch import train as ttrain
 from repro_torch.models import LM, compute_params, init_params
+from repro_torch.models.params import leaves
+from repro_torch.train import loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +214,157 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype,noise", [
+    ((2048, 2048), torch.float32, "f32"), ((2048, 2048), torch.float32, None),
+    ((4096, 2048), torch.bfloat16, "f32"), ((4096, 2048), torch.bfloat16,
+                                            None),
+    ((4096, 2048), torch.bfloat16, "x"), ((7, 130), torch.float32, "f32"),
+    ((1, 1), torch.bfloat16, None)])
+@pytest.mark.parametrize("bits", [(8, 8), (6, 8), (4, 12)])
+def test_converter_boundary_matches_plain_version(cuda_device, shape, dtype,
+                                                  noise, bits):
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 1.2 - 0.1
+                         ).to(device=cuda_device, dtype=dtype)
+    nz = None
+    if noise is not None:
+        nz = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                              ).to(device=cuda_device,
+                                   dtype=torch.float32 if noise == "f32"
+                                   else dtype)
+    dac, adc = bits
+    adc_dac.reset_launches()
+    got = adc_dac.converter_boundary(x, nz, dac_bits=dac, adc_bits=adc,
+                                     noise_std=0.02)
+    want = adc_dac.converter_boundary_plain(x, nz, dac_bits=dac,
+                                            adc_bits=adc, noise_std=0.02)
+    torch.cuda.synchronize()
+    assert adc_dac.converter_boundary.launches == 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-6,
+                               atol=1.5 / ((1 << adc) - 1))
+
+
+def _grads(fn, q, k, v, dout):
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(dout)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("lq,lk,d,groups", [
+    (128, 128, 64, 1), (256, 256, 32, 2), (77, 77, 64, 1),
+    (200, 200, 16, 4), (1000, 1000, 64, 1), (130, 130, 128, 2),
+    (256, 128, 64, 1), (5, 300, 8, 8)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (False, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain_autograd(
+        cuda_device, lq, lk, d, groups, causal, window, dtype):
+    q, k, v = _attn_inputs(42, 8, lq, lk, d, groups, dtype, cuda_device)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device, dtype=dtype)
+    kw = dict(causal=causal, window=window, kv_groups=groups)
+    la.reset_launches()
+    got = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                 dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t, **kw), q, k,
+                  v, dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == 1
+    assert la.local_flash_attention.backward_launches == 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.dtype == dtype, name
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * max(top, 1e-30), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(cuda_device, dtype):
+    q, k, v = _attn_inputs(43, 32, 517, 517, 64, 4, dtype, cuda_device)
+    dout = torch.randn_like(q)
+    first = _grads(lambda *t: la.local_flash_attention(*t, kv_groups=4), q,
+                   k, v, dout)
+    second = _grads(lambda *t: la.local_flash_attention(*t, kv_groups=4),
+                    q, k, v, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gqa_wrapper_gradient_reaches_q_k_v(cuda_device):
+    q = torch.randn(2, 8, 333, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(2, 2, 333, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    v = torch.randn(2, 2, 333, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    la.reset_launches()
+    ops.gqa_flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == 1
+    assert la.local_flash_attention.backward_launches == 1
+    for t in (q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.float().abs().max()) > 0.0
+
+
+def test_flash_attention_without_grad_writes_no_lse(cuda_device):
+    """Serving's forward (no gradient) and training's (log-sum-exp kept)
+    give bit-equal outputs."""
+    q, k, v = _attn_inputs(44, 8, 300, 300, 64, 2, torch.bfloat16,
+                           cuda_device)
+    with torch.no_grad():
+        plain = la.local_flash_attention(q, k, v, kv_groups=2)
+    qg = q.clone().requires_grad_()
+    with_grad = la.local_flash_attention(qg, k, v, kv_groups=2)
+    assert with_grad.grad_fn is not None
+    assert torch.equal(plain, with_grad.detach())
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b"])
+def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda_device, arch):
+    """The training loss (bf16 activations, float32 master weights, every
+    block rematerialized) on the card, through kernel 6's forward and
+    backward, against the same loss on the CPU."""
+    cfg = tcfgs.get_smoke_config(arch)
+    params = init_params(cfg, device="cpu")
+    toks = np.random.default_rng(44).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    want, _, want_g = loss_and_grads(LM(cfg), params, batch)
+    la.reset_launches()
+    got, _, got_g = loss_and_grads(
+        LM(cfg), _to(params, cuda_device),
+        {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == 2 * cfg.n_layers
+    assert la.local_flash_attention.backward_launches == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+    for (path, g), (_, w) in zip(leaves(got_g), leaves(want_g)):
+        assert g.dtype == torch.float32, path
+        top = float(w.abs().max())
+        torch.testing.assert_close(g.cpu(), w, rtol=5e-2,
+                                   atol=5e-2 * max(top, 1e-30),
+                                   msg="/".join(path))
+
+
+def test_training_resumes_bit_exact_on_the_card(cuda_device, tmp_path):
+    """A crash at step 13 of 20 and a restore from the step-10 checkpoint
+    reproduce the uninterrupted run's parameters bit for bit."""
+    kw = dict(steps=20, batch=2, seq=64, device=cuda_device, log_every=100)
+    crashed = {"done": False}
+
+    def fault(step):
+        if step == 13 and not crashed["done"]:
+            crashed["done"] = True
+            raise RuntimeError("injected preemption")
+
+    (want, _), _, _ = ttrain.train_loop("stablelm-1.6b", **kw)
+    (got, _), _, _ = ttrain.train_loop(
+        "stablelm-1.6b", ckpt_dir=str(tmp_path), fault_hook=fault, **kw)
+    assert crashed["done"]
+    for (path, a), (_, b) in zip(leaves(got), leaves(want)):
+        assert torch.equal(a, b), path

@@ -10,6 +10,11 @@ against looped rtol 1e-5.  Both pipelines are held to the fft2 oracle:
 the reference's float32 factor phase drifts by ~1e-4 rad at n = 512, the
 port's does not, so the port is not held to a copy of that error.
 
+The converter boundary is held at ``tests/test_kernels.py``'s cases and
+bounds: 4 shapes x 3 (dac, adc) bit pairs with noise 0.02 at rtol 1e-6 /
+atol 1.5 ADC steps (fp association order can flip a round-to-nearest tie
+by one step), and float32 / bfloat16 in and out at 1e-2.
+
 The kernels themselves are held to these versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -25,6 +30,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import adc_dac
 from repro_torch.kernels import optical_dft as od
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -185,3 +191,57 @@ def test_import_and_cpu_path_need_no_nvcc():
     env.pop("CUDA_HOME", None)
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    timeout=120)
+
+
+# --- converter boundary --------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (64, 256), (256, 512), (16, 384)])
+@pytest.mark.parametrize("bits", [(6, 8), (8, 8), (4, 12)])
+def test_converter_boundary_matches_reference(shape, bits):
+    dac, adc = bits
+    x = _rand(6, shape)
+    nz = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    (jx, tx), (jn, tn) = _both(x), _both(nz)
+    want = jops.converter_boundary(jx, jn, dac_bits=dac, adc_bits=adc,
+                                   noise_std=0.02)
+    got = tops.converter_boundary(tx, tn, dac_bits=dac, adc_bits=adc,
+                                  noise_std=0.02)
+    _close(got, want, 1e-6, 1.5 / ((1 << adc) - 1))
+    _close(tref.converter_boundary_ref(tx, tn, dac_bits=dac, adc_bits=adc,
+                                       noise_std=0.02),
+           jref.converter_boundary_ref(jx, jn, dac_bits=dac, adc_bits=adc,
+                                       noise_std=0.02),
+           1e-6, 1.5 / ((1 << adc) - 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converter_boundary_dtypes_match_reference(dtype):
+    x = _rand(8, (32, 128))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = jops.converter_boundary(jx, dac_bits=8, adc_bits=8)
+    got = tops.converter_boundary(tx, dac_bits=8, adc_bits=8)
+    assert got.dtype == tx.dtype
+    _close(got.to(torch.float32), np.asarray(want, np.float32), 1e-2, 1e-2)
+
+
+def test_converter_boundary_plain_is_the_oracle():
+    """The plain version beside the kernel computes the oracle's function,
+    noise in float32 or in x's dtype, and rejects what the kernel would."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.random((33, 70), dtype=np.float32) * 1.4 - 0.2)
+    nz = torch.from_numpy(rng.standard_normal((33, 70)).astype(np.float32))
+    for xt, nt in ((x, nz), (x.bfloat16(), nz), (x.bfloat16(), nz.bfloat16()),
+                   (x, None)):
+        got = adc_dac.converter_boundary_plain(xt, nt, dac_bits=6,
+                                               adc_bits=10, noise_std=0.05)
+        want = tref.converter_boundary_ref(xt, nt, dac_bits=6, adc_bits=10,
+                                           noise_std=0.05)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tops.converter_boundary(x[0])                     # not 2-D
+    with pytest.raises(ValueError):
+        tops.converter_boundary(x, nz[:, :5], noise_std=0.1)
+    with pytest.raises(ValueError):
+        tops.converter_boundary(x, dac_bits=0)

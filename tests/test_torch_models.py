@@ -269,7 +269,7 @@ def test_decode_matches_full_forward(arch, dtype):
 def test_unported_entry_points_raise():
     cfg = tcfgs.get_smoke_config("stablelm-1.6b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LM(cfg).loss({}, {})
+        tcfgs.get_config("deepseek-v3-671b")
     moe = MoEConfig(n_routed=4, top_k=2, d_expert=32)
     with pytest.raises(NotImplementedError, match="MoE"):
         LM(dataclasses.replace(cfg, moe=moe))

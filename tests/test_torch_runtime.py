@@ -363,6 +363,9 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.serving, repro_torch.launch.serve\n"
             "import repro_torch.runtime.scheduler\n"
+            "import repro_torch.optim, repro_torch.train, repro_torch.data\n"
+            "import repro_torch.checkpoint, repro_torch.distributed.fault\n"
+            "import repro_torch.launch.train, repro_torch.kernels.adc_dac\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
