@@ -14,14 +14,15 @@ and read just after:
   the 3-layer 512x512 conv stack;
 * the serving path: stablelm-1.6b at full width and depth (random weights
   from a seed) serving 8 requests through ``ServingEngine`` with 4 slots,
-  every prefill's attention through the flash-attention kernel, with an
+  every prefill's attention through the flash-attention kernel's
+  tensor-core route (``wgmma`` + TMA), with an
   ``OffloadScheduler`` on the engine's aux hook carrying 512x512 ``fft``
   frames through the DFT kernels;
 * the training path: stablelm-1.6b at full width and depth taking 5 AdamW
   steps (1 warm-up, 4 timed) through ``launch.train.train_loop`` on a
   ``MarkovTask`` of 4 x 1024 tokens, every block rematerialized, every
-  attention through the flash-attention kernel's forward and its CUDA
-  backward;
+  attention through the flash-attention kernel's tensor-core forward and
+  its ``mma.sync`` backward;
 * the converter boundary's entry point ``ops.converter_boundary`` on a
   2048x2048 float32 SLM frame and a 4096x2048 bfloat16 activation, with
   and without noise.
@@ -106,6 +107,39 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+TC_KERNELS = ("attention_tc_kernel", "attention_bwd_kv_tc_kernel",
+              "attention_bwd_q_tc_kernel")
+# kernel 6's kernels as the profiler names them, both routes
+KERNEL6_NAMES = TC_KERNELS + ("attention_kernel<", "attention_bwd_kv_kernel<",
+                              "attention_bwd_q_kernel<", "delta_kernel<")
+
+
+def is_kernel6(name: str) -> bool:
+    return any(k in name for k in KERNEL6_NAMES)
+
+
+def tc_build_report(log: str) -> list[dict]:
+    """Registers and spill bytes of kernel 6's tensor-core kernels, from
+    the compiler's ``-Xptxas -v`` report of their library."""
+    rows, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = next(({"kernel": k, "d": int(name.split(k + "ILi")[1]
+                                                 .split("E")[0])}
+                          for k in TC_KERNELS if k + "ILi" in name), None)
+        elif entry is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            entry["spill_bytes"] = (int(words[words.index("spill") - 2]) +
+                                    int(words[-4]))
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            entry["registers"] = int(words[words.index("registers") - 1])
+            rows.append(entry)
+            entry = None
+    return rows
 
 
 def rng_frames(rng: np.random.Generator, shape, dev) -> torch.Tensor:
@@ -348,14 +382,18 @@ def profile_flush(flush, what: str = "flush") -> dict:
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    k6_ms = sum(e.self_device_time_total for e in device
+                if is_kernel6(e.key)) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+           "kernel6_ms": k6_ms,
            "top": [{"name": e.key[:60], "count": e.count,
                     "ms": e.self_device_time_total / 1e3} for e in top]}
     print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms" + ("" if busy_ms else " (profiler reported no "
-                                "device time: not measured)"))
+                                "device time: not measured)")
+          + f", kernel 6 {k6_ms:.3f} ms of it")
     for t in out["top"]:
         print(f"    {t['ms']:.4f} ms x{t['count']}  {t['name']}")
     return out
@@ -543,7 +581,8 @@ def check_attention(la, dev, lens) -> float:
               (32, 517, 64, 4, torch.float32, True, 0),
               (32, 777, 64, 1, torch.float32, True, 256),
               (16, 333, 128, 2, torch.float32, False, 64),
-              (32, 1023, 64, 8, torch.bfloat16, True, 200)]
+              (32, 1023, 64, 8, torch.bfloat16, True, 200),
+              (16, 333, 128, 2, torch.bfloat16, False, 64)]
     for bh, l, d, g, dtype, causal, window in cases:
         q, k, v = attn_inputs(rng, bh, l, d, g, dtype, dev)
         got = la.local_flash_attention(q, k, v, causal=causal, window=window,
@@ -561,7 +600,8 @@ def check_attention(la, dev, lens) -> float:
             err_bf16 = max(err_bf16, err)
     print(f"  attention kernel vs plain: {len(cases)} shapes ok (bf16 "
           f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}, at rtol "
-          "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5)")
+          "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5; bf16 at D 128 "
+          "and bf16 GQA at 1e-2 / 1e-3)")
     return err_bf16
 
 
@@ -626,6 +666,8 @@ def phase_serving(rt, od, la, dev) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_submit
     launches = {"local_flash_attention": la.local_flash_attention.launches,
+                "local_flash_attention_by_route":
+                    dict(la.local_flash_attention.launches_by_route),
                 "dft_stage1_batched": od.dft_stage1_batched.launches,
                 "dft_stage2_batched": od.dft_stage2_batched.launches}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -635,6 +677,10 @@ def phase_serving(rt, od, la, dev) -> dict:
     check(launches["local_flash_attention"] == cfg.n_layers * len(reqs),
           f"attention kernel launched {launches['local_flash_attention']} "
           f"times for {len(reqs)} prefills of {cfg.n_layers} layers")
+    check(launches["local_flash_attention_by_route"] ==
+          {"tensor_core": cfg.n_layers * len(reqs), "fma": 0},
+          "serving's attention did not all take the tensor-core route: "
+          f"{launches['local_flash_attention_by_route']}")
     for name in ("dft_stage1_batched", "dft_stage2_batched"):
         check(launches[name] > 0, f"{name} not launched under serving")
     check(all(r.done and len(r.out_tokens) == MAX_NEW for r in reqs),
@@ -761,6 +807,16 @@ def attention_times(la, dev, serving: dict, err: float) -> dict:
               f"library {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {flops / (r['ms'] * 1e-3) / 1e12:.2f} "
               "TFLOP/s")
+    # the host cost of the tensor-core forward's three TMA descriptors, per
+    # forward call, at the serving shape
+    reps = 10000
+    t0 = time.perf_counter()
+    code = la._lib().local_attention_encode_descriptors(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bh, l, l, d, 1, reps)
+    encode_us = (time.perf_counter() - t0) / reps * 1e6
+    check(code == 0, f"descriptor encoding failed with CUDA error {code}")
+    print(f"  TMA descriptor encoding on the host: {encode_us:.3f} us per "
+          "forward call (3 descriptors)")
     top = rows[max(ATTN_TIMED_LENS)]
     return {"name": "local_flash_attention", "route": "cuda",
             "source": ATTN_SOURCE,
@@ -771,6 +827,8 @@ def attention_times(la, dev, serving: dict, err: float) -> dict:
             "bound_by": top["bound_by"], "library_ms": top["library_ms"],
             "shape": [1, 32, max(ATTN_TIMED_LENS), 64],
             "dtype": "bfloat16", "causal": True,
+            "kernel_route": la.route(torch.bfloat16, 64),
+            "descriptor_encode_us": encode_us,
             "at": {str(l): rows[l] for l in ATTN_TIMED_LENS}}
 
 
@@ -871,7 +929,11 @@ def phase_training(la, dev, card: str) -> dict:
     t_end = time.perf_counter()
     launches = {"local_flash_attention": la.local_flash_attention.launches,
                 "local_flash_attention_backward":
-                    la.local_flash_attention.backward_launches}
+                    la.local_flash_attention.backward_launches,
+                "local_flash_attention_by_route":
+                    dict(la.local_flash_attention.launches_by_route),
+                "local_flash_attention_backward_by_route":
+                    dict(la.local_flash_attention.backward_launches_by_route)}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
     print(f"  {ARCH}: {n_params:,} parameters, {TRAIN_STEPS} steps of "
@@ -891,6 +953,12 @@ def phase_training(la, dev, card: str) -> dict:
           f"attention backward launched "
           f"{launches['local_flash_attention_backward']} times in "
           f"{TRAIN_STEPS} steps (want {cfg.n_layers} a step)")
+    check(launches["local_flash_attention_by_route"] ==
+          {"tensor_core": 2 * cfg.n_layers * TRAIN_STEPS, "fma": 0}
+          and launches["local_flash_attention_backward_by_route"] ==
+          {"tensor_core": cfg.n_layers * TRAIN_STEPS, "fma": 0},
+          "training's attention did not all take the tensor-core route: "
+          f"{launches}")
     check(not TRAIN_CKPT.exists() or not any(TRAIN_CKPT.iterdir()),
           "the training phase wrote a checkpoint")
 
@@ -997,15 +1065,34 @@ def attention_train_times(la, dev, training: dict, err: float,
         t_bytes = by / PEAK_BYTES_S * 1e3
         bound[name] = (max(t_ops, t_bytes),
                        "operations" if t_ops >= t_bytes else "bytes")
+    flops = {"fwd": flops_f, "bwd": flops_b}
     for name, label in (("fwd", "forward (with lse)"), ("bwd", "backward")):
         print(f"  [{card}] local_flash_attention {label} ({bh}, {l}, {d}) "
-              f"bf16 causal: kernel {ms[name]:.4f} ms, plain "
+              f"bf16 causal: kernel {ms[name]:.4f} ms "
+              f"({flops[name] / ms[name] / 1e9:.1f} TFLOP/s), plain "
               f"{ms['plain_' + name]:.4f} ms, SDPA {ms['lib_' + name]:.4f} "
-              f"ms, bound {bound[name][0]:.4f} ms ({bound[name][1]})")
+              f"ms ({flops[name] / ms['lib_' + name] / 1e9:.1f} TFLOP/s), "
+              f"bound {bound[name][0]:.4f} ms ({bound[name][1]})")
+    # the model's call: q, k, v come transposed from (B, S, H, hd), and
+    # ops.gqa_flash_attention makes each contiguous before the kernel
+    from repro_torch.kernels import ops
+    qt, kt, vt = (t.view(b, h, l, d).transpose(1, 2).contiguous()
+                  .transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        call_ms, by_name = device_ms(lambda: ops.gqa_flash_attention(qt, kt,
+                                                                     vt))
+    k6 = sum(t for n, t in by_name.items() if is_kernel6(n))
+    copies_ms = None if call_ms is None else call_ms - k6
+    print(f"  [{card}] ops.gqa_flash_attention on the model's transposed "
+          f"operands: device time {call_ms} ms a call, kernel 6 {k6} ms, "
+          f"the operands' contiguous copies {copies_ms} ms")
     print(f"  [{card}] forward + backward: kernel "
           f"{ms['fwd'] + ms['bwd']:.4f} ms, SDPA "
           f"{ms['lib_fwd'] + ms['lib_bwd']:.4f} ms")
     fwd_row = {"shape": [bh, l, d], "dtype": "bfloat16", "causal": True,
+               "tflops": flops_f / ms["fwd"] / 1e9,
+               "call_site_device_ms": call_ms,
+               "call_site_copies_ms": copies_ms,
                "ms": ms["fwd"], "plain_ms": ms["plain_fwd"],
                "library_ms": ms["lib_fwd"], "bound_ms": bound["fwd"][0],
                "bound_by": bound["fwd"][1],
@@ -1019,6 +1106,8 @@ def attention_train_times(la, dev, training: dict, err: float,
                "plain_ms": ms["plain_bwd"], "bound_ms": bound["bwd"][0],
                "bound_by": bound["bwd"][1], "library_ms": ms["lib_bwd"],
                "shape": [bh, l, d], "dtype": "bfloat16", "causal": True,
+               "kernel_route": la.route(torch.bfloat16, d),
+               "tflops": flops_b / ms["bwd"] / 1e9,
                "fwd_plus_bwd_ms": ms["fwd"] + ms["bwd"],
                "library_fwd_plus_bwd_ms": ms["lib_fwd"] + ms["lib_bwd"]}
     return fwd_row, bwd_row
@@ -1126,6 +1215,13 @@ def main() -> int:
     print(f"  nvcc build {time.perf_counter() - t0:.2f} s")
     for stem in ("optical_dft", "local_attention", "adc_dac"):
         print("  " + build.build_log(stem).strip().replace("\n", "\n  "))
+    tc_build = tc_build_report(build.build_log("local_attention"))
+    for r in tc_build:
+        print(f"  ptxas: {r['kernel']}<{r['d']}>: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled")
+    check(len(tc_build) == 2 * len(TC_KERNELS)
+          and all(r["spill_bytes"] == 0 for r in tc_build),
+          f"kernel 6's tensor-core kernels spill or are missing: {tc_build}")
 
     budget = rt.MemoryBudget.detect(dev)
     tile_k = budget.tile_for_group(SIDE * SIDE, SIDE * SIDE, FRAMES,

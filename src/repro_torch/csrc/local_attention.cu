@@ -15,28 +15,57 @@
 // heads is 2 * 32 * L^2 * D = 4.3 GFLOP (QK^T and PV over the lower
 // triangle) against 16.8 MB of bf16 q, k, v and out, so at the card's bf16
 // rate (989 TFLOP/s) and memory rate (3.35 TB/s) both bounds are about
-// 5 us and the bytes bound is the larger.  This first kernel does not get
-// near either: its products are fp32 FMA on the CUDA cores (67 TFLOP/s
-// peak), so that it meets the reference's f32 bound (rtol/atol 2e-5) as
-// well as the bf16 one (3e-2).  Tensor-core products (mma.sync or wgmma on
-// bf16 P.V) and TMA-fed K/V tiles are a later kernel's work.
+// 5 us and the bytes bound is the larger.  Two routes, chosen by the
+// caller from the dtype and the head dim, never by a failure:
 //
-// Design: one block of 256 threads per (batch*head, 64-query tile).  Four
-// neighbouring lanes share one query row: each keeps the whole
-// query row in registers, 16 of the tile's 64 scores, and D/4 columns of
-// the fp32 accumulator.  The block loops over 64-key tiles of K and V,
-// staged through shared memory as fp32; that loop takes the place of the
-// TPU's sequential kv grid axis and its VMEM scratch (acc, m, l).  Row max
-// and row sum are reduced across the four lanes with shuffles; P goes
-// through shared memory to the P.V product, read only by its own warp.
-// Tiles that are fully masked for every row of the block (above the causal
-// diagonal, or older than the window) are skipped: their keys would add
-// p = 0 and leave m unchanged, so skipping is exact.  Masked scores are
-// -1e30 and masked p are 0, as in the reference, so m stays finite and no
-// exp() sees -inf.  The flush divides by max(l, 1e-20) and stores in q's
-// dtype (bf16 rounds to nearest even, as torch's cast does).  Ragged Lq
-// and Lk are masked: rows past Lq are not stored, keys past Lk are masked.
-// GQA reads the shared K/V head in place, with no copies.
+// * The tensor-core route (bf16, D in {64, 128}: every attention of the
+//   serving and training paths).  The forward is warp-specialised: one
+//   CTA of three warpgroups per (batch*head, 128-query tile), the
+//   heaviest causal tiles launched first.  A producer warpgroup gives up
+//   registers (setmaxnreg) and one of its threads starts TMA loads: the
+//   Q tile once, then 64-key K and V tiles into a two-stage ring, each
+//   stage with a full and an empty mbarrier.  Two consumer warpgroups own
+//   64 query rows each: S = Q K^T is wgmma (both operands in shared
+//   memory, 128-byte swizzled as TMA wrote them), the online softmax runs
+//   on the accumulator fragment in registers, and O += P V is wgmma with
+//   P from registers and V as the transposed (MN-major) shared operand.
+//   S is exact in its products (bf16 x bf16 into fp32); P is not bf16,
+//   so it is split into hi = bf16(p) and lo = bf16(p - hi), two products
+//   into the same fp32 accumulator: about 16 bits of P, 1.5x the
+//   tensor-core products.  With the products there, what bounds the
+//   forward is the softmax on the CUDA cores (a scale, a max, an exp, a
+//   sum and the split per score), so it runs in the log2 domain (each
+//   exponential one exp2) and interior tiles compile without masks.  The
+//   TMA descriptors are 3-D, (D, L, heads),
+//   so the ragged last key tile of a head reads zeros, never the next
+//   head's keys; keys past Lk are still masked, since a zero key scores
+//   0, not -1e30.  The backward keeps the FMA route's structure (below)
+//   with every product on mma.sync.m16n8k16 bf16: operands through
+//   ldmatrix (.trans where a tile serves in the other role) from padded
+//   shared tiles, the streamed tiles double-buffered with cp.async, P
+//   and dS split hi/lo as in the forward.
+// * The FMA route (float32 at every head dim, bf16 at D <= 32): every
+//   product is an fp32 FMA on the CUDA cores (67 TFLOP/s peak), so that
+//   it meets the reference's f32 bound (rtol/atol 2e-5).  One block of
+//   256 threads per (batch*head, 64-query tile).  Four neighbouring
+//   lanes share one query row: each keeps the whole query row in
+//   registers, 16 of the tile's 64 scores, and D/4 columns of the fp32
+//   accumulator.  The block loops over 64-key tiles of K and V, staged
+//   through shared memory as fp32; that loop takes the place of the
+//   TPU's sequential kv grid axis and its VMEM scratch (acc, m, l).  Row
+//   max and row sum are reduced across the four lanes with shuffles; P
+//   goes through shared memory to the P.V product, read only by its own
+//   warp.
+//
+// Both routes skip tiles that are fully masked for every row of the
+// block (above the causal diagonal, or older than the window): their
+// keys would add p = 0 and leave m unchanged, so skipping is exact.
+// Masked scores are -1e30 and masked p are 0, as in the reference, so m
+// stays finite and no exp() sees -inf.  The flush divides by
+// max(l, 1e-20) and stores in q's dtype (bf16 rounds to nearest even, as
+// torch's cast does).  Ragged Lq and Lk are masked: rows past Lq are not
+// stored, keys past Lk are masked.  GQA reads the shared K/V head in
+// place, with no copies.
 //
 // When a gradient is wanted the forward also writes each row's log-sum-exp,
 // lse = m + log(max(l, 1e-20)) in fp32, at its flush; otherwise it writes
@@ -52,8 +81,8 @@
 //      over the group needs no atomics;
 //   3. dQ: one block per (batch*head, 64-query tile), looping over the key
 //      tiles the forward visits, dQ += dS K.
-// The masks, the tile skips and the ragged edges are the forward's.  All
-// products are fp32 FMA, as in the forward, so the f32 path meets the
+// The masks, the tile skips and the ragged edges are the forward's.  On
+// the FMA route all products are fp32 FMA, so the f32 path meets the
 // reference's f32 bounds; gradients are stored in the operands' dtype.
 // There are no float atomics and every sum has a fixed order, so the
 // backward is bit-for-bit deterministic.  It does 2.5x the forward's
@@ -67,9 +96,11 @@
 
 #include <atomic>
 
+#include <cuda.h>   // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -465,6 +496,869 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --- the tensor-core route: shared helpers ----------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi), so that
+// hi + lo carries about 16 bits of x; the low half holds x0.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// 2^x, flushing results below 2^-126 to 0 (one MUFU.EX2): p that small
+// adds nothing to a row sum of at least 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x0,
+                                             float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+// The visibility rule of the module note, for one (query, key) pair.
+__device__ __forceinline__ bool visible(int qi, int kj, int lq, int lk,
+                                        int causal, int window) {
+  bool ok = kj < lk && qi < lq;
+  if (causal) ok = ok && qi >= kj;
+  if (window > 0) ok = ok && (qi - kj) < window;
+  return ok;
+}
+
+// mbarrier, TMA and wgmma (sm_90a), as PTX.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits until the barrier's phase of the given parity has completed.  No
+// wait of this kernel lasts more than microseconds; one that lasts 4 s is
+// a fault, and it traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// One box of a 3-D tensor map into shared memory; completion (its bytes)
+// is reported to the barrier.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile written by TMA with the
+// 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes
+// apart (the stride byte offset).  K-major operands (Q, K) step along
+// their contraction dim by adding 32 bytes to the start address inside
+// the swizzle atom, which leaves the leading byte offset unused (0).  The
+// MN-major operand (V, contracted over its rows) takes its 8-row groups
+// 1024 bytes apart as well; its leading offset, the stride to the next 64
+// columns, is never used because each of its products is 64 columns wide,
+// and it is set to the same 1024 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns past the wgmma's start or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// D (64 x 64, fp32) += A (64 x 16, smem) * B (16 x 64, smem, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem,
+// MN-major: the transposed operand).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// --- the tensor-core route: forward -------------------------------------------
+
+constexpr int TC_BM = 128;          // queries per CTA: two consumer warpgroups
+constexpr int TC_BN = 64;           // keys per K/V tile
+constexpr int TC_STAGES = 2;        // K/V ring depth
+constexpr int TC_THREADS = 384;     // consumers 0 and 1, producer 2
+constexpr int TC_CONSUMER_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory of the forward, in bytes from a 1024-aligned base.  Each
+// tile is stored as D/64 sub-tiles of [rows][64] bf16, 128-byte swizzled.
+template <int D>
+struct TcFwdSmem {
+  static constexpr int Q_BYTES = TC_BM * D * 2;
+  static constexpr int KV_BYTES = TC_BN * D * 2;          // one K or V tile
+  static constexpr int Q = 0;
+  static constexpr int K = Q + Q_BYTES;                    // K[stage]
+  static constexpr int V = K + TC_STAGES * KV_BYTES;       // V[stage]
+  static constexpr int BAR = V + TC_STAGES * KV_BYTES;     // q, full, empty
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * TC_STAGES) + 1024;
+};
+
+// One tile's online softmax on the S accumulator fragment of NS scores a
+// thread (element i: row (i / 2) % 2 of the thread's two, key
+// 8 (i / 4) + col0 + i % 2 of the tile).  Scores and maxima are kept in
+// the log2 domain, scaled by scale * log2(e), so that each exponential is
+// one exp2.  EDGE tiles (across the causal diagonal, the window edge or
+// the end of the keys) mask to -1e30 and p = 0; the others compile without
+// masks.  On return sc holds p and alpha each row's rescale of l and O.
+template <bool EDGE, int NS>
+__device__ __forceinline__ void online_softmax(
+    float* sc, float* m, float* l, float* alpha, float scale_log2, int row0,
+    int k0, int col0, int lq, int lk, int causal, int window) {
+  static_assert(NS <= 32, "one visibility bit per score");
+  uint32_t valid = ~0u;     // bit i: element i is visible
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] *= scale_log2;
+    if (EDGE && !visible(row0 + 8 * r, k0 + 8 * (i / 4) + col0 + (i & 1),
+                         lq, lk, causal, window)) {
+      valid &= ~(1u << i);
+      sc[i] = NEG;
+    }
+    mx[r] = fmaxf(mx[r], sc[i]);
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2_ftz(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = ((valid >> i) & 1u) ? exp2_ftz(sc[i] - m[r]) : 0.0f;
+    sc[i] = p;
+    rs[r] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l[r] = l[r] * alpha[r] + rs[r];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    int lq, int lk, int kv_groups, float scale, int causal,
+                    int window) {
+  using L = TcFwdSmem<D>;
+  constexpr int BN = TC_BN;
+  constexpr int NS = BN / 2;                // S registers a thread
+  constexpr int SUBS = D / 64;              // 64-column sub-tiles
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_full = bar_q + 8;                    // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * TC_STAGES;    // + 8 * stage
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;   // heaviest first
+  const int q_last = min(q0 + TC_BM, lq) - 1;
+  int k_end = lk;
+  if (causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  k_begin = (k_begin / BN) * BN;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, TC_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // The producer: one thread starts every load of the CTA.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      const int g = bh / kv_groups;
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      for (int h = 0; h < SUBS; ++h)
+        tma_load_3d(base + L::Q + h * TC_BM * 128, &tm_q, bar_q, h * 64, q0,
+                    bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % TC_STAGES, n = t / TC_STAGES;
+        if (n > 0) mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_BYTES);
+        const int k0 = k_begin + t * BN;
+        for (int h = 0; h < SUBS; ++h) {
+          const uint32_t off = s * L::KV_BYTES + h * BN * 128;
+          tma_load_3d(base + L::K + off, &tm_k, bar_full + 8 * s, h * 64, k0,
+                      g);
+          tma_load_3d(base + L::V + off, &tm_v, bar_full + 8 * s, h * 64, k0,
+                      g);
+        }
+      }
+    }
+  } else {
+    // A consumer warpgroup: query rows q0 + 64 wg .. + 63.  Thread
+    // (warp w, lane) holds rows r and r + 8, r = 16 w + lane / 4, and in
+    // every 8-column chunk c the columns 8 c + 2 (lane % 4) + {0, 1}
+    // (the wgmma accumulator layout): element 4 c + e is row r + 8 (e / 2),
+    // column 8 c + 2 (lane % 4) + e % 2.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_tile = base + L::Q + 64 * wg * 128;
+    const float scale_log2 = scale * LOG2E;
+
+    float o[SUBS][32];
+#pragma unroll
+    for (int h = 0; h < SUBS; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] = 0.0f;
+    float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};   // m in the log2 domain
+    const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % TC_STAGES, n = t / TC_STAGES;
+      const int k0 = k_begin + t * BN;
+      const uint32_t k_tile = base + L::K + s * L::KV_BYTES;
+      const uint32_t v_tile = base + L::V + s * L::KV_BYTES;
+      mbar_wait(bar_full + 8 * s, n & 1);
+
+      // S = Q K^T over D in steps of 16.
+      float sc[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = 0.0f;
+      fence_regs<NS>(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        const uint64_t da = sw128_desc(q_tile + (kk / 4) * TC_BM * 128 + off,
+                                       0);
+        const uint64_t db = sw128_desc(k_tile + (kk / 4) * BN * 128 + off, 0);
+        wgmma_ss_n64(sc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NS>(sc);
+
+      float alpha[2];
+      const bool edge = k0 + BN > lk || (causal && k0 + BN - 1 > wg_first) ||
+                        (window > 0 && wg_last - k0 >= window);
+      if (edge)
+        online_softmax<true, NS>(sc, m, l, alpha, scale_log2, row0, k0, col0,
+                                 lq, lk, causal, window);
+      else
+        online_softmax<false, NS>(sc, m, l, alpha, scale_log2, row0, k0,
+                                  col0, lq, lk, causal, window);
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[h][i] *= alpha[(i >> 1) & 1];
+
+      // P as wgmma A fragments, split hi/lo: for keys 16 kk .. 16 kk + 15
+      // the registers are (chunk 2 kk, rows r / r + 8), (chunk 2 kk + 1,
+      // rows r / r + 8).
+      uint32_t phi[BN / 16][4], plo[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
+          split_bf16x2(sc[i], sc[i + 1], phi[kk][j], plo[kk][j]);
+        }
+
+      // O += P_hi V + P_lo V over the tile's keys in steps of 16.
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h) fence_regs<32>(o[h]);
+      fence_regs<BN / 4>(&phi[0][0]);
+      fence_regs<BN / 4>(&plo[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < SUBS; ++h) {
+          const uint64_t dv = sw128_desc(
+              v_tile + h * BN * 128 + kk * 16 * 128, 1024);
+          wgmma_rs_n64_tb(o[h], phi[kk], dv);
+          wgmma_rs_n64_tb(o[h], plo[kk], dv);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h) fence_regs<32>(o[h]);
+      fence_regs<BN / 4>(&phi[0][0]);
+      fence_regs<BN / 4>(&plo[0][0]);
+
+      // This warp is done with the stage.
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+
+    const size_t bh_rows = static_cast<size_t>(bh) * lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= lq) continue;
+      const float inv = 1.0f / fmaxf(l[r], 1e-20f);
+      __nv_bfloat16* dst = out + (bh_rows + qi) * D;
+#pragma unroll
+      for (int h = 0; h < SUBS; ++h)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          store_bf16x2(dst + 64 * h + 8 * c + col0,
+                       o[h][4 * c + 2 * r] * inv,
+                       o[h][4 * c + 2 * r + 1] * inv);
+      if (lse != nullptr && lane % 4 == 0)
+        lse[bh_rows + qi] = m[r] * LN2 + logf(fmaxf(l[r], 1e-20f));
+    }
+  }
+}
+
+// --- the tensor-core route: backward ------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes (or 4) from global to shared, zeros where ``in`` is false.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_prev() {   // all but the last
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + rows) of a (.., L, D) bf16 plane into a padded shared
+// tile [rows][D + 8], zeros past row ``limit``; all ``THREADS`` threads.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* plane, int r0,
+                                          int limit) {
+  constexpr int CHUNKS = D / 8;            // 16-byte chunks per row
+#pragma unroll
+  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += THREADS) {
+    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+    const bool in = r0 + r < limit;
+    cp_async16(smem_u32(tile + r * (D + 8) + c),
+               plane + static_cast<size_t>(in ? r0 + r : 0) * D + c, in);
+  }
+}
+
+// The A fragment (16 x 16) of rows [r0, r0 + 16), columns [c0, c0 + 16)
+// of a padded row-major tile.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* t,
+                                       int r0, int c0, int lane) {
+  ldsm_x4(a, smem_u32(t + (r0 + (lane & 15)) * (D + 8) + c0 +
+                      (lane >> 4) * 8));
+}
+
+// B fragments of two 8-wide n chunks from a tile stored [n][k] (k
+// contiguous): n in [n0, n0 + 16), k in [k0, k0 + 16).  b[0..1] for the
+// first chunk, b[2..3] for the second.
+template <int D>
+__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* t,
+                                       int n0, int k0, int lane) {
+  ldsm_x4(b, smem_u32(t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * (D + 8) +
+                      k0 + ((lane >> 3) & 1) * 8));
+}
+
+// The same from a tile stored [k][n] (n contiguous), through ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void load_b_t(uint32_t* b, const __nv_bfloat16* t,
+                                         int n0, int k0, int lane) {
+  ldsm_x4_t(b, smem_u32(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                        (D + 8) + n0 + (lane >> 4) * 8));
+}
+
+// A fragments, split hi/lo, of the 16 x 16 block whose columns are the
+// accumulator chunks 2 kk and 2 kk + 1 (the m16n8 C layout read as the
+// m16k16 A layout).
+__device__ __forceinline__ void c_to_a(float (*acc)[4], int kk,
+                                       uint32_t* hi, uint32_t* lo) {
+  split_bf16x2(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
+  split_bf16x2(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
+  split_bf16x2(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
+  split_bf16x2(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+constexpr int TCB_THREADS = 128;    // four warps, 16 rows each
+constexpr int TCB_ROWS = 64;        // keys (dK/dV) or queries (dQ) a CTA owns
+
+// dK/dV: queries a step (a register budget: D = 128 takes 32).
+template <int D>
+__host__ __device__ constexpr int tcb_kv_bq() { return D == 64 ? 64 : 32; }
+
+template <int D>
+constexpr size_t tcb_kv_smem_bytes() {
+  return 2 * (D + 8) * (2 * TCB_ROWS + 4 * tcb_kv_bq<D>()) +
+         4 * 4 * tcb_kv_bq<D>();
+}
+
+// One CTA per (KV head g, 64-key tile); warp w owns keys 16 w .. 16 w + 15
+// and their dK and dV rows, over the query tiles of every query head of
+// the group that can see the tile (the FMA route's loop).  S^T = K Q^T and
+// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// straight from the accumulators; Q, dO, lse and delta stream through
+// two buffers.
+template <int D>
+__global__ void __launch_bounds__(TCB_THREADS)
+attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int lq, int lk,
+                           int kv_groups, float scale, int causal,
+                           int window) {
+  constexpr int BQT = tcb_kv_bq<D>();
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + TCB_ROWS * LD;
+  __nv_bfloat16* qs = vs + TCB_ROWS * LD;       // [2][BQT][LD]
+  __nv_bfloat16* dos = qs + 2 * BQT * LD;       // [2][BQT][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQT * LD);   // [2][BQT]
+  float* delta_s = lse_s + 2 * BQT;                              // [2][BQT]
+
+  const int g = blockIdx.y;
+  const int k0 = blockIdx.x * TCB_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t kv_base = static_cast<size_t>(g) * lk * D;
+  load_rows<D, TCB_ROWS, TCB_THREADS>(ks, k + kv_base, k0, lk);
+  load_rows<D, TCB_ROWS, TCB_THREADS>(vs, v + kv_base, k0, lk);
+
+  // The query range that can see some key of this tile.
+  const int k_last = min(k0 + TCB_ROWS, lk) - 1;
+  const int q_begin = causal ? (k0 / BQT) * BQT : 0;
+  const int q_end = window > 0 ? min(lq, k_last + window) : lq;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + BQT - 1) / BQT : 0;
+  const int items = kv_groups * n_qt;
+
+  auto load_item = [&](int it, int buf) {
+    const int bh = g * kv_groups + it / n_qt;
+    const int q0 = q_begin + (it % n_qt) * BQT;
+    const size_t q_base = static_cast<size_t>(bh) * lq * D;
+    load_rows<D, BQT, TCB_THREADS>(qs + buf * BQT * LD, q + q_base, q0, lq);
+    load_rows<D, BQT, TCB_THREADS>(dos + buf * BQT * LD, dout + q_base, q0,
+                                   lq);
+    if (threadIdx.x < BQT) {
+      const int qi = q0 + threadIdx.x;
+      const bool in = qi < lq;
+      const size_t r = static_cast<size_t>(bh) * lq + (in ? qi : 0);
+      cp_async4(smem_u32(lse_s + buf * BQT + threadIdx.x), lse + r, in);
+      cp_async4(smem_u32(delta_s + buf * BQT + threadIdx.x), delta + r, in);
+    }
+  };
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.0f;
+
+  const int key0 = k0 + 16 * warp + lane / 4;   // rows key0 and key0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+  if (items > 0) load_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < items) load_item(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    const int q0 = q_begin + (it % n_qt) * BQT;
+    const __nv_bfloat16* qb = qs + buf * BQT * LD;
+    const __nv_bfloat16* dob = dos + buf * BQT * LD;
+    const float* lse_b = lse_s + buf * BQT;
+    const float* delta_b = delta_s + buf * BQT;
+
+    float st[BQT / 8][4], dpt[BQT / 8][4];
+#pragma unroll
+    for (int c = 0; c < BQT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      load_a<D>(ak, ks, 16 * warp, 16 * kk, lane);
+      load_a<D>(av, vs, 16 * warp, 16 * kk, lane);
+#pragma unroll
+      for (int n2 = 0; n2 < BQT / 16; ++n2) {
+        uint32_t b[4];
+        load_b<D>(b, qb, 16 * n2, 16 * kk, lane);
+        mma_bf16(st[2 * n2], ak, b[0], b[1]);
+        mma_bf16(st[2 * n2 + 1], ak, b[2], b[3]);
+        load_b<D>(b, dob, 16 * n2, 16 * kk, lane);
+        mma_bf16(dpt[2 * n2], av, b[0], b[1]);
+        mma_bf16(dpt[2 * n2 + 1], av, b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T in place; masks only on tiles that need them.
+    const bool edge = k0 + TCB_ROWS > lk || q0 + BQT > lq ||
+                      (causal && q0 < k0 + TCB_ROWS - 1) ||
+                      (window > 0 && q0 + BQT - 1 - k0 >= window);
+#pragma unroll
+    for (int c = 0; c < BQT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int il = 8 * c + col0 + (e & 1);
+        float p = exp2_ftz(st[c][e] * scale_log2 - lse_b[il] * LOG2E);
+        if (edge && !visible(q0 + il, key0 + 8 * (e >> 1), lq, lk, causal,
+                             window))
+          p = 0.0f;
+        st[c][e] = p;
+        dpt[c][e] = p * (dpt[c][e] - delta_b[il]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q over the step's queries.
+#pragma unroll
+    for (int kq = 0; kq < BQT / 16; ++kq) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      c_to_a(st, kq, ph, pl);
+      c_to_a(dpt, kq, sh, sl);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        load_b_t<D>(b, dob, 16 * n2, 16 * kq, lane);
+        mma_bf16(dv_acc[2 * n2], ph, b[0], b[1]);
+        mma_bf16(dv_acc[2 * n2], pl, b[0], b[1]);
+        mma_bf16(dv_acc[2 * n2 + 1], ph, b[2], b[3]);
+        mma_bf16(dv_acc[2 * n2 + 1], pl, b[2], b[3]);
+        load_b_t<D>(b, qb, 16 * n2, 16 * kq, lane);
+        mma_bf16(dk_acc[2 * n2], sh, b[0], b[1]);
+        mma_bf16(dk_acc[2 * n2], sl, b[0], b[1]);
+        mma_bf16(dk_acc[2 * n2 + 1], sh, b[2], b[3]);
+        mma_bf16(dk_acc[2 * n2 + 1], sl, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // the next prefetch overwrites this buffer
+  }
+  if (items == 0) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key0 + 8 * r;
+    if (kj >= lk) continue;
+    const size_t off = kv_base + static_cast<size_t>(kj) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      store_bf16x2(dk + off + 8 * c + col0, dk_acc[c][2 * r] * scale,
+                   dk_acc[c][2 * r + 1] * scale);
+      store_bf16x2(dv + off + 8 * c + col0, dv_acc[c][2 * r],
+                   dv_acc[c][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t tcb_q_smem_bytes() {
+  return 2 * (D + 8) * (2 * TCB_ROWS + 4 * TCB_ROWS);
+}
+
+// dQ: one CTA per (batch*head, 64-query tile); warp w owns queries
+// 16 w .. 16 w + 15, over the key tiles the forward visits.  S = Q K^T and
+// dP = dO V^T, then dQ += dS K; K and V stream through two buffers.
+template <int D>
+__global__ void __launch_bounds__(TCB_THREADS)
+attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int lq, int lk,
+                          int kv_groups, float scale, int causal,
+                          int window) {
+  constexpr int LD = D + 8;
+  constexpr int BKT = TCB_ROWS;                 // keys a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + TCB_ROWS * LD;
+  __nv_bfloat16* ks = dos + TCB_ROWS * LD;      // [2][BKT][LD]
+  __nv_bfloat16* vs = ks + 2 * BKT * LD;        // [2][BKT][LD]
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * TCB_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t q_base = static_cast<size_t>(bh) * lq * D;
+  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * D;
+  load_rows<D, TCB_ROWS, TCB_THREADS>(qs, q + q_base, q0, lq);
+  load_rows<D, TCB_ROWS, TCB_THREADS>(dos, dout + q_base, q0, lq);
+
+  const int row0 = q0 + 16 * warp + lane / 4;   // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+  float row_lse2[2], row_delta[2];   // lse in the log2 domain
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const size_t off = static_cast<size_t>(bh) * lq + qi;
+    row_lse2[r] = qi < lq ? lse[off] * LOG2E : 0.0f;
+    row_delta[r] = qi < lq ? delta[off] : 0.0f;
+  }
+
+  // The forward's key range for this block.
+  const int q_last = min(q0 + TCB_ROWS, lq) - 1;
+  int k_end = lk;
+  if (causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  k_begin = (k_begin / BKT) * BKT;
+  const int n_kt = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
+
+  auto load_tile = [&](int t, int buf) {
+    const int kt0 = k_begin + t * BKT;
+    load_rows<D, BKT, TCB_THREADS>(ks + buf * BKT * LD, k + kv_base, kt0,
+                                   lk);
+    load_rows<D, BKT, TCB_THREADS>(vs + buf * BKT * LD, v + kv_base, kt0,
+                                   lk);
+  };
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.0f;
+
+  if (n_kt > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < n_kt; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_kt) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    const int kt0 = k_begin + t * BKT;
+    const __nv_bfloat16* kb = ks + buf * BKT * LD;
+    const __nv_bfloat16* vb = vs + buf * BKT * LD;
+    float s[BKT / 8][4], dp[BKT / 8][4];
+#pragma unroll
+    for (int c = 0; c < BKT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      load_a<D>(aq, qs, 16 * warp, 16 * kk, lane);
+      load_a<D>(ado, dos, 16 * warp, 16 * kk, lane);
+#pragma unroll
+      for (int n2 = 0; n2 < BKT / 16; ++n2) {
+        uint32_t b[4];
+        load_b<D>(b, kb, 16 * n2, 16 * kk, lane);
+        mma_bf16(s[2 * n2], aq, b[0], b[1]);
+        mma_bf16(s[2 * n2 + 1], aq, b[2], b[3]);
+        load_b<D>(b, vb, 16 * n2, 16 * kk, lane);
+        mma_bf16(dp[2 * n2], ado, b[0], b[1]);
+        mma_bf16(dp[2 * n2 + 1], ado, b[2], b[3]);
+      }
+    }
+
+    const bool edge = kt0 + BKT > lk || q0 + TCB_ROWS > lq ||
+                      (causal && kt0 + BKT - 1 > q0) ||
+                      (window > 0 && q0 + TCB_ROWS - 1 - kt0 >= window);
+#pragma unroll
+    for (int c = 0; c < BKT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2_ftz(s[c][e] * scale_log2 - row_lse2[r]);
+        if (edge && !visible(row0 + 8 * r, kt0 + 8 * c + col0 + (e & 1), lq,
+                             lk, causal, window))
+          p = 0.0f;
+        dp[c][e] = p * (dp[c][e] - row_delta[r]);
+      }
+
+    // dQ += dS K over the tile's keys.
+#pragma unroll
+    for (int kc = 0; kc < BKT / 16; ++kc) {
+      uint32_t sh[4], sl[4];
+      c_to_a(dp, kc, sh, sl);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        load_b_t<D>(b, kb, 16 * n2, 16 * kc, lane);
+        mma_bf16(dq_acc[2 * n2], sh, b[0], b[1]);
+        mma_bf16(dq_acc[2 * n2], sl, b[0], b[1]);
+        mma_bf16(dq_acc[2 * n2 + 1], sh, b[2], b[3]);
+        mma_bf16(dq_acc[2 * n2 + 1], sl, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // the next prefetch overwrites this buffer
+  }
+  if (n_kt == 0) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= lq) continue;
+    __nv_bfloat16* dst = dq + q_base + static_cast<size_t>(qi) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      store_bf16x2(dst + 8 * c + col0, dq_acc[c][2 * r] * scale,
+                   dq_acc[c][2 * r + 1] * scale);
+  }
+}
+
 // --- launches ----------------------------------------------------------------
 
 // A kernel's shared-memory opt-in is a per-device attribute: set it on a
@@ -507,18 +1401,23 @@ int launch_forward(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+cudaError_t launch_delta(const void* out, const void* dout, void* delta,
+                         int rows, int d, cudaStream_t stream) {
+  const int warps_per_block = THREADS / 32;
+  delta_kernel<T><<<(rows + warps_per_block - 1) / warps_per_block, THREADS,
+                    0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout),
+      static_cast<float*>(delta), rows, d);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* out, const void* dout, const void* lse,
                     void* delta, void* dq, void* dk, void* dv,
                     const Problem& p, cudaStream_t stream) {
-  const int rows = p.bh * p.lq;
-  const int warps_per_block = THREADS / 32;
-  delta_kernel<T><<<(rows + warps_per_block - 1) / warps_per_block, THREADS,
-                    0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout),
-      static_cast<float*>(delta), rows, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(out, dout, delta, p.bh * p.lq, D, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t kv_smem = bwd_kv_smem_bytes<D>();
@@ -547,14 +1446,123 @@ int launch_backward(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, looked up at run time so that the library needs
+// no -lcuda.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a bf16 (planes, rows, d) tensor: boxes of 64 columns by
+// ``box_rows`` rows of one plane, 128-byte swizzled, zeros outside.
+bool encode_3d(CUtensorMap* map, const void* base, int planes, int rows,
+               int d, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The forward's three maps: Q boxes of 128 rows, K and V boxes of a tile.
+bool encode_qkv(const void* q, const void* k, const void* v, const Problem& p,
+                int d, CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv) {
+  const int bhkv = p.bh / p.kv_groups;
+  return encode_3d(tq, q, p.bh, p.lq, d, TC_BM) &&
+         encode_3d(tk, k, bhkv, p.lk, d, TC_BN) &&
+         encode_3d(tv, v, bhkv, p.lk, d, TC_BN);
+}
+
+template <int D>
+int launch_forward_tc(const void* q, const void* k, const void* v, void* out,
+                      void* lse, const Problem& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode_qkv(q, k, v, p, D, &tq, &tk, &tv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = TcFwdSmem<D>::BYTES;
+  cudaError_t err = opt_in_smem<attention_tc_kernel<D>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.bh, (p.lq + TC_BM - 1) / TC_BM);
+  attention_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      p.lq, p.lk, p.kv_groups, p.scale, p.causal, p.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_backward_tc(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const void* lse,
+                       void* delta, void* dq, void* dk, void* dv,
+                       const Problem& p, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  cudaError_t err =
+      launch_delta<bf16>(out, dout, delta, p.bh * p.lq, D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t kv_smem = tcb_kv_smem_bytes<D>();
+  err = opt_in_smem<attention_bwd_kv_tc_kernel<D>>(kv_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid((p.lk + TCB_ROWS - 1) / TCB_ROWS, p.bh / p.kv_groups);
+  attention_bwd_kv_tc_kernel<D><<<kv_grid, TCB_THREADS, kv_smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.lq, p.lk,
+      p.kv_groups, p.scale, p.causal, p.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t q_smem = tcb_q_smem_bytes<D>();
+  err = opt_in_smem<attention_bwd_q_tc_kernel<D>>(q_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid((p.lq + TCB_ROWS - 1) / TCB_ROWS, p.bh);
+  attention_bwd_q_tc_kernel<D><<<q_grid, TCB_THREADS, q_smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
+      p.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct Forward {
   const void *q, *k, *v;
   void *out, *lse;
   Problem p;
   cudaStream_t stream;
   template <typename T, int D>
-  int operator()() const {
+  int fma() const {
     return launch_forward<T, D>(q, k, v, out, lse, p, stream);
+  }
+  template <int D>
+  int tensor_core() const {
+    return launch_forward_tc<D>(q, k, v, out, lse, p, stream);
   }
 };
 
@@ -564,30 +1572,53 @@ struct Backward {
   Problem p;
   cudaStream_t stream;
   template <typename T, int D>
-  int operator()() const {
+  int fma() const {
     return launch_backward<T, D>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                 p, stream);
+  }
+  template <int D>
+  int tensor_core() const {
+    return launch_backward_tc<D>(q, k, v, out, dout, lse, delta, dq, dk, dv,
                                  p, stream);
   }
 };
 
-// Calls fn.template operator()<T, D>() for the runtime dtype code and head
-// dim; cudaErrorInvalidValue for anything the kernels are not built for.
+constexpr int kRouteFma = 0;
+constexpr int kRouteTensorCore = 1;
+
+// Calls the route's kernels for the runtime dtype code and head dim:
+// the tensor-core route takes bf16 at D 64 and 128, the FMA route float32
+// at every D and bf16 at D <= 32.  cudaErrorInvalidValue for anything
+// else, so a route never takes a case that is the other's.
 template <typename Fn>
-int dispatch(int dtype, int d, const Fn& fn) {
-  auto by_d = [&](auto tag) -> int {
-    using T = decltype(tag);
+int dispatch(int route, int dtype, int d, const Fn& fn) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteTensorCore) {
+    if (dtype != 1) return invalid;
+    if (d == 64) return fn.template tensor_core<64>();
+    if (d == 128) return fn.template tensor_core<128>();
+    return invalid;
+  }
+  if (route != kRouteFma) return invalid;
+  if (dtype == 0) {
     switch (d) {
-      case 8: return fn.template operator()<T, 8>();
-      case 16: return fn.template operator()<T, 16>();
-      case 32: return fn.template operator()<T, 32>();
-      case 64: return fn.template operator()<T, 64>();
-      case 128: return fn.template operator()<T, 128>();
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      case 8: return fn.template fma<float, 8>();
+      case 16: return fn.template fma<float, 16>();
+      case 32: return fn.template fma<float, 32>();
+      case 64: return fn.template fma<float, 64>();
+      case 128: return fn.template fma<float, 128>();
+      default: return invalid;
     }
-  };
-  if (dtype == 0) return by_d(float{});
-  if (dtype == 1) return by_d(__nv_bfloat16{});
-  return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 1) {
+    switch (d) {
+      case 8: return fn.template fma<__nv_bfloat16, 8>();
+      case 16: return fn.template fma<__nv_bfloat16, 16>();
+      case 32: return fn.template fma<__nv_bfloat16, 32>();
+      default: return invalid;
+    }
+  }
+  return invalid;
 }
 
 bool valid_problem(const Problem& p) {
@@ -600,17 +1631,20 @@ bool valid_problem(const Problem& p) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); d in
-// {8, 16, 32, 64, 128}.  lse, (bh, lq) float32, may be null: it is then
-// not written.  Returns cudaErrorInvalidValue for anything else.
+// {8, 16, 32, 64, 128}; route: 0 = FMA, 1 = tensor cores, as ``dispatch``
+// takes them.  lse, (bh, lq) float32, may be null: it is then not
+// written.  Returns cudaErrorInvalidValue for anything else.
 int local_attention_forward(const void* q, const void* k, const void* v,
                             void* out, void* lse, int dtype, int bh, int lq,
                             int lk, int d, int kv_groups, float scale,
-                            int causal, int window, void* stream) {
+                            int causal, int window, int route,
+                            void* stream) {
   if (bh == 0 || lq == 0) return 0;
   const Problem p{bh, lq, lk, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, d, Forward{q, k, v, out, lse, p,
-                                    static_cast<cudaStream_t>(stream)});
+  return dispatch(route, dtype, d,
+                  Forward{q, k, v, out, lse, p,
+                          static_cast<cudaStream_t>(stream)});
 }
 
 // The gradients dq (bh, lq, d), dk and dv (bh / kv_groups, lk, d) of the
@@ -622,13 +1656,29 @@ int local_attention_backward(const void* q, const void* k, const void* v,
                              const void* lse, void* delta, void* dq,
                              void* dk, void* dv, int dtype, int bh, int lq,
                              int lk, int d, int kv_groups, float scale,
-                             int causal, int window, void* stream) {
+                             int causal, int window, int route,
+                             void* stream) {
   if (bh == 0) return 0;
   const Problem p{bh, lq, lk, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(dtype, d, Backward{q, k, v, out, dout, lse, delta, dq,
-                                     dk, dv, p,
-                                     static_cast<cudaStream_t>(stream)});
+  return dispatch(route, dtype, d,
+                  Backward{q, k, v, out, dout, lse, delta, dq, dk, dv, p,
+                           static_cast<cudaStream_t>(stream)});
+}
+
+// Encodes the tensor-core forward's three TMA descriptors ``reps`` times
+// (what each forward call pays on the host for them); launches nothing.
+int local_attention_encode_descriptors(const void* q, const void* k,
+                                       const void* v, int bh, int lq, int lk,
+                                       int d, int kv_groups, int reps) {
+  const Problem p{bh, lq, lk, kv_groups, 1.0f, 1, 0};
+  if (!valid_problem(p) || (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  for (int i = 0; i < reps; ++i)
+    if (!encode_qkv(q, k, v, p, d, &tq, &tk, &tv))
+      return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 const char* local_attention_error_string(int code) {

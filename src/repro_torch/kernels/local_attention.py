@@ -14,8 +14,15 @@ with fp32 accumulator, max and sum, masks of -1e30, GQA through
 skips tiles that are fully masked, which the reference runs; skipping is
 exact.  Ragged lengths are masked inside the kernel, so any Lq and Lk
 work (the reference's ``pick_block`` falls back to one whole-axis block).
-The source note says what bounds it on an H100 and what its design does
-about that.
+
+It has two routes, chosen by :func:`route` from the dtype and the head
+dim alone, never by a failure: ``"tensor_core"`` for bfloat16 at head
+dims 64 and 128 (every attention of the serving and training paths:
+``wgmma`` with TMA-fed K/V tiles forward, ``mma.sync`` backward) and
+``"fma"`` for float32 at every head dim and bfloat16 at 8, 16 and 32
+(fp32 FMA, which the reference's f32 bound of 2e-5 needs).  The source
+note says what bounds each on an H100 and what its design does about
+that.
 
 The kernel is differentiable: when autograd needs a gradient of q, k or
 v, the forward also writes each row's log-sum-exp and the backward is a
@@ -30,7 +37,8 @@ that the reference's ``_sdpa_chunked`` computes, and its autograd is the
 backward's plain version.  The wrapper takes it only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  It counts its
 forward launches in ``local_flash_attention.launches`` and its backward
-calls in ``local_flash_attention.backward_launches``.
+calls in ``local_flash_attention.backward_launches``, and both again per
+route in ``launches_by_route`` and ``backward_launches_by_route``.
 """
 
 from __future__ import annotations
@@ -41,12 +49,24 @@ import functools
 import torch
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
-           "reset_launches", "HEAD_DIMS"]
+           "reset_launches", "route", "HEAD_DIMS", "ROUTES"]
 
 _NEG = -1.0e30
 HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernel is built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535               # CUDA's limit on the (batch*head) axis
+ROUTES = ("tensor_core", "fma")
+_ROUTE_CODE = {"fma": 0, "tensor_core": 1}
+_TC_HEAD_DIMS = (64, 128)         # head dims of the tensor-core route
+_TMA_ALIGN = 16                   # bytes: TMA's base-address alignment
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel route for q, k and v of ``dtype`` at head dim ``d``:
+    ``"tensor_core"`` for bfloat16 at 64 and 128, ``"fma"`` otherwise."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return "tensor_core"
+    return "fma"
 
 
 def _mask(lq: int, lk: int, causal: bool, window: int,
@@ -96,12 +116,14 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import library
     lib = library("local_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.local_attention_forward.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                            i, ctypes.c_float, i, i, p]
+    lib.local_attention_forward.argtypes = [p] * 5 + [i] * 6 + [
+        ctypes.c_float, i, i, i, p]
     lib.local_attention_forward.restype = i
     lib.local_attention_backward.argtypes = [p] * 10 + [i] * 6 + [
-        ctypes.c_float, i, i, p]
+        ctypes.c_float, i, i, i, p]
     lib.local_attention_backward.restype = i
+    lib.local_attention_encode_descriptors.argtypes = [p] * 3 + [i] * 6
+    lib.local_attention_encode_descriptors.restype = i
     lib.local_attention_error_string.argtypes = [i]
     lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -129,6 +151,10 @@ def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"local_flash_attention: the CUDA kernel takes "
                          f"head dims {HEAD_DIMS}, got {q.shape[-1]}")
+    if route(q.dtype, q.shape[-1]) == "tensor_core" and any(
+            t.data_ptr() % _TMA_ALIGN for t in (q, k, v)):
+        raise ValueError("local_flash_attention: the tensor-core route takes "
+                         f"{_TMA_ALIGN}-byte aligned operands")
     return False
 
 
@@ -150,15 +176,17 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bh == 0 or lq == 0:
         return out, lse
     lib = _lib()
+    path = route(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):   # the C entry launches on it
         code = lib.local_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype],
             bh, lq, k.shape[1], d, kv_groups, scale, int(causal), window,
-            stream)
+            _ROUTE_CODE[path], stream)
     _check(lib, code, "")
     local_flash_attention.launches += 1
+    local_flash_attention.launches_by_route[path] += 1
     return out, lse
 
 
@@ -170,12 +198,15 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp and the output's gradient: (dq, dk, dv)."""
     bh, lq, d = q.shape
     dout = dout.to(q.dtype).contiguous()
+    if dout.data_ptr() % _TMA_ALIGN:    # the kernels load 16-byte chunks
+        dout = dout.clone()
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if bh == 0 or lq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     lib = _lib()
+    path = route(q.dtype, d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = lib.local_attention_backward(
@@ -183,9 +214,10 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODE[q.dtype], bh, lq, k.shape[1], d, kv_groups, scale,
-            int(causal), window, stream)
+            int(causal), window, _ROUTE_CODE[path], stream)
     _check(lib, code, " backward")
     local_flash_attention.backward_launches += 1
+    local_flash_attention.backward_launches_by_route[path] += 1
     return dq, dk, dv
 
 
@@ -222,10 +254,10 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
         ``w`` most recent keys.
       causal: lower-triangular masking (assumes aligned q/k positions).
 
-    The kernel tiles by 64 queries x 64 keys; unlike the reference's Pallas
-    kernel it takes no block sizes.  Gradients flow to q, k and v: through
-    the CUDA backward on the card, through the plain version's autograd on
-    the CPU.
+    The kernel picks its own tiles (64 or 128 queries by 64 keys, by
+    route); unlike the reference's Pallas kernel it takes no block sizes.
+    Gradients flow to q, k and v: through the CUDA backward on the card,
+    through the plain version's autograd on the CPU.
     """
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError("local_flash_attention: expected q (BH, Lq, D) and "
@@ -258,11 +290,14 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
                     with_lse=False)[0]
 
 
-local_flash_attention.launches = 0
-local_flash_attention.backward_launches = 0
-
-
 def reset_launches() -> None:
-    """Set the kernel's forward and backward launch counters to 0."""
+    """Set the kernel's forward and backward launch counters, the totals
+    and those per route, to 0."""
     local_flash_attention.launches = 0
     local_flash_attention.backward_launches = 0
+    local_flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    local_flash_attention.backward_launches_by_route = dict.fromkeys(ROUTES,
+                                                                     0)
+
+
+reset_launches()

@@ -197,3 +197,134 @@ def test_gqa_wrapper_gradients_reach_q_k_v():
     for t, t3 in ((q, q3), (k, k3), (v, v3)):
         torch.testing.assert_close(t.grad.reshape(t3.shape), t3.grad,
                                    rtol=0, atol=0)
+
+
+# --- the CUDA kernel's tensor-core route, emulated on the CPU ---------------
+#
+# On the card, bfloat16 q, k, v at head dims 64 and 128 take the
+# tensor-core route (``tla.route``): S = Q K^T from bf16 operands into fp32
+# (exact products), an online softmax over 64-key tiles in fp32, and the
+# second products (P V; dS K, dS^T Q, P^T dO) with their 16-bit operand
+# split into hi = bf16(x) and lo = bf16(x - hi), two bf16 products into one
+# fp32 accumulator.  The emulation below computes exactly that arithmetic
+# in plain PyTorch (summation order aside), so that a precision mistake
+# in the design shows here, against the reference, before any card run.
+# It is held to the bounds that chip_smoke.py holds the kernel to: the
+# bf16 forward at rtol 1e-2 / atol 1e-3 against the fp32 reference output
+# rounded to bf16, the bf16 gradients within 2e-2 * max|reference|.
+
+TC_TILE = 64
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a split hi/lo and b already bf16, fp32 accumulation."""
+    hi, lo = _split(a)
+    return hi @ b + lo @ b
+
+
+def _tc_forward(q, k, v, *, causal, window, kv_groups):
+    """(out in bf16, lse) as the tensor-core forward computes them."""
+    bh, lq, d = q.shape
+    scale = d ** -0.5
+    kk = k.repeat_interleave(kv_groups, 0)
+    vv = v.repeat_interleave(kv_groups, 0)
+    mask = tla._mask(lq, k.shape[1], causal, window, q.device)
+    o = torch.zeros((bh, lq, d))
+    m = torch.full((bh, lq, 1), -1.0e30)
+    l = torch.zeros((bh, lq, 1))
+    for k0 in range(0, k.shape[1], TC_TILE):
+        ok = mask[:, k0:k0 + TC_TILE]
+        s = torch.where(ok, q @ kk[:, k0:k0 + TC_TILE].transpose(1, 2) * scale,
+                        -1.0e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _split_mm(p, vv[:, k0:k0 + TC_TILE])
+        m = m_new
+    out = _bf16(o / torch.clamp(l, min=1e-20))
+    return out, (m + torch.log(torch.clamp(l, min=1e-20)))[..., 0]
+
+
+def _tc_backward(q, k, v, out, lse, dout, *, causal, window, kv_groups):
+    """(dq, dk, dv) in bf16 as the tensor-core backward computes them."""
+    bh, lq, d = q.shape
+    bhkv, lk, _ = k.shape
+    scale = d ** -0.5
+    kk = k.repeat_interleave(kv_groups, 0)
+    vv = v.repeat_interleave(kv_groups, 0)
+    mask = tla._mask(lq, lk, causal, window, q.device)
+    delta = (dout * out).sum(-1, keepdim=True)
+    s = q @ kk.transpose(1, 2)
+    p = torch.where(mask, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (dout @ vv.transpose(1, 2) - delta)
+    dq = scale * _split_mm(ds, kk)
+    dk = scale * _split_mm(ds.transpose(1, 2), q)
+    dv = _split_mm(p.transpose(1, 2), dout)
+    fold = lambda g: g.reshape(bhkv, kv_groups, lk, d).sum(1)
+    return _bf16(dq), _bf16(fold(dk)), _bf16(fold(dv))
+
+
+# (bh, lq, lk, d, kv_groups, causal, window): D 64 and 128, ragged L, GQA,
+# a window and non-causal; every query sees a key (the reference oracle
+# averages uniformly over a row that sees none).
+TC_CASES = [(4, 77, 77, 64, 1, True, 0), (4, 200, 200, 128, 4, True, 64),
+            (8, 128, 128, 64, 4, False, 0), (4, 77, 200, 128, 2, False, 64),
+            (4, 200, 77, 64, 1, True, 0)]
+
+
+def _bf16_inputs(bh, lq, lk, d, groups, seed):
+    """q, k, v and dout drawn from a seed and rounded to bf16, as float32."""
+    q, k, v = (_bf16(torch.from_numpy(a))
+               for a in _qkv(bh, lq, lk, d, groups, seed=seed))
+    dout = _bf16(torch.from_numpy(np.random.default_rng(seed + 1)
+                                  .standard_normal(q.shape)
+                                  .astype(np.float32)))
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("bh,lq,lk,d,groups,causal,window", TC_CASES)
+def test_tensor_core_forward_design_matches_reference_kernel(
+        bh, lq, lk, d, groups, causal, window):
+    q, k, v, _ = _bf16_inputs(bh, lq, lk, d, groups, seed=20)
+    kw = dict(causal=causal, window=window, kv_groups=groups)
+    want = jops.local_flash_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), block_q=64,
+        block_k=64, **kw)
+    want = _bf16(torch.from_numpy(np.array(want)))
+    got, _ = _tc_forward(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("bh,lq,lk,d,groups,causal,window", TC_CASES)
+def test_tensor_core_backward_design_matches_reference_grads(
+        bh, lq, lk, d, groups, causal, window):
+    q, k, v, dout = _bf16_inputs(bh, lq, lk, d, groups, seed=21)
+    kw = dict(causal=causal, window=window, kv_groups=groups)
+    _, vjp = jax.vjp(lambda *a: jref.local_attention_ref(*a, **kw),
+                     *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(dout.numpy()))
+    out, lse = _tc_forward(q, k, v, **kw)
+    got = _tc_backward(q, k, v, out, lse, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = torch.from_numpy(np.array(w))
+        top = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-2 * top, msg=name)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 8, "fma"), (torch.bfloat16, 16, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 8, "fma")])
+def test_route_follows_dtype_and_head_dim(dtype, d, want):
+    assert tla.route(dtype, d) == want

@@ -16,6 +16,10 @@ kernel is held to its plain version at rtol/atol 2e-5 in float32, the
 reference's bound (``tests/test_kernels.py``), and at rtol 1e-2 / atol
 1e-3 in bfloat16: both sides compute in fp32 from the same inputs, so they
 differ by at most one bf16 rounding of the output (2^-7 relative).
+bf16 at head dims 64 and 128 takes the kernel's tensor-core route
+(``wgmma`` forward, ``mma.sync`` backward, P and dS split into two bf16
+terms), everything else its FMA route; each test asserts the route's
+launch counter, and the same bounds hold on both.
 An LM prefill on the card goes through it once per layer and matches the
 same model's prefill on the CPU at the bf16 decode bound of
 ``tests/test_models.py`` (5e-2).
@@ -155,9 +159,57 @@ def test_flash_attention_matches_plain_version(cuda_device, lq, lk, d, groups,
                                           window=window, kv_groups=groups)
     torch.cuda.synchronize()
     assert la.local_flash_attention.launches == 1 and got.dtype == dtype
+    assert la.local_flash_attention.launches_by_route[la.route(dtype, d)] == 1
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+# The tensor-core route's edges: bf16 at D 64 and 128, L of 77, 1000, 1023
+# and 1024 (ragged and whole 64- and 128-row tiles), Lq != Lk, GQA groups
+# 1, 4 and 8, a window of 64 and non-causal.
+@pytest.mark.parametrize("lq,lk,groups", [
+    (77, 77, 1), (1000, 1000, 4), (1023, 1023, 8), (1024, 1024, 1),
+    (1024, 77, 4), (77, 1023, 8), (1000, 1024, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0), (False, 64)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_route_matches_plain_version(cuda_device, lq, lk,
+                                                 groups, causal, window, d):
+    q, k, v = _attn_inputs(45, 8, lq, lk, d, groups, torch.bfloat16,
+                           cuda_device)
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, causal=causal, window=window,
+                                   kv_groups=groups)
+    want = la.local_flash_attention_plain(q, k, v, causal=causal,
+                                          window=window, kv_groups=groups)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 1, "fma": 0}
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 8, "fma"), (torch.bfloat16, 16, "fma"),
+    (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 32, "fma")])
+def test_each_route_counts_its_launches(cuda_device, dtype, d, route):
+    """Forward and backward each count one launch on the route the dtype
+    and head dim pick, and none on the other."""
+    q, k, v = _attn_inputs(46, 4, 130, 130, d, 2, dtype, cuda_device)
+    la.reset_launches()
+    q.requires_grad_()
+    la.local_flash_attention(q, k, v, kv_groups=2).float().sum().backward()
+    torch.cuda.synchronize()
+    other = {"tensor_core": "fma", "fma": "tensor_core"}[route]
+    by_route = la.local_flash_attention.launches_by_route
+    bwd_by_route = la.local_flash_attention.backward_launches_by_route
+    assert (by_route[route], by_route[other]) == (1, 0)
+    assert (bwd_by_route[route], bwd_by_route[other]) == (1, 0)
+    assert la.local_flash_attention.launches == 1
+    assert la.local_flash_attention.backward_launches == 1
 
 
 def test_gqa_wrapper_launches_the_kernel(cuda_device):
@@ -188,6 +240,19 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(
                                  v[..., :48].contiguous())  # head dim 48
     with pytest.raises(ValueError):
         la.local_flash_attention(q, k.cpu(), v)             # mixed devices
+
+
+def test_tensor_core_route_raises_on_misaligned_operands(cuda_device):
+    """TMA takes 16-byte aligned base addresses: an operand that is not
+    raises instead of taking another route."""
+    buf = torch.randn(4 * 64 * 64 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q = buf[1:].view(4, 64, 64)                 # contiguous, 2 bytes off
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    la.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        la.local_flash_attention(q, k, v)
+    assert la.local_flash_attention.launches == 0
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b"])
@@ -274,6 +339,8 @@ def test_flash_attention_backward_matches_plain_autograd(
     torch.cuda.synchronize()
     assert la.local_flash_attention.launches == 1
     assert la.local_flash_attention.backward_launches == 1
+    assert la.local_flash_attention.backward_launches_by_route[
+        la.route(dtype, d)] == 1
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
         assert g.dtype == dtype, name
@@ -282,14 +349,18 @@ def test_flash_attention_backward_matches_plain_autograd(
                                    atol=tol * max(top, 1e-30), msg=name)
 
 
+@pytest.mark.parametrize("bh,l,groups", [(32, 517, 4), (128, 1024, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_backward_is_deterministic(cuda_device, dtype):
-    q, k, v = _attn_inputs(43, 32, 517, 517, 64, 4, dtype, cuda_device)
+def test_flash_attention_backward_is_deterministic(cuda_device, dtype, bh, l,
+                                                   groups):
+    """Two launches give bit-equal gradients, at (32, 517, 64) with GQA
+    and at the training shape (128, 1024, 64)."""
+    q, k, v = _attn_inputs(43, bh, l, l, 64, groups, dtype, cuda_device)
     dout = torch.randn_like(q)
-    first = _grads(lambda *t: la.local_flash_attention(*t, kv_groups=4), q,
-                   k, v, dout)
-    second = _grads(lambda *t: la.local_flash_attention(*t, kv_groups=4),
-                    q, k, v, dout)
+    first = _grads(lambda *t: la.local_flash_attention(
+        *t, kv_groups=groups), q, k, v, dout)
+    second = _grads(lambda *t: la.local_flash_attention(
+        *t, kv_groups=groups), q, k, v, dout)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
