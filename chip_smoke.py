@@ -54,9 +54,12 @@ SIDE = 512           # frame side, as examples/optical_offload.py runs it
 TIMED_RUNS = 21      # CUDA-event samples per timing (median reported)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM3 bandwidth.  The DFT kernels take fp32
-# operands; the attention kernel's operands on the serving path are bf16.
+# TF32 and bf16 on the tensor cores, and HBM3 bandwidth.  The DFT kernels
+# take fp32 operands: their FMA route runs at the fp32 rate, their
+# tensor-core route three TF32 products for each fp32 one (3xTF32).  The
+# attention kernel's operands on the serving path are bf16.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
@@ -114,22 +117,26 @@ TC_KERNELS = ("attention_tc_kernel", "attention_bwd_kv_tc_kernel",
 # kernel 6's kernels as the profiler names them, both routes
 KERNEL6_NAMES = TC_KERNELS + ("attention_kernel<", "attention_bwd_kv_kernel<",
                               "attention_bwd_q_kernel<", "delta_kernel<")
+# the DFT kernels' tensor-core route
+DFT_TC_KERNELS = ("stage1_tc_kernel", "stage2_tc_kernel")
 
 
 def is_kernel6(name: str) -> bool:
     return any(k in name for k in KERNEL6_NAMES)
 
 
-def tc_build_report(log: str) -> list[dict]:
-    """Registers and spill bytes of kernel 6's tensor-core kernels, from
-    the compiler's ``-Xptxas -v`` report of their library."""
+def ptxas_report(log: str, kernels: tuple[str, ...]) -> list[dict]:
+    """Registers and spill bytes of the named kernels (each template
+    instance, with its head dim ``d`` where it has one), from the
+    compiler's ``-Xptxas -v`` report of their library."""
     rows, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = next(({"kernel": k, "d": int(name.split(k + "ILi")[1]
-                                                 .split("E")[0])}
-                          for k in TC_KERNELS if k + "ILi" in name), None)
+            entry = next(({"kernel": k, "entry": name,
+                           "d": (int(name.split(k + "ILi")[1].split("E")[0])
+                                 if k + "ILi" in name else None)}
+                          for k in kernels if k in name), None)
         elif entry is not None and "spill stores" in line:
             words = line.replace(",", "").split()
             entry["spill_bytes"] = (int(words[words.index("spill") - 2]) +
@@ -253,18 +260,45 @@ def check_pipeline(od, rng, shape, dev, dac_bits):
               "rtol 2e-4 / atol 2e-4*max of fft2")
 
 
+def check_bit_equal(od, rng, dev) -> None:
+    """Frame i of a (16, 512, 512, 512) call of each stage is bit-equal to
+    the single-frame call, and the batched call to its repeat."""
+    wr, wi = od.dft_matrix_factors(SIDE, device=dev)
+    a = rng_frames(rng, (FRAMES, SIDE, SIDE), dev)
+    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    out = od.dft_stage2_batched(tr, ti, wr, wi)
+    for i in range(FRAMES):
+        tr1, ti1 = od.dft_stage1(wr, wi, a[i], dac_bits=8)
+        check(torch.equal(tr1, tr[i]) and torch.equal(ti1, ti[i]),
+              f"stage 1: frame {i} alone differs from the batch of 16")
+        check(torch.equal(od.dft_stage2(tr[i], ti[i], wr, wi), out[i]),
+              f"stage 2: frame {i} alone differs from the batch of 16")
+    tr2, ti2 = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    check(torch.equal(tr2, tr) and torch.equal(ti2, ti)
+          and torch.equal(od.dft_stage2_batched(tr, ti, wr, wi), out),
+          "a repeat of the batch of 16 differs")
+
+
 def phase_kernels(od, dev, tile_k: int) -> dict[str, float]:
     rng = np.random.default_rng(SEED)
     main = (FRAMES, SIDE, SIDE, SIDE)
-    shapes = [main, (tile_k, SIDE, SIDE, SIDE), (5, 64, 64, 64),
-              (1, 8, 256, 128), (3, 128, 128, 256)]
+    # every shape but the last takes the tensor-core route; the last (n
+    # not a multiple of 4) the FMA route
+    shapes = [main, (tile_k, SIDE, SIDE, SIDE), (1, SIDE, SIDE, SIDE),
+              (5, 64, 64, 64), (1, 8, 256, 128), (3, 128, 128, 256),
+              (2, 100, 96, 130)]
     err = {"dft_stage1_batched": 0.0, "dft_stage2_batched": 0.0}
+    od.reset_launches()
     for shape in shapes:
         e1 = check_stage1(od, rng, shape, dev)
         e2 = check_stage2(od, rng, shape, dev)
         if shape == main:
             err = {"dft_stage1_batched": e1, "dft_stage2_batched": e2}
         print(f"  stage 1/2 {shape}: max |err| {e1:.3e} / {e2:.3e}")
+    for fn in (od.dft_stage1_batched, od.dft_stage2_batched):
+        check(fn.launches_by_route == {"tensor_core": len(shapes) - 1,
+                                       "fma": 1},
+              f"{fn.__name__} routes {fn.launches_by_route}")
     for shape in [(FRAMES, SIDE, SIDE), (5, 64, 64), (3, 128, 256),
                   (1, 8, 128)]:
         for bits in (0, 8):
@@ -272,10 +306,17 @@ def phase_kernels(od, dev, tile_k: int) -> dict[str, float]:
     print("  pipeline vs fft2: ok at dac_bits 0 and 8")
     # DAC ties: round half to even, as torch.round does.  0.5 at 8 bits is
     # the tie 127.5; 0.49607843 is the tie 126.5 (even 126, away 127).
+    od.reset_launches()
     for value, bits in ((0.5, 8), (0.4960784316062927, 8), (0.5, 1)):
         a = torch.full((1, 64, 64), value, dtype=torch.float32, device=dev)
         check_stage1(od, rng, (1, 64, 64, 64), dev, dac_bits=bits, a=a)
-    print("  DAC ties (0.5 @ 8 b, 126.5/255 @ 8 b, 0.5 @ 1 b): ok")
+    check(od.dft_stage1_batched.launches_by_route["tensor_core"] == 3,
+          "the DAC ties did not run on the tensor-core route")
+    print("  DAC ties (0.5 @ 8 b, 126.5/255 @ 8 b, 0.5 @ 1 b): ok, on the "
+          "tensor-core route")
+    check_bit_equal(od, rng, dev)
+    print(f"  ({FRAMES}, {SIDE}, {SIDE}, {SIDE}): each frame bit-equal to its "
+          "single-frame call, the batch bit-equal to its repeat")
     return err
 
 
@@ -314,10 +355,15 @@ def phase_main_path(rt, od, dev) -> dict:
     wall_s = time.perf_counter() - t0
     launches = {"dft_stage1_batched": od.dft_stage1_batched.launches,
                 "dft_stage2_batched": od.dft_stage2_batched.launches}
+    by_route = {name: dict(getattr(od, name).launches_by_route)
+                for name in launches}
     print(f"  budget {ex.mem_budget}, tile_k {tile}, launches {launches}, "
-          f"flush wall {wall_s * 1e3:.3f} ms")
+          f"by route {by_route}, flush wall {wall_s * 1e3:.3f} ms")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+        check(by_route[name] == {"tensor_core": n, "fma": 0},
+              f"{name}: a flush launch left the tensor-core route: "
+              f"{by_route[name]}")
 
     hosts = [ex.submit("fft", x, backend="host") for x in frames]
     ex.flush()
@@ -362,8 +408,8 @@ def phase_main_path(rt, od, dev) -> dict:
     walls = [flush() for _ in range(9)]  # repeat flushes, not counted
     profiled = profile_flush(flush)
     ex.close()
-    return {"launches": launches, "tile_k": tile,
-            "budget_bytes": ex.mem_budget.bytes_limit,
+    return {"launches": launches, "launches_by_route": by_route,
+            "tile_k": tile, "budget_bytes": ex.mem_budget.bytes_limit,
             "budget_source": ex.mem_budget.source,
             "flush_wall_ms": wall_s * 1e3,
             "repeat_flush_wall_ms": walls,
@@ -427,10 +473,33 @@ def phase_conv_stack(rt, dev) -> None:
 # --- phase 4: times -------------------------------------------------------------
 
 
+def entry(od, stage: int, b: int, inputs, outputs, route: int,
+          split: int = 1, levels: int = 255):
+    """A launcher of a stage's kernel at (b, 512, 512, 512) through its C
+    entry point on a given route (0: FMA, 1: tensor cores), split and DAC,
+    all of which the wrappers choose themselves: to time the FMA kernel
+    beside the tensor-core route on the same inputs, and the tensor-core
+    route at other splits."""
+    lib = od._lib()
+    fn = (lib.optical_dft_stage1_batched if stage == 1
+          else lib.optical_dft_stage2_batched)
+    lv = (levels,) if stage == 1 else ()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():   # holds the tensors, so that their memory stays theirs
+        code = fn(*[x.data_ptr() for x in (*inputs, *outputs)], b, SIDE,
+                  SIDE, SIDE, *lv, route, split, stream)
+        check(code == 0, f"stage {stage} route {route} launch: error {code}")
+    return launch
+
+
 def stage_work(od, dev, b: int) -> dict:
-    """Each kernel, its plain version and one complex64 ``torch.matmul``
-    computing the same stage, on (b, 512, 512) inputs, with the stage's
-    operation and byte counts."""
+    """Each DFT stage on (b, 512, 512) inputs: the wrapper (tensor-core
+    route), its FMA kernel, its plain version and the library calls that
+    compute the same stage (a complex64 ``torch.matmul``; for stage 1 also
+    one real fp32 GEMM of the stacked (wr; wi) against the quantized A),
+    with the stage's operations (``products``: those of its GEMMs, three
+    TF32 ones each on the tensor-core route) and bytes."""
     rng = np.random.default_rng(SEED + 3)
     m = k = n = SIDE
     wr, wi = od.dft_matrix_factors(k, device=dev)
@@ -439,68 +508,119 @@ def stage_work(od, dev, b: int) -> dict:
     q = torch.round(torch.clamp(a, 0.0, 1.0) * 255) / 255
     wc, qc, tc = torch.complex(wr, wi), q.to(torch.complex64), \
         torch.complex(tr, ti)
+    w_stacked = torch.cat([wr, wi])
+    o1, o2 = torch.empty_like(tr), torch.empty_like(tr)
     f4 = 4  # bytes per float32
     return {
         "dft_stage1_batched": dict(
             kernel=lambda: od.dft_stage1_batched(wr, wi, a, dac_bits=8),
+            fma=entry(od, 1, b, (wr, wi, a), (o1, o2), route=0),
             plain=lambda: od.dft_stage1_batched_plain(wr, wi, a, dac_bits=8),
             library=lambda: torch.matmul(wc, qc),
-            flops=4 * b * m * k * n,
+            library_real_gemm=lambda: torch.matmul(w_stacked, q),
+            flops=4 * b * m * k * n, products=4 * b * m * k * n,
             bytes=f4 * (2 * m * k + b * k * n + 2 * b * m * n)),
         "dft_stage2_batched": dict(
             kernel=lambda: od.dft_stage2_batched(tr, ti, wr, wi),
+            fma=entry(od, 2, b, (tr, ti, wr, wi), (o1,), route=0),
             plain=lambda: od.dft_stage2_batched_plain(tr, ti, wr, wi),
             library=lambda: torch.matmul(tc, wc.T),
             flops=8 * b * m * k * n + 3 * b * m * n,
+            products=8 * b * m * k * n,
             bytes=f4 * (2 * b * m * k + 2 * n * k + b * m * n)),
     }
 
 
-def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
-    tile = main["tile_k"]
-    at_tile = stage_work(od, dev, tile)
-    at_one = stage_work(od, dev, 1)   # the single-frame kernels 3 and 4
+TIMED = ("kernel", "fma", "plain", "library", "library_real_gemm")
+
+
+def time_stage(w: dict) -> dict:
+    """CUDA-event medians of each call, in turns (forward then backward
+    through the list, each pair averaged) so that drift hits all alike,
+    and the profiler's device time per call beside them: at batch 1 and
+    2 the host's launch path, not the card, sets the event-timed wall."""
+    calls = [c for c in TIMED if c in w]
+    ms = {c: [] for c in calls}
+    for c in calls + calls[::-1]:
+        ms[c].append(median_ms(w[c]))
+    out = {}
+    for c in calls:
+        out[c + "_ms"] = statistics.mean(ms[c])
+        out[c + "_device_ms"] = device_ms(w[c])[0]
+    bytes_ms = w["bytes"] / PEAK_BYTES_S * 1e3
+    out["bound_fma_ms"] = max(w["flops"] / PEAK_FP32_FLOPS * 1e3, bytes_ms)
+    if out["kernel_device_ms"]:   # the GEMMs' fp32-accurate rate
+        out["tflops"] = w["products"] / out["kernel_device_ms"] / 1e9
+    tf32_ms = 3 * w["products"] / PEAK_TF32_FLOPS * 1e3
+    out["bound_3xtf32_ms"] = max(tf32_ms, bytes_ms)
+    out["bound_3xtf32_by"] = "operations" if tf32_ms >= bytes_ms else "bytes"
+    return out
+
+
+def split_scan(od, dev) -> list[dict]:
+    """Device time of each stage's tensor-core kernel at batch 1, 2 and 16
+    with the contraction split 1, 2 and 4 ways (the wrappers split 512^3
+    frames 2 ways, ``od.tc_split``), and stage 1 with the DAC off."""
+    rng = np.random.default_rng(SEED + 6)
+    wr, wi = od.dft_matrix_factors(SIDE, device=dev)
     rows = []
-    for name, w in stage_work(od, dev, FRAMES).items():
-        # alternate kernel and plain so drift hits both alike
-        ms = [median_ms(w["kernel"]), median_ms(w["plain"]),
-              median_ms(w["plain"]), median_ms(w["kernel"])]
-        kernel_ms = statistics.mean((ms[0], ms[3]))
-        plain_ms = statistics.mean((ms[1], ms[2]))
-        library_ms = median_ms(w["library"])
-        tile_ms = median_ms(at_tile[name]["kernel"])
-        t_ops = w["flops"] / PEAK_FP32_FLOPS * 1e3
-        t_bytes = w["bytes"] / PEAK_BYTES_S * 1e3
-        one = at_one[name]
-        single = {"ms": median_ms(one["kernel"]),
-                  "plain_ms": median_ms(one["plain"]),
-                  "library_ms": median_ms(one["library"]),
-                  "bound_ms": max(one["flops"] / PEAK_FP32_FLOPS,
-                                  one["bytes"] / PEAK_BYTES_S) * 1e3}
+    for b in (1, 2, FRAMES):
+        a = rng_frames(rng, (b, SIDE, SIDE), dev)
+        tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+        o1, o2 = torch.empty_like(tr), torch.empty_like(tr)
+        for split in (1, 2, 4):
+            s1 = device_ms(entry(od, 1, b, (wr, wi, a), (o1, o2), 1,
+                                 split))[0]
+            s2 = device_ms(entry(od, 2, b, (tr, ti, wr, wi), (o1,), 1,
+                                 split))[0]
+            rows.append({"batch": b, "split": split, "stage1_device_ms": s1,
+                         "stage2_device_ms": s2})
+        no_dac = device_ms(entry(od, 1, b, (wr, wi, a), (o1, o2), 1,
+                                 od.tc_split(1, SIDE, SIDE, SIDE),
+                                 levels=0))[0]
+        rows.append({"batch": b, "split": od.tc_split(1, SIDE, SIDE, SIDE),
+                     "stage1_no_dac_device_ms": no_dac})
+    for r in rows:
+        print("  split scan: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()))
+    return rows
+
+
+def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
+    """Both stages at batch 1 (serving's aux frames), the flush's tile_k
+    and 16 (one flush group): the tensor-core route, the FMA kernel, the
+    plain version and the library calls, with both bounds."""
+    batches = sorted({1, main["tile_k"], FRAMES})
+    timed = {b: {name: time_stage(w)
+                 for name, w in stage_work(od, dev, b).items()}
+             for b in batches}
+    rows = []
+    for name in ("dft_stage1_batched", "dft_stage2_batched"):
+        by_batch = [dict(batch=b, **timed[b][name]) for b in batches]
+        for r in by_batch:
+            print(f"  {name} ({r['batch']}, {SIDE}, {SIDE}, {SIDE}): "
+                  + ", ".join(f"{c} {r[c + '_ms']:.4f} ms (device "
+                              f"{r[c + '_device_ms'] or float('nan'):.4f})"
+                              for c in TIMED if c + "_ms" in r)
+                  + f"; bounds 3xTF32 {r['bound_3xtf32_ms']:.4f}, FMA "
+                  f"{r['bound_fma_ms']:.4f} ms")
+        top = by_batch[-1]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": main["launches"][name],
+            "launches_by_route": main["launches_by_route"][name],
             "max_abs_err": errs[name],
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_3xtf32_ms"],
+            "bound_by": top["bound_3xtf32_by"],
+            "library_ms": top["library_ms"],
             "shape": [FRAMES, SIDE, SIDE, SIDE],
-            "tflops": w["flops"] / (kernel_ms * 1e-3) / 1e12,
-            "ms_at_tile": tile_ms,
-            "tile_shape": [tile, SIDE, SIDE, SIDE],
-            "at_batch_1": single,
+            "fma_ms": top["fma_ms"], "bound_fma_ms": top["bound_fma_ms"],
+            "by_batch": by_batch,
         })
-        print(f"  {name} ({FRAMES}, {SIDE}, {SIDE}, {SIDE}): kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms, "
-              f"launches/flush {main['launches'][name]}, "
-              f"{tile_ms:.4f} ms per launch at batch {tile}")
-        print(f"    at batch 1 (the single-frame kernel): kernel "
-              f"{single['ms']:.4f} ms, plain {single['plain_ms']:.4f} ms, "
-              f"library {single['library_ms']:.4f} ms, bound "
-              f"{single['bound_ms']:.4f} ms")
+    rows[0]["split_scan"] = split_scan(od, dev)
     return rows
 
 
@@ -669,7 +789,11 @@ def phase_serving(rt, od, la, dev) -> dict:
                 "local_flash_attention_by_route":
                     dict(la.local_flash_attention.launches_by_route),
                 "dft_stage1_batched": od.dft_stage1_batched.launches,
-                "dft_stage2_batched": od.dft_stage2_batched.launches}
+                "dft_stage2_batched": od.dft_stage2_batched.launches,
+                "dft_by_route": {
+                    name: dict(getattr(od, name).launches_by_route)
+                    for name in ("dft_stage1_batched",
+                                 "dft_stage2_batched")}}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"  served {len(reqs)} requests in {steps} steps, {wall_s:.3f} s; "
           f"launches {launches}; peak memory {peak_gb:.2f} GB")
@@ -683,6 +807,10 @@ def phase_serving(rt, od, la, dev) -> dict:
           f"{launches['local_flash_attention_by_route']}")
     for name in ("dft_stage1_batched", "dft_stage2_batched"):
         check(launches[name] > 0, f"{name} not launched under serving")
+        check(launches["dft_by_route"][name] ==
+              {"tensor_core": launches[name], "fma": 0},
+              f"{name}: an aux launch left the tensor-core route: "
+              f"{launches['dft_by_route'][name]}")
     check(all(r.done and len(r.out_tokens) == MAX_NEW for r in reqs),
           "a request did not return max_new_tokens tokens")
     check(bool(engine.model.finite), "non-finite logits")
@@ -1215,13 +1343,23 @@ def main() -> int:
     print(f"  nvcc build {time.perf_counter() - t0:.2f} s")
     for stem in ("optical_dft", "local_attention", "adc_dac"):
         print("  " + build.build_log(stem).strip().replace("\n", "\n  "))
-    tc_build = tc_build_report(build.build_log("local_attention"))
+    tc_build = ptxas_report(build.build_log("local_attention"), TC_KERNELS)
     for r in tc_build:
         print(f"  ptxas: {r['kernel']}<{r['d']}>: {r['registers']} registers, "
               f"{r['spill_bytes']} bytes spilled")
     check(len(tc_build) == 2 * len(TC_KERNELS)
           and all(r["spill_bytes"] == 0 for r in tc_build),
           f"kernel 6's tensor-core kernels spill or are missing: {tc_build}")
+    # stage 1 is built twice: its DAC divides exactly by a corrected
+    # reciprocal below 2^23 levels (ILb0), by an IEEE divide above (ILb1)
+    dft_build = ptxas_report(build.build_log("optical_dft"), DFT_TC_KERNELS)
+    for r in dft_build:
+        ieee = " (IEEE-divide DAC)" if "ILb1" in r["entry"] else ""
+        print(f"  ptxas: {r['kernel']}{ieee}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled")
+    check({r["kernel"] for r in dft_build} == set(DFT_TC_KERNELS)
+          and all(r["spill_bytes"] == 0 for r in dft_build),
+          f"the DFT tensor-core kernels spill or are missing: {dft_build}")
 
     budget = rt.MemoryBudget.detect(dev)
     tile_k = budget.tile_for_group(SIDE * SIDE, SIDE * SIDE, FRAMES,
@@ -1246,6 +1384,10 @@ def main() -> int:
     bwd_err = check_attention_backward(la, dev)
     at_train, bwd_row = attention_train_times(la, dev, training, bwd_err,
                                               card)
+    for row in rows[:2]:   # the DFT stages: offload flush, serving aux hook
+        row["launches_by_path"] = {
+            "offload": row["launches"],
+            "serving": serving["launches"][row["name"]]}
     attn_row["launches_by_path"] = {
         "serving": serving["launches"]["local_flash_attention"],
         "training": training["launches"]["local_flash_attention"]}

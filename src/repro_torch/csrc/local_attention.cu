@@ -94,13 +94,10 @@
 // calling thread's current device, which the Python wrapper selects; it
 // never changes it.
 
-#include <atomic>
-
-#include <cuda.h>   // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -110,7 +107,6 @@ constexpr int LANES = 4;                // lanes per query row
 constexpr int THREADS = BQ * LANES;     // 256
 constexpr int KEYS_PER_LANE = BK / LANES;
 constexpr float NEG = -1.0e30f;
-constexpr int kMaxDevices = 64;         // devices one process may launch on
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -498,10 +494,6 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --- the tensor-core route: shared helpers ----------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -536,103 +528,6 @@ __device__ __forceinline__ bool visible(int qi, int kj, int lq, int lk,
   if (causal) ok = ok && qi >= kj;
   if (window > 0) ok = ok && (qi - kj) < window;
   return ok;
-}
-
-// mbarrier, TMA and wgmma (sm_90a), as PTX.
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits until the barrier's phase of the given parity has completed.  No
-// wait of this kernel lasts more than microseconds; one that lasts 4 s is
-// a fault, and it traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-// One box of a 3-D tensor map into shared memory; completion (its bytes)
-// is reported to the barrier.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a tile written by TMA with the
-// 128-byte swizzle: rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes
-// apart (the stride byte offset).  K-major operands (Q, K) step along
-// their contraction dim by adding 32 bytes to the start address inside
-// the swizzle atom, which leaves the leading byte offset unused (0).  The
-// MN-major operand (V, contracted over its rows) takes its 8-row groups
-// 1024 bytes apart as well; its leading offset, the stride to the next 64
-// columns, is never used because each of its products is 64 columns wide,
-// and it is set to the same 1024 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns past the wgmma's start or its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 // D (64 x 64, fp32) += A (64 x 16, smem) * B (16 x 64, smem, K-major).
@@ -1361,25 +1256,6 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 // --- launches ----------------------------------------------------------------
 
-// A kernel's shared-memory opt-in is a per-device attribute: set it on a
-// device's first launch of each kernel only.
-template <auto Kernel>
-cudaError_t opt_in_smem(size_t smem) {
-  static std::atomic<bool> opted_in[kMaxDevices];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[device].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(Kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    opted_in[device].store(true, std::memory_order_relaxed);
-  }
-  return cudaSuccess;
-}
-
 struct Problem {
   int bh, lq, lk, kv_groups;
   float scale;
@@ -1444,31 +1320,6 @@ int launch_backward(const void* q, const void* k, const void* v,
       static_cast<T*>(dq), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
       p.window);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, looked up at run time so that the library needs
-// no -lcuda.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(f) : nullptr;
-  }();
-  return fn;
 }
 
 // A 3-D map over a bf16 (planes, rows, d) tensor: boxes of 64 columns by

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: ``nvcc`` into plain C-ABI shared
 libraries, loaded with ``ctypes``.
 
-Every ``*.cu`` file under ``repro_torch/csrc`` is one library.  Nothing is
+Every ``*.cu`` file under ``repro_torch/csrc`` is one library (the
+``*.cuh`` headers there are shared by the sources that include them).  Nothing is
 compiled when a module is imported: :func:`library` builds on first use,
 all sources at once (one ``nvcc`` process per source, started together),
 into ``build/kernels`` at the repository root.  A library's file name
@@ -46,7 +47,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
+    """The library's path; its digest covers the source, every shared
+    header of ``csrc`` and the flags."""
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(SOURCE_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

@@ -16,20 +16,32 @@ Each stage is a hand-written CUDA kernel for ``sm_90a``
 :mod:`repro_torch.kernels.build` and called through ``ctypes``).  They
 replace the Pallas TPU kernels ``_stage1_batched_kernel`` and
 ``_stage2_batched_kernel`` of ``src/repro/kernels/optical_dft.py``.  The
-source note in the ``.cu`` file says what bounds them on an H100 (fp32 FMA
-operations) and what their design does about it.
+source note in the ``.cu`` file says what bounds them on an H100
+(operations) and what their design does about it.
+
+Each stage has two routes, chosen by :func:`route` from the shapes and
+the operands' alignment alone, never by a failure: ``"tensor_core"``
+(3xTF32 on ``wgmma``, TMA-fed, the contraction split across a thread-block
+cluster of :func:`tc_split` CTAs) when k and n are multiples of 4 and
+every operand is 16-byte aligned — every 512x512 launch of the offload
+and serving paths — and ``"fma"`` (fp32 FMA on the CUDA cores) otherwise.
+A failed launch raises; nothing falls back to the other route.
 
 Beside each kernel sits its plain PyTorch version (``*_plain``):
 ``torch.matmul`` on the (re, im) planes in fp32 with the same DAC and
 detector.  A wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises — there is no fallback.
 Each wrapper counts its launches in a plain integer attribute
-(``dft_stage1_batched.launches``), so a run can show that its main path
-went through the kernels.
+(``dft_stage1_batched.launches``) and again per route in
+``launches_by_route``, so a run can show that its main path went through
+the kernels and on which route.
 
 The wrappers keep the reference's block-plan arguments (``bb/bm/bk/bn``)
-for parity; they are validated, and the kernels use their own
-compile-time tiles.
+for parity; they are validated and not used.  The plan is sized for a
+TPU's VMEM, and tiling by it would make a frame's bits depend on the
+runtime's memory budget: the kernels' tiles and split depend on
+``(m, k, n)`` alone, so frame i of a batched call is bit-equal to the
+single-frame call on either route.
 """
 
 from __future__ import annotations
@@ -51,9 +63,18 @@ __all__ = [
     "optical_dft2_intensity",
     "optical_dft2_intensity_batched",
     "reset_launches",
+    "route",
+    "tc_split",
+    "ROUTES",
 ]
 
 _MAX_GRID_Z = 65535  # CUDA's limit on the batch axis of the launch grid
+ROUTES = ("tensor_core", "fma")
+_ROUTE_CODE = {"fma": 0, "tensor_core": 1}
+_TMA_ALIGN = 16      # bytes: TMA's base-address and row-stride alignment
+# the tensor-core route's tile (csrc/optical_dft.cu: TC_BM, TC_BN, TC_BK)
+TC_ROWS, TC_W_ROWS, TC_STEP = 128, 64, 32
+_SMS = 132           # an H100's SMs: how many CTAs one frame may fill
 
 
 def dft_matrix_factors(n: int, dtype: torch.dtype = torch.float32,
@@ -76,6 +97,39 @@ def dft_matrix_factors(n: int, dtype: torch.dtype = torch.float32,
 
 
 # --- dispatch helpers ---------------------------------------------------------
+
+
+def route(k: int, n: int, *operands: torch.Tensor) -> str:
+    """The kernel route for a stage contracting over ``k`` into ``n``
+    output columns: ``"tensor_core"`` when k (> 0) and n are multiples of
+    4 and every operand's data is 16-byte aligned (TMA's rule for bases
+    and row strides), ``"fma"`` otherwise."""
+    if k > 0 and k % 4 == 0 and n % 4 == 0 and all(
+            t.data_ptr() % _TMA_ALIGN == 0 for t in operands):
+        return "tensor_core"
+    return "fma"
+
+
+def tc_split(stage: int, m: int, k: int, n: int) -> int:
+    """CTAs of one cluster that share an output tile's contraction on the
+    tensor-core route (1, 2 or 4), from the shapes alone, never the batch.
+
+    A tile is ``TC_ROWS`` rows of the register operand (stage 1: n, stage
+    2: m) by ``TC_W_ROWS`` rows of W (stage 1: m, stage 2: n).  The split
+    doubles while one frame's CTAs stay within half the card (so that the
+    offload flush's two frames run in one wave) and each CTA keeps at
+    least two ``TC_STEP``-deep k steps; CTA r of the cluster takes steps
+    [r * per, (r + 1) * per), per = ceil(steps / split).  A 512x512 frame
+    is 32 tiles split 2 ways.
+    """
+    rows, w_rows = (n, m) if stage == 1 else (m, n)
+    tiles = -(-rows // TC_ROWS) * -(-w_rows // TC_W_ROWS)
+    steps = -(-k // TC_STEP)
+    split = 1
+    while (split < 4 and tiles * split * 2 <= _SMS // 2
+           and steps >= 4 * split):
+        split *= 2
+    return split
 
 
 def _levels(dac_bits: int) -> int:
@@ -124,11 +178,9 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import library
     lib = library("optical_dft")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.optical_dft_stage1_batched.argtypes = [p, p, p, p, p,
-                                               i, i, i, i, i, p]
+    lib.optical_dft_stage1_batched.argtypes = [p] * 5 + [i] * 7 + [p]
     lib.optical_dft_stage1_batched.restype = i
-    lib.optical_dft_stage2_batched.argtypes = [p, p, p, p, p,
-                                               i, i, i, i, p]
+    lib.optical_dft_stage2_batched.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.optical_dft_stage2_batched.restype = i
     lib.optical_dft_error_string.argtypes = [i]
     lib.optical_dft_error_string.restype = ctypes.c_char_p
@@ -189,17 +241,18 @@ def dft_stage1_batched(wr: torch.Tensor, wi: torch.Tensor, a: torch.Tensor,
                          f"{_MAX_GRID_Z}")
     tr = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
     ti = torch.empty_like(tr)
+    path = route(kdim, n, wr, wi, a)
+    split = tc_split(1, m, kdim, n) if path == "tensor_core" else 1
     lib = _lib()
     with torch.cuda.device(a.device):   # the C entry launches on it
         code = lib.optical_dft_stage1_batched(
             wr.data_ptr(), wi.data_ptr(), a.data_ptr(), tr.data_ptr(),
-            ti.data_ptr(), batch, m, kdim, n, levels, _stream(a))
+            ti.data_ptr(), batch, m, kdim, n, levels, _ROUTE_CODE[path],
+            split, _stream(a))
     _raise_on(lib, "dft_stage1_batched", code)
     dft_stage1_batched.launches += 1
+    dft_stage1_batched.launches_by_route[path] += 1
     return tr, ti
-
-
-dft_stage1_batched.launches = 0
 
 
 def dft_stage1(wr: torch.Tensor, wi: torch.Tensor, a: torch.Tensor, *,
@@ -258,17 +311,18 @@ def dft_stage2_batched(tr: torch.Tensor, ti: torch.Tensor, wr: torch.Tensor,
         raise ValueError(f"dft_stage2_batched: batch {batch} exceeds "
                          f"{_MAX_GRID_Z}")
     out = torch.empty((batch, m, n), dtype=torch.float32, device=tr.device)
+    path = route(kdim, n, tr, ti, wr, wi)
+    split = tc_split(2, m, kdim, n) if path == "tensor_core" else 1
     lib = _lib()
     with torch.cuda.device(tr.device):  # the C entry launches on it
         code = lib.optical_dft_stage2_batched(
             tr.data_ptr(), ti.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            out.data_ptr(), batch, m, kdim, n, _stream(tr))
+            out.data_ptr(), batch, m, kdim, n, _ROUTE_CODE[path], split,
+            _stream(tr))
     _raise_on(lib, "dft_stage2_batched", code)
     dft_stage2_batched.launches += 1
+    dft_stage2_batched.launches_by_route[path] += 1
     return out
-
-
-dft_stage2_batched.launches = 0
 
 
 def dft_stage2(tr: torch.Tensor, ti: torch.Tensor, wr: torch.Tensor,
@@ -284,9 +338,13 @@ def dft_stage2(tr: torch.Tensor, ti: torch.Tensor, wr: torch.Tensor,
 
 
 def reset_launches() -> None:
-    """Set both kernels' launch counters to 0."""
-    dft_stage1_batched.launches = 0
-    dft_stage2_batched.launches = 0
+    """Set both kernels' launch counters, in all and per route, to 0."""
+    for fn in (dft_stage1_batched, dft_stage2_batched):
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
 
 
 # --- composites ----------------------------------------------------------------

@@ -9,7 +9,13 @@ with a card and no JAX:
 
 Bounds are the reference's (``tests/test_kernels.py``): stage 1 rtol 1e-4
 / atol 1e-5, stage 2 rtol 1e-4 / atol 1e-4*max, each kernel against its
-plain PyTorch version on the same card with TF32 off.  The executor's
+plain PyTorch version on the same card with TF32 off.  Shapes whose k and
+n are multiples of 4, with 16-byte aligned operands, take the DFT
+kernels' tensor-core route (3xTF32 on ``wgmma``, the contraction split
+across a cluster), the others their FMA route; each test asserts the
+route's launch counter, and the same bounds hold on both.  On the
+tensor-core route a frame's result is bit-equal alone, in a batch of 16
+and on a repeat.  The executor's
 ``optical-sim`` frames are held to the ``host`` backend within 2e-4*max
 plus one 14-bit ADC step of the frame's full scale.  The flash-attention
 kernel is held to its plain version at rtol/atol 2e-5 in float32, the
@@ -75,7 +81,9 @@ def _rows(k, m, dev):
 
 
 @pytest.mark.parametrize("batch,m,k,n", [(2, 512, 512, 512), (5, 64, 64, 64),
-                                         (1, 8, 256, 128), (3, 128, 128, 256)])
+                                         (1, 8, 256, 128), (3, 128, 128, 256),
+                                         (1, 512, 512, 512),
+                                         (16, 512, 512, 512)])
 def test_kernels_match_plain_versions(cuda_device, batch, m, k, n):
     wr, wi = _rows(k, m, cuda_device)
     a = _rand(20, (batch, k, n), cuda_device)
@@ -83,12 +91,14 @@ def test_kernels_match_plain_versions(cuda_device, batch, m, k, n):
     tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
     pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=8)
     assert od.dft_stage1_batched.launches == 1
+    assert od.dft_stage1_batched.launches_by_route["tensor_core"] == 1
     torch.testing.assert_close(tr, pr, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ti, pi, rtol=1e-4, atol=1e-5)
     w2r, w2i = _rows(n, n, cuda_device)
     got = od.dft_stage2_batched(tr, ti, w2r, w2i)
     want = od.dft_stage2_batched_plain(tr, ti, w2r, w2i)
     assert od.dft_stage2_batched.launches == 1
+    assert od.dft_stage2_batched.launches_by_route["tensor_core"] == 1
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.max()))
 
@@ -98,10 +108,70 @@ def test_kernels_match_plain_versions(cuda_device, batch, m, k, n):
 def test_dac_rounds_ties_to_even(cuda_device, value, bits):
     wr, wi = od.dft_matrix_factors(64, device=cuda_device)
     a = torch.full((1, 64, 64), value, device=cuda_device)
+    od.reset_launches()
     tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=bits)
     pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=bits)
+    assert od.dft_stage1_batched.launches_by_route == {"tensor_core": 1,
+                                                       "fma": 0}
     torch.testing.assert_close(tr, pr, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ti, pi, rtol=1e-4, atol=1e-5)
+
+
+def test_tensor_core_frames_are_bit_equal_alone_and_on_repeat(cuda_device):
+    """The tile and the split come from (m, k, n) alone and no sum uses
+    atomics: frame i of a batch of 16 is the single-frame call's bits."""
+    wr, wi = od.dft_matrix_factors(512, device=cuda_device)
+    a = _rand(22, (16, 512, 512), cuda_device)
+    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    out = od.dft_stage2_batched(tr, ti, wr, wi)
+    for i in range(16):
+        tr1, ti1 = od.dft_stage1(wr, wi, a[i], dac_bits=8)
+        assert torch.equal(tr1, tr[i]) and torch.equal(ti1, ti[i])
+        assert torch.equal(od.dft_stage2(tr[i], ti[i], wr, wi), out[i])
+    tr2, ti2 = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    assert torch.equal(tr2, tr) and torch.equal(ti2, ti)
+    assert torch.equal(od.dft_stage2_batched(tr, ti, wr, wi), out)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor whose data is 4 bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case", ["ragged n", "ragged k", "misaligned A",
+                                  "misaligned T"])
+def test_fma_route_takes_what_the_tensor_cores_do_not(cuda_device, case):
+    """k or n not a multiple of 4, or an operand off 16 bytes, takes the
+    FMA route and meets the same bounds."""
+    batch, m, k, n = {"ragged n": (2, 100, 96, 130),
+                      "ragged k": (2, 64, 66, 64)}.get(case, (2, 128, 128,
+                                                                128))
+    # stage 2 contracts over stage 1's n, and reads T
+    routes = {"ragged n": ("fma", "fma"), "ragged k": ("fma", "tensor_core"),
+              "misaligned A": ("fma", "tensor_core"),
+              "misaligned T": ("tensor_core", "fma")}[case]
+    wr, wi = _rows(k, m, cuda_device)
+    a = _rand(23, (batch, k, n), cuda_device)
+    if case == "misaligned A":
+        a = _misaligned(a)
+    od.reset_launches()
+    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=8)
+    assert od.dft_stage1_batched.launches_by_route[routes[0]] == 1
+    torch.testing.assert_close(tr, pr, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ti, pi, rtol=1e-4, atol=1e-5)
+    if case == "misaligned T":
+        tr = _misaligned(tr)
+    w2r, w2i = _rows(n, n, cuda_device)
+    got = od.dft_stage2_batched(tr, ti, w2r, w2i)
+    want = od.dft_stage2_batched_plain(tr, ti, w2r, w2i)
+    assert od.dft_stage2_batched.launches_by_route[routes[1]] == 1
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.max()))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):

@@ -193,6 +193,205 @@ def test_import_and_cpu_path_need_no_nvcc():
                    timeout=120)
 
 
+# --- the DFT kernels' tensor-core route, emulated on the CPU ----------------
+#
+# On the card, a stage whose k and n are multiples of 4 takes the
+# tensor-core route (``od.route``): 3xTF32 on wgmma.  Every fp32 operand x
+# (stage 1: dac(A), after the DAC) is split into hi = rna_tf32(x) and
+# lo = rna_tf32(x - hi), and lo*hi' + hi*lo' + hi*hi' go into one fp32
+# accumulator over a CTA's share of the k steps; the ``od.tc_split``
+# CTAs of a cluster then add their partial sums in rank order (stage 2
+# squares only the whole sum).  The emulation below computes that
+# arithmetic in plain PyTorch (the order of the sums inside each product
+# aside), so that a precision mistake in the design shows here, against
+# the reference's kernels and the fft2 oracle at their bounds, before any
+# card run.
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does: on the int32 view, add half of
+    the 13 dropped bits' range to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _cluster_sum(stage, m, k, n, part):
+    """The partial sums of the cluster's CTAs, ``part(k slice)`` each, added
+    in rank order; a CTA past the last k step adds zeros."""
+    split = od.tc_split(stage, m, k, n)
+    steps = -(-k // od.TC_STEP)
+    per = -(-steps // split) * od.TC_STEP
+    total = None
+    for r in range(split):
+        p = part(slice(min(k, r * per), min(k, (r + 1) * per)))
+        total = p if total is None else tuple(x + y for x, y in zip(total, p))
+    return total
+
+
+def _tc_stage1(wr, wi, a, dac_bits):
+    """T = W @ dac(A) as the tensor-core route computes it."""
+    q = a
+    if dac_bits:
+        levels = torch.tensor(float((1 << dac_bits) - 1))
+        q = torch.round(torch.clamp(a, 0.0, 1.0) * levels) / levels
+    m, k, n = wr.shape[0], a.shape[1], a.shape[2]
+    return _cluster_sum(1, m, k, n, lambda s: (
+        _mm_3xtf32(wr[:, s], q[:, s, :]), _mm_3xtf32(wi[:, s], q[:, s, :])))
+
+
+def _tc_stage2(tr, ti, wr, wi):
+    """I = |T @ W^T|^2 as the tensor-core route computes it."""
+    m, k, n = tr.shape[1], tr.shape[2], wr.shape[0]
+    ur, ui = _cluster_sum(2, m, k, n, lambda s: (
+        _mm_3xtf32(tr[..., s], wr[:, s].T) - _mm_3xtf32(ti[..., s],
+                                                        wi[:, s].T),
+        _mm_3xtf32(tr[..., s], wi[:, s].T) + _mm_3xtf32(ti[..., s],
+                                                        wr[:, s].T)))
+    return ur * ur + ui * ui
+
+
+def test_tf32_rounding_is_rna():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      0.1, -3.3e-8])
+    got = _tf32(x)
+    assert got[0] == 1.0 + 2.0 ** -10           # a tie rounds away from 0
+    assert got[1] == 1.0 + 2.0 ** -9
+    assert got[2] == -(1.0 + 2.0 ** -10)
+    assert got[3] == 1.0                        # below the tie: down
+    assert torch.all((got.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((got - x).abs() <= x.abs() * 2.0 ** -11)
+
+
+def _rn32(x64: np.ndarray, above: np.ndarray) -> np.ndarray:
+    """float32 nearest to an exact value that float64 ``x64`` rounds, ties
+    to even; where x64 is itself a float32 midpoint, ``above`` (-1, 0, +1)
+    says on which side of it the exact value lies.  (Midpoints are float64
+    values, so the exact value and its float64 rounding are on one side of
+    every other midpoint.)"""
+    bits = x64.view(np.uint64)
+    mid = (bits & np.uint64((1 << 29) - 1)) == np.uint64(1 << 28)
+    out = x64.astype(np.float32)
+    up = np.nextafter(out, np.float32(np.inf))
+    down = np.nextafter(out, np.float32(-np.inf))
+    lo32 = np.where(out.astype(np.float64) > x64, down, out)
+    hi32 = np.where(out.astype(np.float64) > x64, out, up)
+    return np.where(mid & (above > 0), hi32,
+                    np.where(mid & (above < 0), lo32, out))
+
+
+@pytest.mark.parametrize("bits", range(1, 24))
+def test_dac_quotient_is_the_ieee_quotient(bits):
+    """The tensor-core route's DAC takes c / l as d = c * (1 / l) corrected
+    once, fma(fma(-d, l, c), 1 / l, d) (csrc/optical_dft.cu: dac_fast), for
+    l = 2^bits - 1 < 2^23: the IEEE quotient for every code c = 0 .. l
+    (each one up to 16 bits, a sample of 2^15 and the ends above)."""
+    levels = (1 << bits) - 1
+    if bits <= 16:
+        c = np.arange(levels + 1, dtype=np.float32)
+    else:
+        rng = np.random.default_rng(bits)
+        c = np.concatenate([np.arange(64), levels - np.arange(64),
+                            rng.integers(0, levels + 1, 1 << 15)]
+                           ).astype(np.float32)
+    l = np.float32(levels)
+    inv = np.float32(1) / l
+    d = c * inv                                            # fp32, RN
+    r64 = c.astype(np.float64) - d.astype(np.float64) * levels   # exact
+    r = r64.astype(np.float32)
+    assert np.array_equal(r.astype(np.float64), r64)       # fma(-d, l, c)
+    prod = r.astype(np.float64) * np.float64(inv)          # exact
+    s = prod + d.astype(np.float64)                        # TwoSum:
+    bb = s - prod                                          # s + err is
+    err = (prod - (s - bb)) + (d.astype(np.float64) - bb)  # exact
+    got = _rn32(s, np.sign(err))                           # fma(r, inv, d)
+    q64 = c.astype(np.float64) / levels
+    want = _rn32(q64, np.sign(c.astype(np.float64) - q64 * levels))
+    assert np.array_equal(got, want)
+    assert np.array_equal(want, c / l)                     # numpy's divide
+
+
+@pytest.mark.parametrize("batch,m,k,n", [(2, 512, 512, 512), (1, 8, 256, 128),
+                                         (3, 128, 128, 256), (5, 64, 64, 64),
+                                         (1, 100, 96, 36)])
+@pytest.mark.parametrize("dac_bits", [0, 8])
+def test_tensor_core_design_matches_reference_kernels(batch, m, k, n,
+                                                      dac_bits):
+    wr, wi = (torch.from_numpy(w) for w in _factors_rows(k, m))
+    a = torch.from_numpy(_rand(13, (batch, k, n)))
+    tr, ti = _tc_stage1(wr, wi, a, dac_bits)
+    jtr, jti = jops.dft_stage1_batched(jnp.asarray(wr.numpy()),
+                                       jnp.asarray(wi.numpy()),
+                                       jnp.asarray(a.numpy()),
+                                       dac_bits=dac_bits)
+    _close(tr, jtr, 1e-4, 1e-5)
+    _close(ti, jti, 1e-4, 1e-5)
+    w2r, w2i = (torch.from_numpy(w) for w in _factors_rows(n, n))
+    got = _tc_stage2(tr, ti, w2r, w2i)
+    want = np.asarray(jops.dft_stage2_batched(
+        jtr, jti, jnp.asarray(w2r.numpy()), jnp.asarray(w2i.numpy())))
+    _close(got, want, 1e-4, 1e-4 * float(want.max()))
+
+
+@pytest.mark.parametrize("dac_bits", [0, 8])
+def test_tensor_core_design_matches_fft2_oracle(dac_bits):
+    a = _rand(14, (2, 512, 512))
+    whr, whi = od.dft_matrix_factors(512)
+    tr, ti = _tc_stage1(whr, whi, torch.from_numpy(a), dac_bits)
+    got = _tc_stage2(tr, ti, whr, whi).numpy()
+    for i in range(2):
+        want = np.asarray(jref.optical_dft2_intensity_ref(
+            jnp.asarray(a[i]), dac_bits=dac_bits))
+        _close(got[i], want, 2e-4, 2e-4 * float(want.max()))
+
+
+@pytest.mark.parametrize("batch,m,k,n", [(2, 512, 512, 512),
+                                         (3, 128, 128, 256)])
+def test_tensor_core_design_batched_is_bit_equal_to_looped(batch, m, k, n):
+    """The tile and the split depend on (m, k, n) only, so a frame's sums
+    are the same alone or in a batch."""
+    wr, wi = (torch.from_numpy(w) for w in _factors_rows(k, m))
+    a = torch.from_numpy(_rand(15, (batch, k, n)))
+    tr, ti = _tc_stage1(wr, wi, a, 8)
+    w2r, w2i = (torch.from_numpy(w) for w in _factors_rows(n, n))
+    out = _tc_stage2(tr, ti, w2r, w2i)
+    for i in range(batch):
+        tr1, ti1 = _tc_stage1(wr, wi, a[i:i + 1], 8)
+        assert torch.equal(tr1[0], tr[i]) and torch.equal(ti1[0], ti[i])
+        assert torch.equal(_tc_stage2(tr1, ti1, w2r, w2i)[0], out[i])
+
+
+@pytest.mark.parametrize("k,n,offset,want", [
+    (512, 512, 0, "tensor_core"), (64, 64, 0, "tensor_core"),
+    (256, 36, 0, "tensor_core"), (256, 130, 0, "fma"), (6, 64, 0, "fma"),
+    (512, 512, 1, "fma"), (512, 512, 4, "tensor_core")])
+def test_route_follows_shapes_and_alignment(k, n, offset, want):
+    """Alignment is of the data, in elements of 4 bytes from a 64-byte
+    aligned buffer: an offset of 1 is 4 bytes, of 4 is 16."""
+    buf = torch.zeros(k * n + 16)
+    base = (-buf.data_ptr() % 64) // 4
+    a = buf[base + offset: base + offset + k * n].view(1, k, n)
+    w = torch.zeros(8, k)
+    assert od.route(k, n, w, w, a) == want
+
+
+def test_split_depends_on_shapes_alone():
+    # a 512x512 frame is 32 tiles: 2 CTAs share each tile's 16 k steps,
+    # so the flush's two frames fill 128 of the card's 132 SMs
+    for stage in (1, 2):
+        assert od.tc_split(stage, 512, 512, 512) == 2
+        assert od.tc_split(stage, 64, 64, 64) == 1       # two k steps
+        assert od.tc_split(stage, 2048, 512, 2048) == 1  # 512 tiles
+    assert od.tc_split(2, 8, 256, 128) == 4   # 2 tiles, 8 k steps
+
+
 # --- converter boundary --------------------------------------------------------
 
 
