@@ -606,6 +606,9 @@ def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
                   + f"; bounds 3xTF32 {r['bound_3xtf32_ms']:.4f}, FMA "
                   f"{r['bound_fma_ms']:.4f} ms")
         top = by_batch[-1]
+        # the quicker of the single calls that compute the stage
+        library = min((c for c in ("library", "library_real_gemm")
+                       if c + "_ms" in top), key=lambda c: top[c + "_ms"])
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -615,7 +618,7 @@ def phase_times(od, dev, main: dict, errs: dict[str, float]) -> list[dict]:
             "ms": top["kernel_ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_3xtf32_ms"],
             "bound_by": top["bound_3xtf32_by"],
-            "library_ms": top["library_ms"],
+            "library_ms": top[library + "_ms"], "library_call": library,
             "shape": [FRAMES, SIDE, SIDE, SIDE],
             "fma_ms": top["fma_ms"], "bound_fma_ms": top["bound_fma_ms"],
             "by_batch": by_batch,
@@ -1350,14 +1353,11 @@ def main() -> int:
     check(len(tc_build) == 2 * len(TC_KERNELS)
           and all(r["spill_bytes"] == 0 for r in tc_build),
           f"kernel 6's tensor-core kernels spill or are missing: {tc_build}")
-    # stage 1 is built twice: its DAC divides exactly by a corrected
-    # reciprocal below 2^23 levels (ILb0), by an IEEE divide above (ILb1)
     dft_build = ptxas_report(build.build_log("optical_dft"), DFT_TC_KERNELS)
     for r in dft_build:
-        ieee = " (IEEE-divide DAC)" if "ILb1" in r["entry"] else ""
-        print(f"  ptxas: {r['kernel']}{ieee}: {r['registers']} registers, "
+        print(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
               f"{r['spill_bytes']} bytes spilled")
-    check({r["kernel"] for r in dft_build} == set(DFT_TC_KERNELS)
+    check(sorted(r["kernel"] for r in dft_build) == sorted(DFT_TC_KERNELS)
           and all(r["spill_bytes"] == 0 for r in dft_build),
           f"the DFT tensor-core kernels spill or are missing: {dft_build}")
 

@@ -17,19 +17,20 @@
 // 1.07 GFLOP in stage 2 against 3-5 MB of traffic, so both are bound by
 // operations.  The parity bounds of the reference (stage 1 rtol 1e-4 /
 // atol 1e-5, pipeline rtol 2e-4 / atol 2e-4*max) rule out plain TF32 or
-// bf16 products.  Two routes, chosen by the caller from the shapes and the
-// operands' alignment alone, never by a failure:
+// bf16 products.  Two routes, chosen by the caller from the shapes, the
+// operands' alignment and the DAC's bits alone, never by a failure:
 //
 // * The tensor-core route (k and n multiples of 4, every operand 16-byte
-//   aligned: every 512x512 launch of the offload and serving paths) runs
-//   3xTF32 on wgmma: each fp32 operand x is split into hi = rna_tf32(x) and
-//   lo = rna_tf32(x - hi), and lo*hi' + hi*lo' + hi*hi' go into one fp32
-//   accumulator (lo*lo' is dropped): fp32-level error at a third of the
-//   TF32 rate, 165 TFLOP/s of fp32-accurate work against 67 for FMA.  The
-//   DAC's output is what is split, so the DAC keeps rintf and a true
-//   quotient by `levels` (dac_fast: exactly the IEEE quotient) and its
-//   ties are the FMA route's.  No Gauss trick: each complex product is its
-//   real products, as the bounds were set on.
+//   aligned, fewer than 24 DAC bits: every 512x512 launch of the offload
+//   and serving paths) runs 3xTF32 on wgmma: each fp32 operand x is split
+//   into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and lo*hi' + hi*lo' +
+//   hi*hi' go into one fp32 accumulator (lo*lo' is dropped): fp32-level
+//   error at a third of the TF32 rate, 165 TFLOP/s of fp32-accurate work
+//   against 67 for FMA.  The DAC's output is what is split, so the DAC
+//   keeps rintf and a true quotient by `levels` (dac_fast: exactly the
+//   IEEE quotient below 2^23 levels) and its ties are the FMA route's.  No
+//   Gauss trick: each complex product is its real products, as the bounds
+//   were set on.
 //
 //   wgmma takes tf32 shared-memory operands K-major only, and stage 1's A
 //   (k, n) is MN-major.  So in both stages the operand that goes through
@@ -422,7 +423,8 @@ __device__ __forceinline__ void mma_3xtf32(float* acc, const uint32_t* a_hi,
 // which is the IEEE quotient for every code 0 .. l at these l
 // (tests/test_torch_kernels.py checks each one).  The IEEE divide is a
 // subroutine with a branch that kept the consumers' quantization from
-// overlapping the products; the kernel instance for l >= 2^23 keeps it.
+// overlapping the products; l >= 2^23 (dac_bits >= 24) takes the FMA
+// route, which keeps it.
 __device__ __forceinline__ float dac_fast(float a, float l, float inv) {
   const float c = rintf(__fmul_rn(fminf(fmaxf(a, 0.0f), 1.0f), l));
   const float d = __fmul_rn(c, inv);
@@ -479,9 +481,9 @@ __device__ __forceinline__ uint32_t sw128(uint32_t tile, int row, int col) {
 // (r + 8, c + 4) with r = row0 (16 warp + lane / 4 of this warpgroup's
 // rows) and c = 8 kk + lane % 4, split hi / lo, for each plane p:
 //   stage 1: dac(A)^T from the A boxes ([32 k][32 n] each, n = row), the
-//            DAC's quotient by dac_fast, or by an IEEE divide (IEEE_DAC);
+//            DAC's quotient by dac_fast;
 //   stage 2: T (p = re, im) from [128 m][32 k] each.
-template <int STAGE, bool IEEE_DAC>
+template <int STAGE>
 __device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
                                               int lane, int kk, int levels,
                                               float l, float inv,
@@ -496,8 +498,7 @@ __device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
       float x;
       if constexpr (STAGE == 1) {
         x = ld_shared(sw128(raw + (row >> 5) * 4096, col, row & 31));
-        if (levels > 0)
-          x = IEEE_DAC ? dac(x, levels) : dac_fast(x, l, inv);
+        if (levels > 0) x = dac_fast(x, l, inv);
       } else {
         x = ld_shared(sw128(raw + p * TC_BM * 128, row, col));
       }
@@ -509,7 +510,7 @@ __device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
 // blockIdx.z over k steps [rank * per, ...) of its cluster's split.
 //   stage 1: out0/out1 = tr/ti (m, n); maps: a0 = A, wr, wi.
 //   stage 2: out0 = I (m, n); maps: a0 = tr, a1 = ti, wr, wi.
-template <int STAGE, bool IEEE_DAC = false>
+template <int STAGE>
 __device__ __forceinline__ void tc_tile(
     const CUtensorMap* tm_a0, const CUtensorMap* tm_a1,
     const CUtensorMap* tm_wr, const CUtensorMap* tm_wi,
@@ -624,8 +625,8 @@ __device__ __forceinline__ void tc_tile(
 #pragma unroll
       for (int kk = 0; kk < TC_BK / 8; ++kk) {
         const int f = kk & 1;
-        load_fragment<STAGE, IEEE_DAC>(raw, row0, lane, kk, levels, l, inv,
-                                       hi[f], lo[f]);
+        load_fragment<STAGE>(raw, row0, lane, kk, levels, l, inv, hi[f],
+                             lo[f]);
         if (kk == TC_BK / 8 - 1) {   // the raw stage is read
           fence_proxy_async();
           __syncwarp();
@@ -737,15 +738,13 @@ __device__ __forceinline__ void tc_tile(
   cluster_sync();   // no CTA leaves while a peer still reads its partials
 }
 
-template <bool IEEE_DAC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 stage1_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_wr,
                  const __grid_constant__ CUtensorMap tm_wi,
                  float* __restrict__ tr, float* __restrict__ ti, int m, int k,
                  int n, int levels, int split) {
-  tc_tile<1, IEEE_DAC>(&tm_a, &tm_a, &tm_wr, &tm_wi, tr, ti, m, k, n, levels,
-                       split);
+  tc_tile<1>(&tm_a, &tm_a, &tm_wr, &tm_wi, tr, ti, m, k, n, levels, split);
 }
 
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -819,10 +818,12 @@ bool aligned16(const void* p) {
 }
 
 // What the tensor-core route takes: TMA's 16-byte-aligned bases and row
-// strides (k and n multiples of 4), whole 16-byte output groups, and a
-// split of 1, 2 or 4.
-bool tc_takes(int k, int n, int split, std::initializer_list<const void*> ps) {
+// strides (k and n multiples of 4), whole 16-byte output groups, a split
+// of 1, 2 or 4, and fewer than 2^23 DAC levels (dac_fast's exact range).
+bool tc_takes(int k, int n, int split, int levels,
+              std::initializer_list<const void*> ps) {
   if (k <= 0 || k % 4 != 0 || n % 4 != 0) return false;
+  if (levels >= (1 << 23)) return false;
   if (split != 1 && split != 2 && split != 4) return false;
   for (const void* p : ps)
     if (!aligned16(p)) return false;
@@ -847,20 +848,16 @@ int optical_dft_stage1_batched(const float* wr, const float* wi,
         wr, wi, a, tr, ti, m, k, n, levels);
     return static_cast<int>(cudaGetLastError());
   }
-  if (route != kRouteTensorCore || !tc_takes(k, n, split, {wr, wi, a, tr, ti}))
+  if (route != kRouteTensorCore ||
+      !tc_takes(k, n, split, levels, {wr, wi, a, tr, ti}))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, twr, twi;
   if (!encode(&ta, a, 3, n, k, batch, 32) ||
       !encode(&twr, wr, 2, k, m, 1, TC_BN) ||
       !encode(&twi, wi, 2, k, m, 1, TC_BN))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (levels >= (1 << 23))   // dac_fast is exact below 2^23 levels
-    return launch_tc<stage1_tc_kernel<true>, 1>(batch, n, m, split, s, ta,
-                                                twr, twi, tr, ti, m, k, n,
-                                                levels, split);
-  return launch_tc<stage1_tc_kernel<false>, 1>(batch, n, m, split, s, ta, twr,
-                                               twi, tr, ti, m, k, n, levels,
-                                               split);
+  return launch_tc<stage1_tc_kernel, 1>(batch, n, m, split, s, ta, twr, twi,
+                                        tr, ti, m, k, n, levels, split);
 }
 
 // I[b] = |T[b] @ W^T|^2; route and split as above.
@@ -876,7 +873,7 @@ int optical_dft_stage2_batched(const float* tr, const float* ti,
     return static_cast<int>(cudaGetLastError());
   }
   if (route != kRouteTensorCore ||
-      !tc_takes(k, n, split, {tr, ti, wr, wi, out}))
+      !tc_takes(k, n, split, 0, {tr, ti, wr, wi, out}))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ttr, tti, twr, twi;
   if (!encode(&ttr, tr, 3, k, m, batch, TC_BM) ||

@@ -19,13 +19,14 @@ replace the Pallas TPU kernels ``_stage1_batched_kernel`` and
 source note in the ``.cu`` file says what bounds them on an H100
 (operations) and what their design does about it.
 
-Each stage has two routes, chosen by :func:`route` from the shapes and
-the operands' alignment alone, never by a failure: ``"tensor_core"``
-(3xTF32 on ``wgmma``, TMA-fed, the contraction split across a thread-block
-cluster of :func:`tc_split` CTAs) when k and n are multiples of 4 and
-every operand is 16-byte aligned — every 512x512 launch of the offload
-and serving paths — and ``"fma"`` (fp32 FMA on the CUDA cores) otherwise.
-A failed launch raises; nothing falls back to the other route.
+Each stage has two routes, chosen by :func:`route` from the shapes, the
+operands' alignment and the DAC's bits alone, never by a failure:
+``"tensor_core"`` (3xTF32 on ``wgmma``, TMA-fed, the contraction split
+across a thread-block cluster of :func:`tc_split` CTAs) when k and n are
+multiples of 4, every operand is 16-byte aligned and the DAC has fewer
+than 24 bits — every 512x512 launch of the offload and serving paths —
+and ``"fma"`` (fp32 FMA on the CUDA cores) otherwise.  A failed launch
+raises; nothing falls back to the other route.
 
 Beside each kernel sits its plain PyTorch version (``*_plain``):
 ``torch.matmul`` on the (re, im) planes in fp32 with the same DAC and
@@ -74,7 +75,12 @@ _ROUTE_CODE = {"fma": 0, "tensor_core": 1}
 _TMA_ALIGN = 16      # bytes: TMA's base-address and row-stride alignment
 # the tensor-core route's tile (csrc/optical_dft.cu: TC_BM, TC_BN, TC_BK)
 TC_ROWS, TC_W_ROWS, TC_STEP = 128, 64, 32
-_SMS = 132           # an H100's SMs: how many CTAs one frame may fill
+# CTAs one frame may fill on the tensor-core route: half of an H100's 132
+# SMs (see tc_split)
+_FRAME_CTAS = 66
+# the tensor-core route's DAC divides by a corrected reciprocal, exact
+# below 2^23 levels; more bits take the FMA route, which divides
+_TC_MAX_DAC_BITS = 23
 
 
 def dft_matrix_factors(n: int, dtype: torch.dtype = torch.float32,
@@ -99,13 +105,16 @@ def dft_matrix_factors(n: int, dtype: torch.dtype = torch.float32,
 # --- dispatch helpers ---------------------------------------------------------
 
 
-def route(k: int, n: int, *operands: torch.Tensor) -> str:
+def route(k: int, n: int, *operands: torch.Tensor,
+          dac_bits: int = 0) -> str:
     """The kernel route for a stage contracting over ``k`` into ``n``
     output columns: ``"tensor_core"`` when k (> 0) and n are multiples of
-    4 and every operand's data is 16-byte aligned (TMA's rule for bases
-    and row strides), ``"fma"`` otherwise."""
-    if k > 0 and k % 4 == 0 and n % 4 == 0 and all(
-            t.data_ptr() % _TMA_ALIGN == 0 for t in operands):
+    4, every operand's data is 16-byte aligned (TMA's rule for bases and
+    row strides) and ``dac_bits`` (stage 1's DAC) is at most 23, ``"fma"``
+    otherwise."""
+    if (k > 0 and k % 4 == 0 and n % 4 == 0
+            and dac_bits <= _TC_MAX_DAC_BITS
+            and all(t.data_ptr() % _TMA_ALIGN == 0 for t in operands)):
         return "tensor_core"
     return "fma"
 
@@ -116,17 +125,24 @@ def tc_split(stage: int, m: int, k: int, n: int) -> int:
 
     A tile is ``TC_ROWS`` rows of the register operand (stage 1: n, stage
     2: m) by ``TC_W_ROWS`` rows of W (stage 1: m, stage 2: n).  The split
-    doubles while one frame's CTAs stay within half the card (so that the
-    offload flush's two frames run in one wave) and each CTA keeps at
-    least two ``TC_STEP``-deep k steps; CTA r of the cluster takes steps
-    [r * per, (r + 1) * per), per = ceil(steps / split).  A 512x512 frame
-    is 32 tiles split 2 ways.
+    doubles while one frame's CTAs stay within ``_FRAME_CTAS`` and each
+    CTA keeps at least two ``TC_STEP``-deep k steps; CTA r of the cluster
+    takes steps [r * per, (r + 1) * per), per = ceil(steps / split).  A
+    512x512 frame is 32 tiles split 2 ways.
+
+    ``_FRAME_CTAS`` is a fill target tuned on a 132-SM H100 with the
+    offload flush at two frames a launch (its memory budget's
+    ``tile_k`` of 2 there): half the card a frame, so two frames make one
+    wave.  A card with another SM count or a budget with another
+    ``tile_k`` would want the target measured again (``chip_smoke.py``'s
+    split scan).  Whatever the target, the split depends on the shapes
+    alone, so a frame's bits never depend on the batch.
     """
     rows, w_rows = (n, m) if stage == 1 else (m, n)
     tiles = -(-rows // TC_ROWS) * -(-w_rows // TC_W_ROWS)
     steps = -(-k // TC_STEP)
     split = 1
-    while (split < 4 and tiles * split * 2 <= _SMS // 2
+    while (split < 4 and tiles * split * 2 <= _FRAME_CTAS
            and steps >= 4 * split):
         split *= 2
     return split
@@ -241,7 +257,7 @@ def dft_stage1_batched(wr: torch.Tensor, wi: torch.Tensor, a: torch.Tensor,
                          f"{_MAX_GRID_Z}")
     tr = torch.empty((batch, m, n), dtype=torch.float32, device=a.device)
     ti = torch.empty_like(tr)
-    path = route(kdim, n, wr, wi, a)
+    path = route(kdim, n, wr, wi, a, dac_bits=dac_bits)
     split = tc_split(1, m, kdim, n) if path == "tensor_core" else 1
     lib = _lib()
     with torch.cuda.device(a.device):   # the C entry launches on it

@@ -143,24 +143,28 @@ def _misaligned(t):
 
 
 @pytest.mark.parametrize("case", ["ragged n", "ragged k", "misaligned A",
-                                  "misaligned T"])
+                                  "misaligned T", "24-bit DAC"])
 def test_fma_route_takes_what_the_tensor_cores_do_not(cuda_device, case):
-    """k or n not a multiple of 4, or an operand off 16 bytes, takes the
-    FMA route and meets the same bounds."""
+    """k or n not a multiple of 4, an operand off 16 bytes, or a DAC of
+    24 bits or more (2^24 - 1 levels, past the exact range of the
+    tensor-core route's quotient) takes the FMA route and meets the same
+    bounds."""
     batch, m, k, n = {"ragged n": (2, 100, 96, 130),
                       "ragged k": (2, 64, 66, 64)}.get(case, (2, 128, 128,
                                                                 128))
     # stage 2 contracts over stage 1's n, and reads T
     routes = {"ragged n": ("fma", "fma"), "ragged k": ("fma", "tensor_core"),
               "misaligned A": ("fma", "tensor_core"),
-              "misaligned T": ("tensor_core", "fma")}[case]
+              "misaligned T": ("tensor_core", "fma"),
+              "24-bit DAC": ("fma", "tensor_core")}[case]
+    dac_bits = 24 if case == "24-bit DAC" else 8
     wr, wi = _rows(k, m, cuda_device)
     a = _rand(23, (batch, k, n), cuda_device)
     if case == "misaligned A":
         a = _misaligned(a)
     od.reset_launches()
-    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
-    pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=8)
+    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=dac_bits)
+    pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=dac_bits)
     assert od.dft_stage1_batched.launches_by_route[routes[0]] == 1
     torch.testing.assert_close(tr, pr, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(ti, pi, rtol=1e-4, atol=1e-5)

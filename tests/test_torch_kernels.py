@@ -352,22 +352,6 @@ def test_tensor_core_design_matches_fft2_oracle(dac_bits):
         _close(got[i], want, 2e-4, 2e-4 * float(want.max()))
 
 
-@pytest.mark.parametrize("batch,m,k,n", [(2, 512, 512, 512),
-                                         (3, 128, 128, 256)])
-def test_tensor_core_design_batched_is_bit_equal_to_looped(batch, m, k, n):
-    """The tile and the split depend on (m, k, n) only, so a frame's sums
-    are the same alone or in a batch."""
-    wr, wi = (torch.from_numpy(w) for w in _factors_rows(k, m))
-    a = torch.from_numpy(_rand(15, (batch, k, n)))
-    tr, ti = _tc_stage1(wr, wi, a, 8)
-    w2r, w2i = (torch.from_numpy(w) for w in _factors_rows(n, n))
-    out = _tc_stage2(tr, ti, w2r, w2i)
-    for i in range(batch):
-        tr1, ti1 = _tc_stage1(wr, wi, a[i:i + 1], 8)
-        assert torch.equal(tr1[0], tr[i]) and torch.equal(ti1[0], ti[i])
-        assert torch.equal(_tc_stage2(tr1, ti1, w2r, w2i)[0], out[i])
-
-
 @pytest.mark.parametrize("k,n,offset,want", [
     (512, 512, 0, "tensor_core"), (64, 64, 0, "tensor_core"),
     (256, 36, 0, "tensor_core"), (256, 130, 0, "fma"), (6, 64, 0, "fma"),
@@ -380,6 +364,17 @@ def test_route_follows_shapes_and_alignment(k, n, offset, want):
     a = buf[base + offset: base + offset + k * n].view(1, k, n)
     w = torch.zeros(8, k)
     assert od.route(k, n, w, w, a) == want
+
+
+@pytest.mark.parametrize("dac_bits,want", [
+    (0, "tensor_core"), (8, "tensor_core"), (23, "tensor_core"),
+    (24, "fma"), (31, "fma")])
+def test_route_sends_dacs_past_the_exact_quotient_to_fma(dac_bits, want):
+    """The tensor-core route's DAC quotient is exact below 2^23 levels
+    (test_dac_quotient_is_the_ieee_quotient); a DAC of 24 bits or more
+    takes the FMA route, which divides."""
+    a, w = torch.zeros(1, 64, 64), torch.zeros(8, 64)
+    assert od.route(64, 64, w, w, a, dac_bits=dac_bits) == want
 
 
 def test_split_depends_on_shapes_alone():
