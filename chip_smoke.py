@@ -25,7 +25,8 @@ and read just after:
   its ``mma.sync`` backward;
 * the converter boundary's entry point ``ops.converter_boundary`` on a
   2048x2048 float32 SLM frame and a 4096x2048 bfloat16 activation, with
-  and without noise.
+  and without noise: one launch of its resident route a call, that route
+  and the streamed one bit-equal to the plain version.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -119,6 +120,9 @@ KERNEL6_NAMES = TC_KERNELS + ("attention_kernel<", "attention_bwd_kv_kernel<",
                               "attention_bwd_q_kernel<", "delta_kernel<")
 # the DFT kernels' tensor-core route
 DFT_TC_KERNELS = ("stage1_tc_kernel", "stage2_tc_kernel")
+# kernel 5's kernels: the resident route's, then the streamed route's two
+BOUNDARY_KERNELS = ("boundary_resident_kernel", "boundary_max_kernel",
+                    "boundary_stream_kernel")
 
 
 def is_kernel6(name: str) -> bool:
@@ -175,26 +179,110 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20) -> tuple[float | None, dict]:
-    """Device time per call of ``fn`` under torch.profiler: the sum of its
-    CUDA kernels' time over ``calls`` back-to-back calls, divided by
-    ``calls``, and the same per kernel name.  For work so short that the
-    host's launches, not the card, set the event-timed wall.  (None, {})
-    when the profiler reports no device time."""
+def device_profile(fn, calls: int = 20, flush=None
+                   ) -> tuple[float | None, dict, dict]:
+    """Device time per call of ``fn`` under torch.profiler over ``calls``
+    calls: the total, the same per kernel name, and the CUDA launch API
+    calls per call by name (``cudaLaunchKernel``,
+    ``cudaLaunchCooperativeKernel``, ...).  A kernel's time per call is its
+    mean per launch times its launches per call: late in a long process
+    the tracer can miss a launch now and then, or a whole window, which is
+    then run again (the API calls are counted on the host).  With
+    ``flush``, each call follows one ``flush()``, whose kernels are left
+    out.  (None, {}, {}) when the profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    def window(work, n):
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    work()
+                torch.cuda.synchronize()
+            evs = prof.key_averages()
+            kernels = [e for e in evs if e.count and e.device_type ==
+                       torch.autograd.DeviceType.CUDA]
+            if kernels:
+                return evs, kernels
+        return evs, []
+
+    skip = set()
+    if flush is not None:
+        skip = {e.key for e in window(flush, 4)[1]}
+        if not skip:
+            return None, {}, {}
+
+    def work():
+        if flush is not None:
+            flush()
+        fn()
+    for _ in range(3):
+        work()
+    torch.cuda.synchronize()
+    evs, kernels = window(work, calls)
+    by_name = {e.key: e.self_device_time_total / 1e3 / e.count
+               * max(1, round(e.count / calls)) for e in kernels
+               if e.key not in skip}
+    api = {e.key: e.count / calls for e in evs
+           if e.key.startswith(("cudaLaunch", "cuLaunch"))}
+    total = sum(by_name.values())
+    return (total if total else None), by_name, api
+
+
+def _sleep_cycles_per_ms() -> float:
+    """The rate of ``torch.cuda._sleep``'s spin, in cycles per ms."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return 1e7 / a.elapsed_time(b)
+
+
+def held_ms(fn, calls: int = 20, flush=None) -> float:
+    """Device time per call of ``fn`` from CUDA events.  The card is held
+    busy (``torch.cuda._sleep``) for twice the time the host takes to
+    queue the work, so the host's launch path never shows in an interval.
+    Without ``flush``, one interval over ``calls`` calls back to back;
+    with it, one interval per call after its ``flush()`` (the median)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        if flush is not None:
+            flush()
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(1 if flush is None else calls)]
+    torch.cuda._sleep(int(hold_ms * _sleep_cycles_per_ms()))
+    if flush is None:
+        pairs[0][0].record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / 1e3 / calls
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
-    total = sum(by_name.values())
-    return (total if total else None), by_name
+        pairs[0][1].record()
+    else:
+        for a, b in pairs:
+            flush()
+            a.record()
+            fn()
+            b.record()
+    torch.cuda.synchronize()
+    if flush is None:
+        return pairs[0][0].elapsed_time(pairs[0][1]) / calls
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_ms(fn, calls: int = 20) -> tuple[float | None, dict]:
+    """Device time per call of ``fn`` (``device_profile``'s first two
+    results), for work so short that the host's launches, not the card,
+    set the event-timed wall."""
+    total, by_name, _ = device_profile(fn, calls)
+    return total, by_name
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -1247,14 +1335,8 @@ def attention_train_times(la, dev, training: dict, err: float,
 # --- phase 7: the converter boundary -------------------------------------------
 
 
-def phase_boundary(cb, ops, dev, card: str) -> dict:
-    """``ops.converter_boundary`` at its shapes with and without noise,
-    launches counted; each result against the plain version at the
-    reference's bound (rtol 1e-6, atol 1.5 ADC steps); times against the
-    bytes bound (x and noise read once, out written once).  The wrapper's
-    host launches outlast its device work at these sizes, so its time is
-    the profiler's device time per call (the event-timed wall beside
-    it)."""
+def boundary_inputs(dev) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """``BOUNDARY_CASES`` with f32 noise and without."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     inputs = []
     for shape, dtype in BOUNDARY_CASES:
@@ -1262,9 +1344,60 @@ def phase_boundary(cb, ops, dev, card: str) -> dict:
              torch.float32 else torch.randn(shape, generator=gen,
                                             device=dev)).to(dtype)
         nz = torch.randn(shape, generator=gen, device=dev)
-        for noise in (nz, None):
-            inputs.append((x, noise))
+        inputs += [(x, nz), (x, None)]
     torch.cuda.synchronize()
+    return inputs
+
+
+def bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal values and NaN in the same places (a NaN's bits may differ)."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.isnan(), want.isnan())
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
+def check_boundary_specials(cb, dev) -> None:
+    """Both routes against the plain version on inputs with NaN, +-inf
+    and an all-negative x, in f32 and bf16."""
+    rng = np.random.default_rng(SEED + 11)
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ("nan x", "nan noise", "inf x", "inf noise", "negative"):
+            x = rng.random((513, 1027), dtype=np.float32) * 1.2 - 0.1
+            nz = rng.standard_normal(x.shape).astype(np.float32)
+            spot = (slice(None, None, 7), slice(2, None, 5))
+            if case == "negative":
+                x = -x - 0.2
+            elif case.endswith("x"):
+                x[spot] = np.nan if case == "nan x" else np.inf
+            else:
+                nz[spot] = np.nan if case == "nan noise" else -np.inf
+            xt = torch.from_numpy(x).to(device=dev, dtype=dtype)
+            nt = torch.from_numpy(nz).to(dev)
+            want = cb.converter_boundary_plain(xt, nt, dac_bits=6,
+                                               adc_bits=8, noise_std=0.02)
+            for route in cb.ROUTES:
+                got = torch.empty_like(xt)
+                cb._launch(xt, nt, got, route, 6, 8, 0.02)
+                check(bit_equal(got, want), f"converter_boundary {route} "
+                      f"{dtype} {case}: not bit-equal to the plain version")
+
+
+def phase_boundary(cb, ops, dev, card: str) -> dict:
+    """``ops.converter_boundary`` at its shapes with and without noise:
+    launches counted, each on the resident route, bit-equal to the plain
+    version (and so is the streamed route through the C entry point, and
+    both on NaN, inf and all-negative inputs; a call is one launch of the
+    resident kernel, by the profiler's count of launch API calls).  Times
+    per case and route: device time per call from CUDA events with the
+    card held busy while the host queues (``held_ms``; launch gaps count),
+    with L2 cleared before each call and back to back, the kernel alone
+    under torch.profiler beside it, and the event-timed wall of a call,
+    against the bytes bound (x and noise read once, out written
+    once); 24-bit converters (IEEE divides, no code table) beside 8-bit on
+    the resident route.  "L2 cleared" reads a 256 MiB buffer before each
+    call; a rewrite of it ("dirty") adds that buffer's write-back to the
+    call."""
+    inputs = boundary_inputs(dev)
     adc_bits = dac_bits = 8
     kw = dict(dac_bits=dac_bits, adc_bits=adc_bits,
               noise_std=BOUNDARY_NOISE_STD)
@@ -1272,50 +1405,90 @@ def phase_boundary(cb, ops, dev, card: str) -> dict:
     outs = [ops.converter_boundary(x, nz, **kw) for x, nz in inputs]
     torch.cuda.synchronize()
     launches = cb.converter_boundary.launches
-    check(launches == len(inputs), f"converter_boundary launched {launches} "
-          f"times for {len(inputs)} calls")
-    atol = 1.5 / ((1 << adc_bits) - 1)
+    by_route = dict(cb.converter_boundary.launches_by_route)
+    check(launches == len(inputs) and by_route["resident"] == launches,
+          f"converter_boundary launched {by_route} for {len(inputs)} calls "
+          "(all resident expected)")
+    check_boundary_specials(cb, dev)
+    # L2 cleared before a call: a 256 MiB buffer read (the call finds
+    # clean lines of another buffer) or rewritten (it finds them dirty,
+    # and their write-back to HBM falls into the call)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    clean, dirty = scratch.amax, scratch.bitwise_not_
     err, rows = 0.0, []
     for (x, nz), got in zip(inputs, outs):
         want = cb.converter_boundary_plain(x, nz, **kw)
+        out = torch.empty_like(x)
+        streamed = lambda: cb._launch(x, nz, out, "streamed", dac_bits,
+                                      adc_bits, BOUNDARY_NOISE_STD)
+        streamed()
         e = float((got.float() - want.float()).abs().max())
-        exact = bool(torch.equal(got, want))
-        check(got.dtype == x.dtype and got.shape == x.shape
-              and max_violation(got.float(), want.float(), 1e-6, atol) <= 0,
-              f"converter_boundary {tuple(x.shape)} {x.dtype} noise "
-              f"{nz is not None}: max |err| {e:.3e} outside rtol 1e-6 / "
-              f"atol {atol:.3e}")
+        tag = (f"converter_boundary {tuple(x.shape)} {x.dtype} noise "
+               f"{nz is not None}")
+        check(bit_equal(got, want), f"{tag}: resident route not bit-equal "
+              f"to the plain version (max |err| {e:.3e})")
+        check(bit_equal(out, want), f"{tag}: streamed route not bit-equal "
+              "to the plain version")
         err = max(err, e)
         kern = lambda: ops.converter_boundary(x, nz, **kw)
+        wide = lambda: ops.converter_boundary(x, nz, dac_bits=24,
+                                              adc_bits=24,
+                                              noise_std=BOUNDARY_NOISE_STD)
         plain = lambda: cb.converter_boundary_plain(x, nz, **kw)
         wall = [median_ms(kern), median_ms(plain), median_ms(plain),
                 median_ms(kern)]
-        dev_ms, by_name = device_ms(kern)
-        plain_dev_ms, _ = device_ms(plain)
+        kernel_ms, by_name, api = device_profile(kern)
+        check(api == {"cudaLaunchCooperativeKernel": 1}
+              and all("boundary_resident_kernel" in k for k in by_name),
+              f"{tag}: a call made {api}, kernels {list(by_name)}, not one "
+              "launch of the resident kernel")
+        cleared = held_ms(kern, flush=clean)
+        s_names = device_profile(streamed)[1]
         nbytes = 2 * x.numel() * x.element_size() + (
             0 if nz is None else nz.numel() * nz.element_size())
         row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
                "noise": nz is not None, "max_abs_err": e,
-               "bit_equal_to_plain": exact,
-               # device time of the wrapper (max reduction + kernel)
-               "ms": dev_ms, "plain_ms": plain_dev_ms,
-               "kernel_only_ms": sum(v for k, v in by_name.items()
-                                     if "converter_boundary_kernel" in k),
+               "bit_equal_to_plain": True,
+               # device time of a wrapper call: the resident kernel alone
+               "ms": held_ms(kern), "l2_cleared_ms": cleared,
+               "l2_dirty_ms": held_ms(kern, flush=dirty),
+               "plain_ms": held_ms(plain, flush=clean),
+               "plain_back_to_back_ms": held_ms(plain),
+               # the kernel's own time under torch.profiler (no launch
+               # gaps; None where the tracer lost the window)
+               "kernel_only_ms": kernel_ms,
+               "kernel_l2_cleared_ms": device_profile(kern, flush=clean)[0],
+               "launch_calls": api,
+               "bits24_ms": held_ms(wide, flush=clean),
+               "streamed_ms": held_ms(streamed),
+               "streamed_l2_cleared_ms": held_ms(streamed, flush=clean),
+               "streamed_by_kernel_ms": {
+                   n: v for k, v in s_names.items() for n in BOUNDARY_KERNELS
+                   if n in k},
                "wall_ms": statistics.mean((wall[0], wall[3])),
                "plain_wall_ms": statistics.mean((wall[1], wall[2])),
                "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bytes": nbytes}
+        row["bound_share"] = (row["bound_ms"] / cleared if cleared
+                              else None)
         rows.append(row)
-        print(f"  [{card}] converter_boundary {tuple(x.shape)} {row['dtype']}"
-              f" noise {row['noise']}: device time per call {row['ms']} ms "
-              f"(the kernel alone {row['kernel_only_ms']} ms), plain "
-              f"{row['plain_ms']} ms; event-timed wall {row['wall_ms']:.4f}"
-              f" ms, plain {row['plain_wall_ms']:.4f} ms; bound "
-              f"{row['bound_ms']:.4f} ms (bytes); max |err| {e:.3e}, "
-              f"bit-equal {exact}")
+        f = {k: "n/a" if v is None else f"{v:.4f}" for k, v in row.items()
+             if k.endswith(("ms", "share")) and not isinstance(v, dict)}
+        print(f"  [{card}] {tag}: resident device time per call "
+              f"{f['ms']} ms back to back, {f['l2_cleared_ms']} ms L2 "
+              f"cleared (kernel alone {f['kernel_only_ms']} / "
+              f"{f['kernel_l2_cleared_ms']} ms; {f['bound_share']} of the "
+              f"bound {f['bound_ms']} ms, bytes), {f['l2_dirty_ms']} ms "
+              f"after a dirty flush, 24-bit converters {f['bits24_ms']} ms; "
+              f"streamed {f['streamed_ms']} / {f['streamed_l2_cleared_ms']}"
+              f" ms {row['streamed_by_kernel_ms']}; plain {f['plain_ms']} "
+              f"ms; event-timed wall {f['wall_ms']} ms, plain "
+              f"{f['plain_wall_ms']} ms; bit-equal on both routes")
+    del scratch
     main = rows[0]
     return {"name": "converter_boundary", "route": "cuda",
             "source": ADC_SOURCE, "replaces": REPLACES["converter_boundary"],
-            "launches": launches, "max_abs_err": err, "ms": main["ms"],
+            "launches": launches, "launches_by_route": by_route,
+            "max_abs_err": err, "ms": main["l2_cleared_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "shape": main["shape"], "dtype": main["dtype"],
@@ -1360,6 +1533,15 @@ def main() -> int:
     check(sorted(r["kernel"] for r in dft_build) == sorted(DFT_TC_KERNELS)
           and all(r["spill_bytes"] == 0 for r in dft_build),
           f"the DFT tensor-core kernels spill or are missing: {dft_build}")
+    cb_build = ptxas_report(build.build_log("adc_dac"), BOUNDARY_KERNELS)
+    for r in cb_build:
+        print(f"  ptxas: {r['entry']}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled")
+    # 4 (x, noise) dtype pairs of the resident and stream kernels, 2 x
+    # dtypes of the max kernel
+    check(len(cb_build) == 10 and all(r["spill_bytes"] == 0
+                                      for r in cb_build),
+          f"kernel 5's kernels spill or are missing: {cb_build}")
 
     budget = rt.MemoryBudget.detect(dev)
     tile_k = budget.tile_for_group(SIDE * SIDE, SIDE * SIDE, FRAMES,

@@ -1,8 +1,8 @@
-// Hopper building blocks shared by the port's tensor-core kernels
-// (local_attention.cu, optical_dft.cu): mbarriers, TMA loads, wgmma
-// descriptors and fences as PTX (sm_90a), the per-device shared-memory
-// opt-in, and cuTensorMapEncodeTiled looked up at run time.  Each source
-// that includes it gets its own internal copy.
+// Hopper building blocks shared by the port's kernels (local_attention.cu,
+// optical_dft.cu, adc_dac.cu): mbarriers, TMA loads, wgmma descriptors and
+// fences as PTX (sm_90a), the converters' NaN-keeping clip, the per-device
+// shared-memory opt-in, and cuTensorMapEncodeTiled looked up at run time.
+// Each source that includes it gets its own internal copy.
 
 #pragma once
 
@@ -15,6 +15,24 @@
 namespace {
 
 constexpr int kMaxDevices = 64;         // devices one process may launch on
+
+// max(a, b) that returns NaN when either is NaN, as jnp.max and
+// torch.amax do (fmaxf returns the other operand).  No branch.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// clip(v, 0, 1) as jnp.clip and torch.clamp compute it: NaN stays NaN
+// (fminf(fmaxf(v, 0), 1) would give 0).  Bit-identical to that for every
+// other v; two instructions, no branch.
+__device__ __forceinline__ float unit_clip(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n\t"
+      "min.NaN.f32 %0, %0, 0f3F800000;\n" : "=f"(r) : "f"(v));
+  return r;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

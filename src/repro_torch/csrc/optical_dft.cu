@@ -122,7 +122,7 @@ constexpr int PAD = 1;                 // breaks transposed-store conflicts
 __device__ __forceinline__ float dac(float a, int levels) {
   if (levels > 0) {
     const float l = static_cast<float>(levels);
-    a = rintf(fminf(fmaxf(a, 0.0f), 1.0f) * l) / l;
+    a = rintf(unit_clip(a) * l) / l;
   }
   return a;
 }
@@ -426,7 +426,7 @@ __device__ __forceinline__ void mma_3xtf32(float* acc, const uint32_t* a_hi,
 // overlapping the products; l >= 2^23 (dac_bits >= 24) takes the FMA
 // route, which keeps it.
 __device__ __forceinline__ float dac_fast(float a, float l, float inv) {
-  const float c = rintf(__fmul_rn(fminf(fmaxf(a, 0.0f), 1.0f), l));
+  const float c = rintf(__fmul_rn(unit_clip(a), l));
   const float d = __fmul_rn(c, inv);
   return fmaf(fmaf(-d, l, c), inv, d);
 }
@@ -483,12 +483,12 @@ __device__ __forceinline__ uint32_t sw128(uint32_t tile, int row, int col) {
 //   stage 1: dac(A)^T from the A boxes ([32 k][32 n] each, n = row), the
 //            DAC's quotient by dac_fast;
 //   stage 2: T (p = re, im) from [128 m][32 k] each.
-template <int STAGE>
-__device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
-                                              int lane, int kk, int levels,
-                                              float l, float inv,
-                                              uint32_t (*hi)[4],
-                                              uint32_t (*lo)[4]) {
+template <int STAGE, bool DAC>
+__device__ __forceinline__ void load_fragment_as(uint32_t raw, int row0,
+                                                 int lane, int kk, float l,
+                                                 float inv,
+                                                 uint32_t (*hi)[4],
+                                                 uint32_t (*lo)[4]) {
 #pragma unroll
   for (int p = 0; p < (STAGE == 1 ? 1 : 2); ++p)
 #pragma unroll
@@ -498,12 +498,27 @@ __device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
       float x;
       if constexpr (STAGE == 1) {
         x = ld_shared(sw128(raw + (row >> 5) * 4096, col, row & 31));
-        if (levels > 0) x = dac_fast(x, l, inv);
+        if constexpr (DAC) x = dac_fast(x, l, inv);
       } else {
         x = ld_shared(sw128(raw + p * TC_BM * 128, row, col));
       }
       split_tf32(x, hi[p][j], lo[p][j]);
     }
+}
+
+// The DAC's on/off test once per fragment, not once per element: with
+// the NaN-keeping clip, ptxas no longer predicates the per-element test,
+// and a branch per element in this loop slows stage 1.
+template <int STAGE>
+__device__ __forceinline__ void load_fragment(uint32_t raw, int row0,
+                                              int lane, int kk, int levels,
+                                              float l, float inv,
+                                              uint32_t (*hi)[4],
+                                              uint32_t (*lo)[4]) {
+  if (STAGE == 1 && levels > 0)
+    load_fragment_as<STAGE, true>(raw, row0, lane, kk, l, inv, hi, lo);
+  else
+    load_fragment_as<STAGE, false>(raw, row0, lane, kk, l, inv, hi, lo);
 }
 
 // One CTA: a 128 x 64 tile (register-operand rows x W rows) of frame

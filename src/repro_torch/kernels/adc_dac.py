@@ -3,22 +3,28 @@
 Emulating the digital/analog boundary inside a model (quantization-aware
 training, hardware-in-the-loop studies) is three pointwise passes if
 written naively: quantize, add noise, re-quantize, each a full round trip
-through device memory.  The kernel fuses them into one pass; it is
-hand-written CUDA for ``sm_90a`` (``repro_torch/csrc/adc_dac.cu``, built by
+through device memory.  The kernel fuses them into one pass, together with
+the global max that the ADC auto-ranges on; it is hand-written CUDA for
+``sm_90a`` (``repro_torch/csrc/adc_dac.cu``, built by
 :mod:`repro_torch.kernels.build` and called through ``ctypes``).  It
 replaces the Pallas TPU kernel ``_kernel`` of
-``src/repro/kernels/adc_dac.py``.
+``src/repro/kernels/adc_dac.py`` and the ``jnp.max`` its wrapper takes
+first.
 
-The ADC auto-ranges on the *global* max, which one elementwise pass cannot
-see, so the wrapper takes it first with a PyTorch reduction that stays on
-the device (no ``.item()``) and hands the kernel a pointer to it, as the
-reference's wrapper computes it with ``jnp.max`` outside its kernel.
+Two routes, chosen by :func:`route` from the element count, the dtype and
+the card's SM count and shared memory alone, never by a failure:
+``"resident"`` (x fits in the SMs' shared memory: one cooperative launch
+that holds x on chip across a grid barrier, so x, noise and out each cross
+device memory once) and ``"streamed"`` (larger x: a max kernel, then the
+elementwise kernel; x is read twice).  A failed launch raises.
 
 Beside the kernel sits its plain PyTorch version,
-:func:`converter_boundary_plain`, the same arithmetic in the same order.
-The wrapper takes it only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.  It counts its launches in
-``converter_boundary.launches``.
+:func:`converter_boundary_plain`, the same arithmetic in the same order;
+the kernel is bit-equal to it (NaN where it has NaN).  The wrapper takes
+it only for tensors on the CPU; for CUDA tensors it launches the kernel or
+raises.  It counts its calls that launched in
+``converter_boundary.launches`` and again per route in
+``converter_boundary.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -29,9 +35,30 @@ import functools
 import torch
 
 __all__ = ["converter_boundary", "converter_boundary_plain",
-           "reset_launches"]
+           "reset_launches", "route", "ROUTES"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("resident", "streamed")
+_ROUTE_CODE = {"resident": 0, "streamed": 1}
+# csrc/adc_dac.cu: a resident chunk is a multiple of 8 elements; of the
+# shared-memory opt-in, 1 KB is left to the kernel's static shared memory
+# and 16 KB to its table of DAC codes (SMEM_RESERVED); the
+# streamed route runs at most 4 CTAs an SM, one partial max each
+_CHUNK_ALIGN = 8
+_SMEM_RESERVED = 1024 + 16384
+_PARTIALS_PER_SM = 4
+
+
+def route(numel: int, dtype: torch.dtype, sm_count: int,
+          smem_per_block: int) -> str:
+    """``"resident"`` when x's share of one CTA per SM (``ceil(numel /
+    sm_count)`` elements, rounded up to 8) fits in ``smem_per_block``
+    bytes less the kernel's own 17 KB (1 KB of static shared memory and
+    a 16 KB table), ``"streamed"`` otherwise."""
+    chunk = -(-numel // sm_count)
+    chunk = -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN
+    fits = chunk * dtype.itemsize <= smem_per_block - _SMEM_RESERVED
+    return "resident" if fits else "streamed"
 
 
 def _scale(x: torch.Tensor) -> torch.Tensor:
@@ -69,12 +96,59 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import library
     lib = library("adc_dac")
     p, i = ctypes.c_void_p, ctypes.c_int
+    ll, f = ctypes.c_longlong, ctypes.c_float
     lib.converter_boundary_forward.argtypes = [
-        p, p, p, p, i, i, ctypes.c_longlong, i, i, ctypes.c_float, p]
+        p, p, p, p, ll, i, i, ll, i, i, f, f, i, p]
     lib.converter_boundary_forward.restype = i
+    lib.converter_boundary_limits.argtypes = [ctypes.POINTER(i)] * 2
+    lib.converter_boundary_limits.restype = i
     lib.converter_boundary_error_string.argtypes = [i]
     lib.converter_boundary_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _limits(device: torch.device) -> tuple[int, int]:
+    """The card's SM count and the shared memory a block may opt in to."""
+    lib = _lib()
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.converter_boundary_limits(ctypes.byref(sms),
+                                                     ctypes.byref(smem)))
+    return sms.value, smem.value
+
+
+@functools.cache
+def _scale_floor(dtype: torch.dtype) -> float:
+    """1e-20 as the plain version's ``clamp_min`` rounds it to x's dtype."""
+    return torch.clamp_min(torch.tensor(-1.0, dtype=dtype), 1e-20).item()
+
+
+def _raise_on(lib: ctypes.CDLL, code: int) -> None:
+    if code != 0:
+        msg = lib.converter_boundary_error_string(code).decode()
+        raise RuntimeError(f"converter_boundary: CUDA error {code}: {msg}")
+
+
+def _launch(x: torch.Tensor, noise: torch.Tensor | None, out: torch.Tensor,
+            path: str, dac_bits: int, adc_bits: int,
+            noise_std: float) -> None:
+    """One call of the C entry point on ``path``'s route, uncounted: x,
+    noise and out contiguous on one card, x not empty."""
+    sm_count, _ = _limits(x.device)
+    partials = torch.empty(_PARTIALS_PER_SM * sm_count, dtype=torch.float32,
+                           device=x.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):   # the C entry launches on it
+        code = lib.converter_boundary_forward(
+            x.data_ptr(), None if noise is None else noise.data_ptr(),
+            out.data_ptr(), partials.data_ptr(), partials.numel(),
+            _DTYPE_CODE[x.dtype],
+            0 if noise is None else _DTYPE_CODE[noise.dtype], x.numel(),
+            dac_bits, adc_bits, noise_std, _scale_floor(x.dtype),
+            _ROUTE_CODE[path], stream)
+    _raise_on(lib, code)
 
 
 def _on_cpu(x: torch.Tensor, noise: torch.Tensor | None) -> bool:
@@ -113,8 +187,10 @@ def converter_boundary(x: torch.Tensor, noise: torch.Tensor | None = None,
         ``noise_std > 0``.
       dac_bits, adc_bits: converter resolutions (1..24).
 
-    The kernel is a grid-stride elementwise pass: any 2-D shape works, and
-    it takes no block sizes (the reference's ``block_rows``).
+    Any 2-D shape works on either route, and the kernel takes no block
+    sizes (the reference's ``block_rows``).  On the card, one call is one
+    kernel launch on the ``"resident"`` route and two on ``"streamed"``,
+    with no PyTorch reduction around them.
     """
     if x.ndim != 2:
         raise ValueError("converter_boundary: expected a 2-D x, got shape "
@@ -135,25 +211,18 @@ def converter_boundary(x: torch.Tensor, noise: torch.Tensor | None = None,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    scale = _scale(x)
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):   # the C entry launches on it
-        code = lib.converter_boundary_forward(
-            x.data_ptr(), None if noise is None else noise.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
-            0 if noise is None else _DTYPE_CODE[noise.dtype], x.numel(),
-            dac_bits, adc_bits, noise_std, stream)
-    if code != 0:
-        msg = lib.converter_boundary_error_string(code).decode()
-        raise RuntimeError(f"converter_boundary: CUDA error {code}: {msg}")
+    sm_count, smem = _limits(x.device)
+    path = route(x.numel(), x.dtype, sm_count, smem)
+    _launch(x, noise, out, path, dac_bits, adc_bits, noise_std)
     converter_boundary.launches += 1
+    converter_boundary.launches_by_route[path] += 1
     return out
 
 
-converter_boundary.launches = 0
-
-
 def reset_launches() -> None:
-    """Set the kernel's launch counter to 0."""
+    """Set the kernel's launch counters, in all and per route, to 0."""
     converter_boundary.launches = 0
+    converter_boundary.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

@@ -35,9 +35,8 @@ same inputs at 1e-4 * max|plain| in float32 (summation order only) and
 2e-2 * max|plain| in bfloat16 (the kernel takes the row sums dO . O from
 the bf16-rounded output, as flash-attention backwards do), and must give
 bit-equal gradients when launched twice.  The converter-boundary kernel
-is held to its plain version at rtol 1e-6 / atol 1.5 ADC steps, the
-reference's bound (``tests/test_kernels.py``): both compute the same
-IEEE operations in the same order.  A smoke-config training loss and its
+is held to its plain version bit for bit (NaN where it has NaN) on both
+of its routes: both compute the same IEEE operations in the same order.  A smoke-config training loss and its
 gradients on the card match the CPU's at the bf16 bound (5e-2).
 """
 
@@ -176,6 +175,39 @@ def test_fma_route_takes_what_the_tensor_cores_do_not(cuda_device, case):
     assert od.dft_stage2_batched.launches_by_route[routes[1]] == 1
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * float(want.max()))
+
+
+@pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "all negative"])
+@pytest.mark.parametrize("route", od.ROUTES)
+def test_dft_kernels_keep_nan_and_clip_inf(cuda_device, case, route):
+    """The DAC of both routes keeps NaN and clips infinities as the plain
+    version (and the reference) does: a NaN pixel makes its column of T
+    NaN and the whole frame's intensity NaN.  Elsewhere the usual
+    bounds."""
+    batch, m, k, n = 2, 128, 128, 128 if route == "tensor_core" else 130
+    wr, wi = _rows(k, m, cuda_device)
+    a = _rand(24, (batch, k, n), cuda_device) * 1.2 - 0.1
+    if case == "all negative":
+        a = -a - 0.2
+    else:
+        a[0, ::9, 5::11] = {"nan": float("nan"), "+inf": float("inf"),
+                            "-inf": float("-inf")}[case]
+    od.reset_launches()
+    tr, ti = od.dft_stage1_batched(wr, wi, a, dac_bits=8)
+    pr, pi = od.dft_stage1_batched_plain(wr, wi, a, dac_bits=8)
+    assert od.dft_stage1_batched.launches_by_route[route] == 1
+    for got, want in ((tr, pr), (ti, pi)):
+        assert torch.equal(got.isnan(), want.isnan())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True)
+    w2r, w2i = _rows(n, n, cuda_device)
+    got = od.dft_stage2_batched(tr, ti, w2r, w2i)
+    want = od.dft_stage2_batched_plain(pr, pi, w2r, w2i)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[0].isnan().all()) == (case == "nan")
+    assert not bool(got[1].isnan().any())
+    torch.testing.assert_close(got, want, rtol=1e-4, equal_nan=True,
+                               atol=1e-4 * float(want[1].max()))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
@@ -355,15 +387,46 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _boundary(x, nz, route, **kw):
+    """The converter boundary on ``route``: the wrapper for the route it
+    picks (its per-route counter asserted), the C entry point for the
+    other."""
+    adc_dac.reset_launches()
+    if route == "wrapper":
+        out = adc_dac.converter_boundary(x, nz, **kw)
+        torch.cuda.synchronize()
+        assert adc_dac.converter_boundary.launches == 1
+        return out
+    out = torch.empty_like(x)
+    adc_dac._launch(x, nz, out, route, kw["dac_bits"], kw["adc_bits"],
+                    kw["noise_std"])
+    torch.cuda.synchronize()
+    assert adc_dac.converter_boundary.launches == 0
+    return out
+
+
+def _assert_bit_equal(got, want):
+    """Equal values, NaN where ``want`` has NaN (its bits may differ)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("shape,dtype,noise", [
     ((2048, 2048), torch.float32, "f32"), ((2048, 2048), torch.float32, None),
     ((4096, 2048), torch.bfloat16, "f32"), ((4096, 2048), torch.bfloat16,
                                             None),
     ((4096, 2048), torch.bfloat16, "x"), ((7, 130), torch.float32, "f32"),
     ((1, 1), torch.bfloat16, None)])
-@pytest.mark.parametrize("bits", [(8, 8), (6, 8), (4, 12)])
+@pytest.mark.parametrize("bits", [(8, 8), (6, 8), (4, 12), (16, 16)])
+@pytest.mark.parametrize("route", adc_dac.ROUTES)
 def test_converter_boundary_matches_plain_version(cuda_device, shape, dtype,
-                                                  noise, bits):
+                                                  noise, bits, route):
+    """Each route, bit-equal to the plain version: the wrapper's route for
+    these shapes is resident (asserted), the streamed one is taken
+    through the C entry point.  Without noise the resident route reads
+    its output from a table of DAC codes up to 12 bits, and computes it
+    at 16."""
     rng = np.random.default_rng(50)
     x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 1.2 - 0.1
                          ).to(device=cuda_device, dtype=dtype)
@@ -374,15 +437,95 @@ def test_converter_boundary_matches_plain_version(cuda_device, shape, dtype,
                                    dtype=torch.float32 if noise == "f32"
                                    else dtype)
     dac, adc = bits
+    kw = dict(dac_bits=dac, adc_bits=adc, noise_std=0.02)
+    got = _boundary(x, nz, "wrapper" if route == "resident" else route, **kw)
+    if route == "resident":
+        assert adc_dac.converter_boundary.launches_by_route == {
+            "resident": 1, "streamed": 0}
+    _assert_bit_equal(got, adc_dac.converter_boundary_plain(x, nz, **kw))
+
+
+_SPECIALS = ["nan in x", "nan in noise", "+inf in x", "-inf in x",
+             "inf in noise", "all negative"]
+
+
+@pytest.mark.parametrize("case", _SPECIALS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", adc_dac.ROUTES)
+def test_converter_boundary_keeps_nan_and_inf(cuda_device, case, dtype,
+                                             route):
+    """NaN where the plain version (and the reference) has it: a NaN or
+    +inf in x makes the scale NaN or inf and every element NaN, a NaN in
+    the noise its own element; an all-negative x takes the floor 1e-20
+    in x's dtype."""
+    rng = np.random.default_rng(51)
+    x = rng.random((300, 1000), dtype=np.float32) * 1.2 - 0.1
+    nz = rng.standard_normal(x.shape).astype(np.float32)
+    where = (slice(None, None, 5), slice(3, None, 7))
+    if case == "all negative":
+        x = -x - 0.2
+    elif case.endswith("in x"):
+        x[where] = {"nan": np.nan, "+inf": np.inf,
+                    "-inf": -np.inf}[case.split()[0]]
+    elif case == "nan in noise":
+        nz[where] = np.nan
+    else:
+        nz[where] = -np.inf
+        nz[1::4, ::3] = np.inf
+    x = torch.from_numpy(x).to(device=cuda_device, dtype=dtype)
+    nz = torch.from_numpy(nz).to(cuda_device)
+    kw = dict(dac_bits=6, adc_bits=8, noise_std=0.02)
+    got = _boundary(x, nz, "wrapper" if route == "resident" else route, **kw)
+    want = adc_dac.converter_boundary_plain(x, nz, **kw)
+    _assert_bit_equal(got, want)
+    assert bool(want.isnan().any()) == (case in ("nan in x", "+inf in x",
+                                                 "nan in noise"))
+
+
+@pytest.mark.parametrize("route", adc_dac.ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False])
+def test_converter_boundary_takes_misaligned_views(cuda_device, route, dtype,
+                                                   noisy):
+    """x and noise 4 (2) bytes past a 16-byte boundary: both routes run
+    their scalar loops, with the same bits."""
+    rng = np.random.default_rng(52)
+    shape = (257, 1031)
+    x = _misaligned(torch.from_numpy(rng.random(shape, dtype=np.float32))
+                    .to(device=cuda_device, dtype=dtype))
+    nz = _misaligned(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device)) if noisy else None
+    assert x.data_ptr() % 16 and (nz is None or nz.data_ptr() % 16)
+    kw = dict(dac_bits=8, adc_bits=8, noise_std=0.02)
+    got = _boundary(x, nz, "wrapper" if route == "resident" else route, **kw)
+    _assert_bit_equal(got, adc_dac.converter_boundary_plain(x, nz, **kw))
+
+
+def test_converter_boundary_routes_by_size_and_counts(cuda_device):
+    """(2048, 2048) f32 holds on chip: one call, one launch of the
+    resident kernel; (4096, 2048) f32 (32 MiB) does not: the streamed
+    route.  Each call is counted once, under its route."""
+    gen = torch.Generator(device=cuda_device).manual_seed(53)
     adc_dac.reset_launches()
-    got = adc_dac.converter_boundary(x, nz, dac_bits=dac, adc_bits=adc,
-                                     noise_std=0.02)
-    want = adc_dac.converter_boundary_plain(x, nz, dac_bits=dac,
-                                            adc_bits=adc, noise_std=0.02)
-    torch.cuda.synchronize()
-    assert adc_dac.converter_boundary.launches == 1 and got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-6,
-                               atol=1.5 / ((1 << adc) - 1))
+    for shape in ((2048, 2048), (4096, 2048), (2048, 2048)):
+        x = torch.rand(shape, generator=gen, device=cuda_device)
+        nz = torch.randn(shape, generator=gen, device=cuda_device)
+        got = adc_dac.converter_boundary(x, nz, noise_std=0.02)
+        _assert_bit_equal(got, adc_dac.converter_boundary_plain(
+            x, nz, noise_std=0.02))
+    assert adc_dac.converter_boundary.launches == 3
+    assert adc_dac.route(4096 * 2048, torch.float32,
+                         *adc_dac._limits(x.device)) == "streamed"
+    assert adc_dac.converter_boundary.launches_by_route == {"resident": 2,
+                                                           "streamed": 1}
+
+
+def test_converter_boundary_raises_on_a_refused_launch(cuda_device):
+    """The resident route refuses an x larger than the card holds; the
+    launch raises and nothing falls back."""
+    x = torch.rand(4096, 2048, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        adc_dac._launch(x, None, torch.empty_like(x), "resident", 8, 8, 0.0)
 
 
 def _grads(fn, q, k, v, dout):

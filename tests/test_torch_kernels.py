@@ -15,6 +15,11 @@ bounds: 4 shapes x 3 (dac, adc) bit pairs with noise 0.02 at rtol 1e-6 /
 atol 1.5 ADC steps (fp association order can flip a round-to-nearest tie
 by one step), and float32 / bfloat16 in and out at 1e-2.
 
+NaN, infinities and all-negative inputs: the plain converter boundary
+and the DFT stages' DAC are held to ``repro.kernels.ref`` bit for bit
+(NaN in the same places), and to the reference's Pallas kernels at the
+bounds above with the same NaNs.
+
 The kernels themselves are held to these versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -289,8 +294,9 @@ def _rn32(x64: np.ndarray, above: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("bits", range(1, 24))
 def test_dac_quotient_is_the_ieee_quotient(bits):
-    """The tensor-core route's DAC takes c / l as d = c * (1 / l) corrected
-    once, fma(fma(-d, l, c), 1 / l, d) (csrc/optical_dft.cu: dac_fast), for
+    """The DFT tensor-core route's DAC and the converter boundary's DAC and
+    ADC take c / l as d = c * (1 / l) corrected once, fma(fma(-d, l, c),
+    1 / l, d) (csrc/optical_dft.cu: dac_fast, csrc/adc_dac.cu: quotient), for
     l = 2^bits - 1 < 2^23: the IEEE quotient for every code c = 0 .. l
     (each one up to 16 bits, a sample of 2^15 and the ends above)."""
     levels = (1 << bits) - 1
@@ -439,3 +445,111 @@ def test_converter_boundary_plain_is_the_oracle():
         tops.converter_boundary(x, nz[:, :5], noise_std=0.1)
     with pytest.raises(ValueError):
         tops.converter_boundary(x, dac_bits=0)
+
+
+# --- NaN, infinities and negative inputs against the reference ---------------
+#
+# jnp.clip and jnp.max keep NaN, and so must the port: its plain versions
+# (torch.clamp, torch.amax) and, on the card, its kernels' clips
+# (csrc/hopper.cuh: unit_clip) and max.  The plain converter boundary
+# computes the oracle's operations in its order, so it is held to
+# ``repro.kernels.ref`` bit for bit; the reference's Pallas kernel
+# (interpret mode) rounds some steps otherwise, so it is held to the same
+# NaN positions and, elsewhere, to the bounds above.
+
+_SPECIALS = ["nan in x", "nan in noise", "+inf in x", "-inf in x",
+             "inf in noise", "all negative"]
+
+
+def _special_inputs(case, shape):
+    rng = np.random.default_rng(40)
+    x = rng.random(shape, dtype=np.float32) * 1.2 - 0.1
+    nz = rng.standard_normal(shape).astype(np.float32)
+    where = (slice(None, None, 5), slice(3, None, 7))
+    if case == "all negative":
+        x = -x - 0.2
+    elif case.endswith("in x"):
+        x[where] = {"nan": np.nan, "+inf": np.inf,
+                    "-inf": -np.inf}[case.split()[0]]
+    elif case == "nan in noise":
+        nz[where] = np.nan
+    else:
+        nz[where] = -np.inf
+        nz[1::4, ::3] = np.inf
+    return x, nz
+
+
+def _equal_nan(got, want, rtol=0.0, atol=0.0):
+    got, want = (torch.as_tensor(np.array(t)) for t in (got, want))
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("case", _SPECIALS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converter_boundary_keeps_nan_and_inf_as_reference(case, dtype):
+    x, nz = _special_inputs(case, (16, 128))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    kw = dict(dac_bits=6, adc_bits=8, noise_std=0.02)
+    got = tops.converter_boundary(tx, torch.from_numpy(nz), **kw).float()
+    want = jref.converter_boundary_ref(jx, jnp.asarray(nz), **kw)
+    _equal_nan(got, want.astype(jnp.float32))
+    kern = jops.converter_boundary(jx, jnp.asarray(nz), **kw)
+    bound = (1e-6, 1.5 / 255) if dtype == "float32" else (1e-2, 1e-2)
+    _equal_nan(got, kern.astype(jnp.float32), *bound)
+    # a NaN x or an infinite max (s = inf, 0 * s) makes every element NaN
+    nans = {"nan in x": "all", "+inf in x": "all", "nan in noise": "some"}
+    assert {"all": bool(got.isnan().all()), "some": bool(got.isnan().any())
+            and not bool(got.isnan().all()), None: not bool(
+                got.isnan().any())}[nans.get(case)]
+
+
+@pytest.mark.parametrize("case", ["nan", "+inf", "-inf", "all negative"])
+def test_dft_dac_keeps_nan_and_clips_inf_as_reference(case):
+    """Through stage 1 with W = I, T is the DAC's output exactly, and a
+    column of A with a NaN is NaN (0 * NaN): the oracle gives the same
+    bits, the reference's Pallas kernel (whose quotient by the levels is
+    off by an ulp in interpret mode) the same NaNs within stage 1's
+    bounds.  The whole pipeline: a NaN pixel makes the frame NaN, an
+    infinite one is clipped."""
+    a = _rand(41, (64, 64)) * 1.2 - 0.1
+    if case == "all negative":
+        a = -a - 0.2
+    else:
+        a[::9, 5::11] = {"nan": np.nan, "+inf": np.inf, "-inf": -np.inf}[case]
+    eye = np.eye(64, dtype=np.float32)
+    ops = tuple(map(jnp.asarray, (eye, np.zeros_like(eye), a)))
+    tr, ti = tops.dft_stage1(*(torch.from_numpy(np.array(t)) for t in ops),
+                             dac_bits=6)
+    for want, bound in ((jref.dft_stage1_ref(*ops, dac_bits=6), (0.0, 0.0)),
+                        (jops.dft_stage1(*ops, dac_bits=6), (1e-4, 1e-5))):
+        _equal_nan(tr, want[0], *bound)
+        _equal_nan(ti, want[1], *bound)
+    got = tops.optical_dft2_intensity(torch.from_numpy(a), dac_bits=6)
+    want = jref.optical_dft2_intensity_ref(jnp.asarray(a), dac_bits=6)
+    assert torch.equal(got.isnan(), torch.from_numpy(np.isnan(want)))
+    assert bool(got.isnan().all()) == (case == "nan")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_boundary_route_is_resident_up_to_the_cards_shared_memory(dtype,
+                                                                   sm_count):
+    """One CTA per SM holds ceil(numel / SMs) elements, rounded up to 8,
+    in the 227 KB a block may opt in to less the kernel's 1 KB of static
+    shared memory and its 16 KB table: up to there the route is
+    resident, one element more and it is streamed."""
+    smem = 232448                      # an H100's opt-in per block
+    per_cta = (smem - 1024 - 16384) // dtype.itemsize // 8 * 8
+    most = per_cta * sm_count
+    assert adc_dac.route(most, dtype, sm_count, smem) == "resident"
+    assert adc_dac.route(most + 1, dtype, sm_count, smem) == "streamed"
+    assert adc_dac.route(1, dtype, sm_count, smem) == "resident"
+    # chip_smoke.py's cases: 16 MiB of x each
+    assert adc_dac.route(2048 * 2048, torch.float32, sm_count,
+                         smem) == "resident"
+    assert adc_dac.route(4096 * 2048, torch.bfloat16, sm_count,
+                         smem) == "resident"
+    assert adc_dac.route(8 * most, dtype, sm_count, smem) == "streamed"
