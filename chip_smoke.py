@@ -26,7 +26,16 @@ and read just after:
 * the converter boundary's entry point ``ops.converter_boundary`` on a
   2048x2048 float32 SLM frame and a 4096x2048 bfloat16 activation, with
   and without noise: one launch of its resident route a call, that route
-  and the streamed one bit-equal to the plain version.
+  and the streamed one bit-equal to the plain version;
+* the sharded runtime: the offload path's 16 frames through
+  ``OffloadExecutor(n_devices=4, default_backend="sharded")``, bit-equal
+  to the unsharded flush with every DFT launch on the tensor-core route;
+  a frame-sharded conv of one 2560x2048 frame (larger than the SLM); a
+  seeded chaos run (``register_chaos("sharded", rate=0.3, seed=0)``)
+  under a ``ManualClock`` in which every frame retires; and a traced
+  sharded flush written with ``write_trace`` and reconciled.  With one
+  card the four logical devices run in turn on it; with four or more,
+  each shard goes to a card of its own.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -79,6 +88,14 @@ TRAIN_BATCH = 4
 TRAIN_SEQ = 1024
 TRAIN_STEPS = 5          # 1 warm-up step + 4 timed
 TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+# the sharded runtime: 4 logical devices; one conv frame larger than
+# BATCHED_4F's 2048^2 aperture; chaos flushes until every injected kind
+# has shown up (at most CHAOS_FLUSHES)
+SHARDS = 4
+FRAME_SHARDED = (2560, 2048)
+CHAOS_FLUSHES = 12
+TRACE_DIR = Path(__file__).resolve().parent / "build"
 
 # the converter boundary: one BATCHED_4F SLM frame (2048^2, float32) and
 # stablelm-1.6b's activation at the training batch (4 x 1024 tokens x 2048)
@@ -410,6 +427,16 @@ def phase_kernels(od, dev, tile_k: int) -> dict[str, float]:
 
 # --- phase 3: the main path ---------------------------------------------------
 
+DFT_STAGES = ("dft_stage1_batched", "dft_stage2_batched")
+
+
+def dft_counts(od) -> tuple[dict, dict]:
+    """Each DFT stage's launches and launches by route since the last
+    ``od.reset_launches()``."""
+    return ({n: getattr(od, n).launches for n in DFT_STAGES},
+            {n: dict(getattr(od, n).launches_by_route) for n in DFT_STAGES})
+
+
 
 def conv_stack(router, imgs, kernels):
     """The example's 3-layer circular-conv + relu stack."""
@@ -441,10 +468,7 @@ def phase_main_path(rt, od, dev) -> dict:
     for h in handles:
         h.wait()
     wall_s = time.perf_counter() - t0
-    launches = {"dft_stage1_batched": od.dft_stage1_batched.launches,
-                "dft_stage2_batched": od.dft_stage2_batched.launches}
-    by_route = {name: dict(getattr(od, name).launches_by_route)
-                for name in launches}
+    launches, by_route = dft_counts(od)
     print(f"  budget {ex.mem_budget}, tile_k {tile}, launches {launches}, "
           f"by route {by_route}, flush wall {wall_s * 1e3:.3f} ms")
     for name, n in launches.items():
@@ -496,7 +520,10 @@ def phase_main_path(rt, od, dev) -> dict:
     walls = [flush() for _ in range(9)]  # repeat flushes, not counted
     profiled = profile_flush(flush)
     ex.close()
-    return {"launches": launches, "launches_by_route": by_route,
+    # phase 8 holds the sharded flush to these frames, bit for bit
+    return {"_frames": frames, "_values": [h.value for h in handles],
+            "_hosts": [r.value for r in hosts],
+            "launches": launches, "launches_by_route": by_route,
             "tile_k": tile, "budget_bytes": ex.mem_budget.bytes_limit,
             "budget_source": ex.mem_budget.source,
             "flush_wall_ms": wall_s * 1e3,
@@ -1495,6 +1522,271 @@ def phase_boundary(cb, ops, dev, card: str) -> dict:
             "noise_std": BOUNDARY_NOISE_STD, "at": rows}
 
 
+# --- phase 8: the sharded runtime ----------------------------------------------
+
+def timed_flush(ex, frames) -> tuple[float, list]:
+    t0 = time.perf_counter()
+    hs = [ex.submit("fft", x) for x in frames]
+    ex.flush_async()
+    for h in hs:
+        h.wait()
+    return (time.perf_counter() - t0) * 1e3, hs
+
+
+def sharded_flush(rt, od, dev, frames, want) -> dict:
+    """The offload path's flush through the sharded backend (phase 3's
+    spec, group, window and budget), bit-equal to phase 3's frames, then
+    its wall and device time beside the unsharded flush's, in turns."""
+    from repro_torch.distributed.sharding import shard_devices
+    spec = rt.BATCHED_4F
+    ex = rt.OffloadExecutor(spec, max_batch=FRAMES, pipeline_depth=2,
+                            n_devices=SHARDS, default_backend="sharded")
+    placed = shard_devices(SHARDS, ex.device) is not None
+    route = ("placed: one card per shard" if placed else
+             f"sequential: {SHARDS} logical devices in turn on {ex.device}")
+    tile = ex.resolve_tile_k("fft", frames[0], FRAMES)
+    ex.warm("fft", frames[0], batch=FRAMES)
+    torch.cuda.synchronize()
+
+    od.reset_launches()
+    wall_ms, hs = timed_flush(ex, frames)
+    launches, by_route = dft_counts(od)
+    print(f"  route {route}; tile_k {tile}; launches {launches}, by route "
+          f"{by_route}; first sharded flush wall {wall_ms:.3f} ms")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the sharded path")
+        check(by_route[name] == {"tensor_core": n, "fma": 0},
+              f"{name}: a sharded launch left the tensor-core route: "
+              f"{by_route[name]}")
+    for i, (h, w) in enumerate(zip(hs, want)):
+        check(h.value.device == dev and h.backend == "sharded",
+              f"frame {i}: on {h.value.device}, served by {h.backend}")
+        check(torch.equal(h.value, w),
+              f"frame {i}: the sharded flush differs from the unsharded "
+              f"one by {float((h.value - w).abs().max()):.3e}")
+    observed = ex.telemetry.devices_observed("fft")
+    check(observed == min(SHARDS, tile),
+          f"{observed} devices observed, {min(SHARDS, tile)} expected")
+    per_device = ex.telemetry.device_samples("fft")
+    print(f"  bit-equal to phase 3's frames; per-device samples "
+          f"{per_device}")
+
+    single = rt.OffloadExecutor(spec, max_batch=FRAMES, pipeline_depth=2)
+    single.warm("fft", frames[0], backend="optical-sim", batch=FRAMES)
+    walls = {"unsharded": [], "sharded": []}
+    for name in ("unsharded", "sharded", "sharded", "unsharded"):
+        run = single if name == "unsharded" else ex
+        walls[name] += [timed_flush(run, frames)[0] for _ in range(5)]
+    profiled = {name: profile_flush(
+        lambda run=run: timed_flush(run, frames)[0], f"{name} flush")
+        for name, run in (("unsharded", single), ("sharded", ex))}
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"  repeat flush walls (10 each, in turns): unsharded median "
+          f"{med['unsharded']:.3f} ms, sharded {med['sharded']:.3f} ms")
+    ex.close()
+    single.close()
+    return {"route": route, "placed": placed, "tile_k": tile,
+            "launches": launches, "launches_by_route": by_route,
+            "devices_observed": observed,
+            "per_device_samples": {str(k): v for k, v in per_device.items()},
+            "first_flush_wall_ms": wall_ms, "repeat_walls_ms": walls,
+            "repeat_wall_median_ms": med, "profiled": profiled}
+
+
+def conv_kernel(shape) -> np.ndarray:
+    """A 5x5 kernel and two wrap-around rows, so a row tile needs halo
+    rows above and below it."""
+    rng = np.random.default_rng(SEED + 8)
+    k = np.zeros(shape, np.float32)
+    k[:5, :5] = 0.04 * rng.standard_normal((5, 5)).astype(np.float32)
+    k[0, 0] += 0.5
+    k[-1, 1], k[-2, 0] = 0.15, 0.1
+    return k
+
+
+def frame_sharded_conv(rt, dev) -> dict:
+    """One conv frame larger than the SLM's aperture, row-tiled over the
+    devices by overlap-save (``shard_mode`` auto picks frame sharding):
+    ``sharded-host`` against the unsharded host conv at the reference's
+    frame-sharding bound of the ``host`` backend (rtol 1e-4, atol 1e-5);
+    ``sharded`` (the optical simulator, each tile's detector
+    auto-exposing its own rows) against the host conv within the ENOB
+    bound the fidelity shadow applies.  The reference's 2 % bound between
+    sharded and unsharded optical conv holds at its tests' frame sizes; at
+    this size the two differ by ~9 %, each within the ENOB bound of the
+    host's (the unsharded ~8 %, the sharded ~5 %)."""
+    spec = rt.BATCHED_4F
+    check(FRAME_SHARDED[0] * FRAME_SHARDED[1] > spec.usable_pixels,
+          "the frame-sharded conv's frame fits the aperture")
+    rng = np.random.default_rng(SEED + 9)
+    frame = rng_frames(rng, FRAME_SHARDED, dev)
+    kernel = torch.from_numpy(conv_kernel(FRAME_SHARDED)).to(dev)
+    out = {}
+    for backend, single in (("sharded-host", "host"),
+                            ("sharded", "optical-sim")):
+        ex = rt.OffloadExecutor(spec, max_batch=1, n_devices=SHARDS,
+                                default_backend=backend)
+        ex.warm("conv", frame, kernel=kernel, batch=1)
+        ex.warm("conv", frame, kernel=kernel, backend=single, batch=1)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ex.run("conv", frame, kernel=kernel)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        want = ex.run("conv", frame, kernel=kernel, backend=single)
+        host = ex.run("conv", frame, kernel=kernel, backend="host")
+        samples = ex.telemetry.device_samples("conv")
+        check(len(samples) == SHARDS and got.shape == FRAME_SHARDED
+              and bool(torch.isfinite(got).all()),
+              f"{backend}: {len(samples)} devices, shape "
+              f"{tuple(got.shape)}")
+        if backend == "sharded-host":
+            err = max_violation(got, want, 1e-4, 1e-5)
+            check(err <= 0.0, f"{backend}: {err:.3e} past rtol 1e-4, "
+                  "atol 1e-5 of the unsharded host conv")
+            bound = "rtol 1e-4, atol 1e-5"
+            err = float((got - want).abs().max())
+        else:
+            enob = min(spec.dac.effective_bits, spec.adc.effective_bits)
+            report = rt.FidelityChecker().check("conv", backend, [got],
+                                                [host], enob=enob)
+            check(report.ok, f"{backend}: {report}")
+            bound = (f"vs host: relative norm {report.rel_err:.3e} within "
+                     f"the ENOB bound {report.bound:.3e}")
+            err = float((got - want).norm() / want.norm())
+        med = statistics.median(walls)
+        print(f"  frame-sharded conv {FRAME_SHARDED} on {backend}: wall "
+              f"median {med:.3f} ms (5 calls), vs {single}: "
+              f"{err:.3e} ({bound}); per-device samples {samples}")
+        out[backend] = {"walls_ms": walls, "wall_median_ms": med,
+                        "err_vs_unsharded": err, "bound": bound,
+                        "per_device_samples": {str(k): v for k, v in
+                                               samples.items()}}
+        ex.close()
+    return out
+
+
+def chaos_run(rt, dev, frames, want, hosts) -> dict:
+    """``register_chaos("sharded", rate=0.3, seed=0)`` under a ManualClock
+    with the fidelity shadow on, flush after flush (the clock moved on 1 s
+    between them, past every quarantine) until a device loss, a straggle
+    and a drift have each been injected.  Every frame retires: frames the
+    chaos backend served are bit-equal to phase 3's, frames the host
+    served (retry exhaustion, quarantine reroutes, drift corrected from
+    the shadow) equal the host backend's."""
+    spec = rt.BATCHED_4F
+    name = rt.register_chaos("sharded", rate=0.3, seed=0)
+    clk = rt.ManualClock()
+    ex = rt.OffloadExecutor(spec, default_backend=name, max_batch=FRAMES,
+                            pipeline_depth=2, n_devices=SHARDS, clock=clk,
+                            fidelity=rt.FidelityChecker())
+    ex.warm("fft", frames[0], batch=FRAMES)
+    served = {"chaos": 0, "host": 0}
+    walls, flushes = [], 0
+    counts = {}
+    while flushes < CHAOS_FLUSHES:
+        wall_ms, hs = timed_flush(ex, frames)
+        walls.append(wall_ms)
+        flushes += 1
+        for i, h in enumerate(hs):
+            v = h.value
+            check(h.ready and v is not None and v.shape == (SIDE, SIDE)
+                  and bool(torch.isfinite(v).all()),
+                  f"chaos flush {flushes}, frame {i} did not retire whole")
+            if h.backend == name:
+                check(torch.equal(v, want[i]), f"chaos flush {flushes}, "
+                      f"frame {i}: differs from the unfaulted flush")
+                served["chaos"] += 1
+            else:
+                check(h.backend == "host", f"served by {h.backend}")
+                top = float(hosts[i].abs().max())
+                err = float((v - hosts[i]).abs().max())
+                check(err <= 1e-5 * top, f"chaos flush {flushes}, frame "
+                      f"{i}: host-served {err:.3e} off the host's")
+                served["host"] += 1
+        counts = dict(ex.telemetry.fault_counts.get("fft", {}))
+        clk.advance(1.0)
+        if all(counts.get(k, 0) for k in ("device_loss", "straggle",
+                                          "drift")):
+            break
+    recovery = ex.telemetry.recovery_stats("fft")
+    events = [(str(e.key), e.reason) for e in ex.quarantine.events]
+    print(f"  chaos: {flushes} flushes of {FRAMES}, every frame retired "
+          f"({served}); faults {counts}; recovery {recovery} "
+          f"(ManualClock s: backoffs; a drift's recovery is the shadow's "
+          f"host time); quarantines {len(events)}; walls "
+          f"{[round(w, 3) for w in walls]} ms")
+    for k in ("device_loss", "straggle", "drift"):
+        check(counts.get(k, 0) > 0, f"no {k} fault in {flushes} flushes")
+    check(bool(ex.fidelity.violations("fft")),
+          "the fidelity shadow caught no drift")
+    ex.close()
+    return {"flushes": flushes, "served": served, "faults": counts,
+            "recovery": recovery, "quarantines": events,
+            "walls_ms": walls}
+
+
+def traced_flush(rt, dev, frames, want) -> dict:
+    """A traced sharded flush in tiles of ``SHARDS`` frames (so every
+    tile scatters over all four devices), written with ``write_trace``
+    under ``build/`` and loaded back: one named lane per device, and the
+    charged stage sums reconciled with the measured wall."""
+    import tempfile
+    spec = rt.BATCHED_4F
+    tracer = rt.Tracer()
+    ex = rt.OffloadExecutor(spec, max_batch=FRAMES, pipeline_depth=2,
+                            n_devices=SHARDS, default_backend="sharded",
+                            tile_k=SHARDS, tracer=tracer)
+    ex.warm("fft", frames[0], batch=FRAMES)
+    torch.cuda.synchronize()
+    tracer.clear()
+    hs = [ex.submit("fft", x) for x in frames]
+    t0 = time.perf_counter()       # the flush alone, as reconcile's gate
+    ex.flush()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for i, (h, w) in enumerate(zip(hs, want)):
+        check(torch.equal(h.value, w), f"traced flush, frame {i}: "
+              "differs from the unsharded flush")
+    spans = tracer.spans()
+    rec = rt.reconcile(spans, wall_ms / 1e3)
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR) as tmp:
+        path = Path(tmp) / "sharded_flush.json"
+        rt.write_trace(str(path), spans)
+        size = path.stat().st_size
+        loaded = json.loads(path.read_text())
+    lanes = [e["args"]["name"] for e in loaded["traceEvents"]
+             if e["ph"] == "M"]
+    # "device" is the executor's compute lane, "device<d>" a shard's
+    devices = sorted(la for la in lanes if la[6:].isdigit())
+    check(devices == [f"device{d}" for d in range(SHARDS)]
+          and len(lanes) == len(set(lanes)),
+          f"trace lanes {lanes}: not one named lane per device")
+    scatters = [s for s in spans if s.name == "scatter"]
+    print(f"  traced flush: wall {wall_ms:.3f} ms, {len(spans)} spans, "
+          f"{len(scatters)} scatter spans, trace {size} bytes, lanes "
+          f"{lanes}; reconcile coverage {rec['coverage']:.4f} (stage "
+          f"{rec['stage'] * 1e3:.3f} ms, compute {rec['compute'] * 1e3:.3f}"
+          f" ms)")
+    print("  " + rt.summarize(spans).replace("\n", "\n  "))
+    ex.close()
+    return {"wall_ms": wall_ms, "spans": len(spans), "lanes": lanes,
+            "trace_bytes": size,
+            "reconcile": {k: v for k, v in rec.items()}}
+
+
+def phase_sharded(rt, od, dev, main: dict, card: str) -> dict:
+    frames, want, hosts = (main.pop("_frames"), main.pop("_values"),
+                           main.pop("_hosts"))
+    return {"card": card,
+            "flush": sharded_flush(rt, od, dev, frames, want),
+            "frame_conv": frame_sharded_conv(rt, dev),
+            "chaos": chaos_run(rt, dev, frames, want, hosts),
+            "trace": traced_flush(rt, dev, frames, want)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1579,7 +1871,14 @@ def main() -> int:
 
     print("phase 7: converter boundary")
     rows.append(phase_boundary(cb, ops, dev, card))
+
+    print("phase 8: sharded runtime")
+    sharded = phase_sharded(rt, od, dev, main_run, card)
+    for row in rows[:2]:
+        row["launches_by_path"]["sharded"] = \
+            sharded["flush"]["launches"][row["name"]]
     print(json.dumps({"main_path": main_run}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"kernels": rows}))

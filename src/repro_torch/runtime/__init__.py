@@ -16,6 +16,14 @@ Module map (each mirrors its counterpart in ``repro.runtime``):
                dispatch), tiled against the memory budget, with retry /
                fallback / quarantine and opt-in operand residency.  Runs
                on the CUDA card unless built with ``device="cpu"``.
+  sharded    — ``ShardedOpticalBackend`` (``sharded`` / ``sharded-host`` /
+               ``sharded-ideal``): one invocation scattered over
+               ``n_devices`` simulated accelerators, by frame groups or by
+               overlap-save row tiles, priced max-over-devices.  One CUDA
+               card per shard when the machine has enough
+               (``distributed.sharding.shard_devices``); on one card or on
+               the CPU the shards run in turn on the executor's device
+               with identical numerics.
   telemetry  — ``RuntimeTelemetry``: measured per-category traffic emitted
                as ``CategoryProfile``s so ``plan_offload`` re-plans from it.
   fidelity   — ``FidelityChecker``: shadows optical-sim batches with the
@@ -29,12 +37,25 @@ Module map (each mirrors its counterpart in ``repro.runtime``):
                ``ManualClock`` makes admission deterministic in tests.
   router     — ``PlanRouter``: applies an ``OffloadPlan`` and closes the
                profile -> plan -> execute -> re-profile loop.
-  faults     — ``RetryPolicy``, ``DispatchWatchdog``, ``Quarantine``.
+  faults     — fault injection (``FaultSchedule``, ``ChaosBackend``,
+               ``register_chaos``: seeded errors, straggles, drift and
+               device loss, deterministic under a ``ManualClock``) and
+               handling (``RetryPolicy``, ``DispatchWatchdog``,
+               ``Quarantine``).
   tracing / metrics — opt-in span tracer, percentile metrics, drift report.
+  trace_export — Chrome/Perfetto ``trace_event`` JSON (``write_trace``),
+               one lane per device under sharded dispatch, and
+               ``reconcile`` (charged stage sums against a flush's wall).
   specs      — shared demo design points (``BATCHED_4F``).
 
-Not ported yet (later slices): ``trace_export``, ``sharded`` and the
-chaos backends of ``faults``.
+The sharded, chaos and trace paths run the same on the CPU
+(``device="cpu"``) and on the card::
+
+    ex = OffloadExecutor(BATCHED_4F, n_devices=4,
+                         default_backend="sharded", tracer=Tracer())
+    name = register_chaos("sharded", rate=0.3, seed=0)  # a chaos backend
+    ...
+    write_trace("flush.json", ex.tracer.spans())        # open in Perfetto
 
 Quick start::
 
@@ -61,13 +82,18 @@ from repro_torch.runtime.backends import (
 )
 from repro_torch.runtime.executor import OffloadExecutor, OffloadResult
 from repro_torch.runtime.faults import (
+    ChaosBackend,
+    DeviceLostError,
     DispatchWatchdog,
+    Fault,
     FaultError,
+    FaultSchedule,
     Quarantine,
     QuarantineEvent,
     RetryPolicy,
     TransientDispatchError,
     advance_or_sleep,
+    register_chaos,
 )
 from repro_torch.runtime.fidelity import (FidelityChecker, FidelityReport,
                                           enob_error_bound)
@@ -88,6 +114,8 @@ from repro_torch.runtime.residency import (
 )
 from repro_torch.runtime.router import PlanRouter
 from repro_torch.runtime.scheduler import ManualClock, OffloadScheduler
+from repro_torch.runtime.sharded import (ShardedOpticalBackend, kernel_halo,
+                                         shard_sizes)
 from repro_torch.runtime.specs import BATCHED_4F, CAMERA_ADC, SLM_DAC
 from repro_torch.runtime.telemetry import (
     BackendStats,
@@ -104,6 +132,13 @@ from repro_torch.runtime.tiling import (
     choose_tile,
     tile_sizes,
 )
+from repro_torch.runtime.trace_export import (
+    reconcile,
+    stage_sums,
+    summarize,
+    to_trace_events,
+    write_trace,
+)
 from repro_torch.runtime.tracing import Span, Tracer
 
 __all__ = [
@@ -119,13 +154,18 @@ __all__ = [
     "register_backend",
     "OffloadExecutor",
     "OffloadResult",
+    "ChaosBackend",
+    "DeviceLostError",
     "DispatchWatchdog",
+    "Fault",
     "FaultError",
+    "FaultSchedule",
     "Quarantine",
     "QuarantineEvent",
     "RetryPolicy",
     "TransientDispatchError",
     "advance_or_sleep",
+    "register_chaos",
     "FidelityChecker",
     "FidelityReport",
     "enob_error_bound",
@@ -143,6 +183,9 @@ __all__ = [
     "PlanRouter",
     "ManualClock",
     "OffloadScheduler",
+    "ShardedOpticalBackend",
+    "kernel_halo",
+    "shard_sizes",
     "BATCHED_4F",
     "CAMERA_ADC",
     "SLM_DAC",
@@ -159,4 +202,9 @@ __all__ = [
     "tile_sizes",
     "Span",
     "Tracer",
+    "reconcile",
+    "stage_sums",
+    "summarize",
+    "to_trace_events",
+    "write_trace",
 ]

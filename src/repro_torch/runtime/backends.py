@@ -44,6 +44,7 @@ import abc
 import dataclasses
 import hashlib
 import math
+import time
 from typing import Callable, Sequence
 
 import numpy as np
@@ -109,6 +110,13 @@ class BackendContext:
     per-dispatch (and ``warm()`` mirrors the same write) from the
     dispatched category's per-engine pipeline window.
 
+    ``n_devices`` is how many replicated simulated accelerators the sharded
+    backend scatters one invocation across (the executor writes the
+    per-category effective count here before every dispatch — and before
+    ``warm`` — so sharded dispatch shapes are primed consistently);
+    ``shard_mode`` picks between group sharding, frame sharding, and the
+    automatic policy (see ``repro_torch.runtime.sharded``).
+
     ``mem_budget`` is the staging byte budget
     (``repro_torch.runtime.tiling.MemoryBudget``): the executor tiles
     flush groups against it, and the optical backend resolves the DFT
@@ -122,20 +130,48 @@ class BackendContext:
     mask_cache: dict[tuple, torch.Tensor] = \
         dataclasses.field(default_factory=dict)
     pipeline_depth: int = 2
+    n_devices: int = 1
+    shard_mode: str = "auto"
     mem_budget: "MemoryBudget | None" = None
     block_cache: dict[tuple, "BlockPlan"] = \
         dataclasses.field(default_factory=dict)
     # id -> (operand, its _version when hashed, content key)
     _digest_memo: dict[int, tuple] = dataclasses.field(default_factory=dict)
-    # The owning executor's tracer (None = tracing off); the residency
-    # cache emits ``cache`` instants through it.
+    # The owning executor's tracer (None = tracing off).  The residency
+    # cache emits ``cache`` instants through it, and the sharded backend
+    # its per-device scatter/gather spans, which nest under the
+    # executor's stage span via the tracer's lexical stack.
     tracer: "object | None" = None
-    # The owning executor's RuntimeTelemetry (residency/delta counters).
+    # The owning executor's timebase (``ManualClock`` in deterministic
+    # tests/benches, ``time.perf_counter`` live).  Fault-aware backends
+    # sleep injected straggles and stamp quarantine windows through it so
+    # the whole fault story replays bit-identically under a manual clock.
+    clock: "Callable[[], float]" = time.perf_counter
+    # Devices declared lost for the *current* dispatch only (chaos
+    # injection): the sharded backend's shard on a lost device raises
+    # DeviceLostError and recovers on a survivor.  Cleared by the injector.
+    lost_devices: frozenset = frozenset()
+    # Fault-handling collaborators (duck-typed like ``tracer`` to keep
+    # backends importable without the faults/telemetry modules): the
+    # executor's Quarantine (sharded dispatch skips quarantined devices and
+    # records new exclusions here) and its DispatchWatchdog (per-device
+    # straggler deadlines).
+    quarantine: "object | None" = None
+    watchdog: "object | None" = None
+    # The owning executor's RuntimeTelemetry (residency/delta/fault
+    # counters).
     telemetry: "object | None" = None
     # The owning executor's operand residency cache
     # (``repro_torch.runtime.residency.ResidencyCache``), or None for the
     # stage-every-flush behavior.
     residency: "object | None" = None
+    # Which physical write stream ``stage_group`` is staging into: "host"
+    # for the staged-stack path, ("device", d) when the sharded backend
+    # runs the inner backend against one device's sub-group.  Delta
+    # classification keys its per-slot code signatures by this, so two
+    # devices' same-shaped sub-groups never diff against each other's
+    # staged codes.
+    stage_stream: "object" = "host"
 
     def blocks_for(self, batch: int, h: int, w: int) -> "BlockPlan":
         """Resolved block plan for a ``(batch, h, w)`` stacked DFT
@@ -150,18 +186,23 @@ class BackendContext:
             self.block_cache[key] = choose_blocks(batch, h, w, w, budget)
         return self.block_cache[key]
 
-    def factors(self, n: int,
-                blocks: tuple = ()) -> tuple[torch.Tensor, torch.Tensor]:
-        """The unitary DFT factors of size ``n`` on the context's device.
-        The key carries the block plan they are used under, as the
-        reference's does; the values depend only on n, so every layout
-        entry aliases one shared pair."""
-        key = (n,) + tuple(blocks)
+    def factors(self, n: int, blocks: tuple = (),
+                device: torch.device | None = None,
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The unitary DFT factors of size ``n`` on ``device`` (the
+        context's by default).  The key carries the block plan they are
+        used under, as the reference's does; the values depend only on n,
+        so every layout entry aliases one shared pair.  A shard placed on
+        another card gets its own pair there, keyed by that device, so no
+        kernel is handed factors that live on a different card."""
+        dev = () if device is None or device == self.device \
+            else (str(device),)
+        key = (n,) + tuple(blocks) + dev
         if key not in self.factor_cache:
-            base = self.factor_cache.get((n,))
+            base = self.factor_cache.get((n,) + dev)
             if base is None:
-                base = dft_matrix_factors(n, device=self.device)
-                self.factor_cache[(n,)] = base
+                base = dft_matrix_factors(n, device=device or self.device)
+                self.factor_cache[(n,) + dev] = base
             self.factor_cache[key] = base
         return self.factor_cache[key]
 
@@ -253,8 +294,11 @@ def stage_group(category: str, xs: Sequence[torch.Tensor],
     partial write.  On a group miss each frame is classified against the
     operand last staged into its dispatch slot (the host write stream +
     category + shape + position, via
-    ``ResidencyCache.classify_operand``).  With no cache attached this is
-    exactly ``torch.stack`` (or the host's single-item expand).
+    ``ResidencyCache.classify_operand``; the write stream is the context's
+    ``stage_stream``).  With no cache attached this is exactly
+    ``torch.stack`` (or the host's single-item expand).  A cached stack
+    that lives on another device than the group (a shard placed on
+    another card) is a miss.
     """
     res = ctx.residency
     if res is None:
@@ -263,7 +307,7 @@ def stage_group(category: str, xs: Sequence[torch.Tensor],
         return torch.stack(list(xs)), 0, ()
     key = residency_key(ctx, xs, "frame")
     stack = res.lookup("host", key, category=category, ctx=ctx)
-    if stack is not None:
+    if stack is not None and stack.device == xs[0].device:
         return stack, len(xs), ()
     if single_expand and len(xs) == 1:
         stack = xs[0].unsqueeze(0)
@@ -277,8 +321,9 @@ def stage_group(category: str, xs: Sequence[torch.Tensor],
     op = key[1]
     resident = 0
     deltas: list[float] = []
+    stream = ctx.stage_stream
     for i, ck in enumerate(key[2]):
-        slot = ("host", category, "frame", op, shape_sig, i)
+        slot = (stream, category, "frame", op, shape_sig, i)
         label, scale = res.classify_operand(slot, ck, xs[i], ctx.spec,
                                             category=category, ctx=ctx)
         if label == "hit":
@@ -318,6 +363,10 @@ def _host_circular_conv(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft2(torch.fft.fft2(a) * torch.fft.fft2(k)).real
 
 
+def _host_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return a @ w
+
+
 class HostBackend(ExecutionBackend):
     """Pure PyTorch execution; cost is whatever wall time the executor
     measures."""
@@ -331,7 +380,7 @@ class HostBackend(ExecutionBackend):
         elif category == "conv":
             out = _host_circular_conv(stack, kernel)
         elif category == "matmul":
-            out = stack @ weights
+            out = _host_matmul(stack, weights)
         else:
             raise ValueError(f"unknown category {category!r}")
         return list(out), None
@@ -346,7 +395,10 @@ def conv_range_map(stack: torch.Tensor,
     aperture: the DAC's full-scale range is fixed and the SLM cannot encode
     negative amplitudes.  Conv is linear, so the map undoes exactly:
     conv(s*v + lo) = s*conv(v) + lo*sum(kernel) (circular conv of a
-    constant plane is the kernel sum)."""
+    constant plane is the kernel sum).  Shared by the batched conv path and
+    the frame-sharded tiler — the two must use the SAME map (one grid of
+    DAC quantization points) or sharded results drift from unsharded ones.
+    """
     lo = torch.amin(stack, dim=(-2, -1), keepdim=True)
     hi = torch.amax(stack, dim=(-2, -1), keepdim=True)
     return lo, torch.clamp(hi - lo, min=1e-9)
@@ -400,8 +452,8 @@ class OpticalSimBackend(ExecutionBackend):
         # the block plan comes from the budget, as in the reference; the
         # kernels validate it and tile with their own compile-time blocks
         plan = ctx.blocks_for(batch, h, w)
-        whr, whi = ctx.factors(h, plan.key)
-        wwr, wwi = ctx.factors(w, plan.key)
+        whr, whi = ctx.factors(h, plan.key, stack.device)
+        wwr, wwi = ctx.factors(w, plan.key, stack.device)
         tr, ti = dft_stage1_batched(whr, whi, stack,
                                     dac_bits=ctx.spec.dac.bits,
                                     bb=plan.bb, bm=plan.bm,
@@ -478,7 +530,10 @@ class OpticalSimBackend(ExecutionBackend):
 
 
 def ideal_step_cost(spec, category: str, calls: int) -> StepCost:
-    """The zero-conversion analog bound for one invocation: physics only."""
+    """The zero-conversion analog bound for one invocation: physics only.
+
+    Shared by :class:`IdealBackend` and the sharded tiler's per-device
+    pricing so the Table-1 bound has exactly one definition."""
     if isinstance(spec, OpticalMVMAcceleratorSpec):
         analog = calls * spec.optical_pass_s
     else:

@@ -13,8 +13,9 @@ in the modeled price.
 Since the scheduler refactor, *flushing is a mechanism, not a policy*:
 ``flush``/``flush_async`` still drain the whole queue (the eager path), but
 the group-releasing primitive they are built on — :meth:`OffloadExecutor.release`
-— is public, and an attached admission-control scheduler (the
-reference's ``OffloadScheduler``; its port is a later slice) drives it selectively: partially filled groups stay queued ("held") across
+— is public, and an attached
+:class:`~repro_torch.runtime.scheduler.OffloadScheduler` drives it
+selectively: partially filled groups stay queued ("held") across
 scheduler passes until admission control says waiting can no longer raise
 occupancy.  Every submission is timestamped, so held groups know their age,
 telemetry knows the arrival process, and a group's queueing delay is priced
@@ -36,9 +37,11 @@ still in-flight groups lands at retire time (``drain`` / next flush /
 ``wait``).  On the CPU every result is ready the moment it is dispatched.
 
 The executor runs on one device, the CUDA card unless the caller passes
-``device="cpu"``; submitted operands are moved there.  Sharded dispatch
-over several devices, the admission-control scheduler and the chaos
-backends of the reference are not ported yet.
+``device="cpu"``; submitted operands are moved there, and every result
+comes back there.  With ``n_devices > 1`` the ``sharded`` backends
+scatter each invocation over that many logical devices
+(:mod:`repro_torch.runtime.sharded`): across as many CUDA cards when the
+machine has them, in turn on the executor's own device otherwise.
 
 Execution is recorded into :class:`RuntimeTelemetry` — call counts, sample
 counts, wall time, modeled cost — so ``telemetry.profiles()`` can re-enter
@@ -85,17 +88,18 @@ from repro_torch.runtime.tracing import Span, Tracer
 
 __all__ = ["OffloadResult", "OffloadExecutor"]
 
-# Backends whose batches carry quantization error worth shadow-scoring.
-_SHADOWED = ("optical-sim",)
-
-_LATER_SLICE = ("sharded dispatch (n_devices > 1, the 'sharded' backends) "
-                "is not ported yet: it lands with runtime/sharded.py in a "
-                "later slice of the PyTorch port")
+# Backends whose batches carry quantization error worth shadow-scoring (the
+# sharded backend's default inner is the optical simulator).
+_SHADOWED = ("optical-sim", "sharded")
 
 
 def _shadow_worthy(be: ExecutionBackend) -> bool:
-    """Whether ``be``'s batches deserve fidelity shadowing."""
-    return be.name in _SHADOWED
+    """Whether ``be``'s batches deserve fidelity shadowing.  Wrappers (the
+    chaos backend) expose the wrapped backend via ``inner_name`` so a
+    fault-injected optical backend is shadowed like the optical backend —
+    the drift faults it injects are exactly what the shadow must catch."""
+    return (be.name in _SHADOWED
+            or getattr(be, "inner_name", None) in _SHADOWED)
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -218,6 +222,7 @@ class _Inflight:
     t0: float
     dispatch_s: float  # host time spent staging + dispatching (be.run)
     event: "torch.cuda.Event | None" = None  # recorded after the dispatch
+    device_samples: list[tuple[int, int]] | None = None  # sharded dispatch
     shadow: bool = False  # fidelity shadow-scoring owed at retire
     hold_s: float = 0.0   # scheduler hold time priced into this invocation
     span: Span | None = None      # open invocation span (tracing on)
@@ -257,10 +262,16 @@ class OffloadExecutor:
         dispatching any invocation retires the globally oldest one
         regardless of engine.  The measured baseline per-engine windows
         are benched against.
-      n_devices: how many replicated simulated accelerators the reference's
-        ``sharded`` backend scatters each invocation across.  Only 1 is
-        supported until sharded dispatch is ported; more raises
-        ``NotImplementedError``.
+      n_devices: how many replicated simulated accelerators the
+        ``sharded`` backend scatters each invocation across.  A global
+        ceiling; per-category counts (``set_n_devices``) let the router
+        adapt the device fan-out per category, the same way
+        ``set_max_batch`` adapts coalescing depth.  Each logical device
+        is a CUDA card of its own when the machine has that many
+        (``repro_torch.distributed.sharding.shard_devices``); otherwise
+        the shards run in turn on ``device``, with identical numerics.
+      shard_mode: the sharded backend's split policy (``auto`` / ``group``
+        / ``frame`` — see ``repro_torch.runtime.sharded``).
       mem_budget: per-device staging byte budget
         (:class:`~repro_torch.runtime.tiling.MemoryBudget`).  ``None``
         (default) detects it for ``device``: L2-derived on a CUDA card,
@@ -296,7 +307,8 @@ class OffloadExecutor:
         pre-built :class:`ResidencyCache` to share one across executors.
         With a cache attached, repeat flushes of unchanged operands skip
         host staging and are priced read-side-only
-        (``batched_step_cost(resident_frames=...)``), and hit/miss/eviction
+        (``batched_step_cost(resident_frames=...)``), sharded dispatch
+        keeps per-device resident shard sets, and hit/miss/eviction
         counters land in telemetry (``residency_counts``) and the trace
         (``cache`` instants).
       device: where operands are staged and every backend computes.
@@ -305,7 +317,8 @@ class OffloadExecutor:
       tracer: optional :class:`~repro_torch.runtime.tracing.Tracer`.  When set,
         every dispatch emits a boundary-attributed span tree (submit ->
         held -> release -> invocation -> stage -> compute ->
-        fidelity-shadow) plus counters/histograms in ``tracer.metrics``.  The
+        fidelity-shadow, with per-device scatter children under sharded
+        dispatch) plus counters/histograms in ``tracer.metrics``.  The
         default ``None`` is a measured no-op: instrumentation sites guard
         on the attribute and add no dispatch work.  For exact span
         durations in tests, give the tracer the same manual clock as
@@ -325,6 +338,7 @@ class OffloadExecutor:
                  max_batch: int = 32,
                  pipeline_depth: int = 2,
                  n_devices: int = 1,
+                 shard_mode: str = "auto",
                  mem_budget: MemoryBudget | None = None,
                  tile_k: int | None = None,
                  shared_window: bool = False,
@@ -339,8 +353,8 @@ class OffloadExecutor:
             raise ValueError("pipeline_depth must be >= 1")
         if n_devices < 1:
             raise ValueError("n_devices must be >= 1")
-        if n_devices > 1 or default_backend.startswith("sharded"):
-            raise NotImplementedError(_LATER_SLICE)
+        if shard_mode not in ("auto", "group", "frame"):
+            raise ValueError("shard_mode must be 'auto', 'group' or 'frame'")
         if tile_k is not None and tile_k < 1:
             raise ValueError("tile_k must be >= 1")
         self.device = resolve_device(device)
@@ -348,7 +362,9 @@ class OffloadExecutor:
             mem_budget = MemoryBudget.detect(self.device)
         self.ctx = BackendContext(spec=spec, device=self.device,
                                   pipeline_depth=pipeline_depth,
-                                  mem_budget=mem_budget, tracer=tracer)
+                                  n_devices=n_devices, shard_mode=shard_mode,
+                                  mem_budget=mem_budget, tracer=tracer,
+                                  clock=clock)
         self.tracer = tracer
         self.default_backend = default_backend
         self.telemetry = telemetry or RuntimeTelemetry()
@@ -362,6 +378,10 @@ class OffloadExecutor:
             window=self.retry.straggler_window,
             floor_s=self.retry.straggler_floor_s,
             patience=self.retry.straggler_patience)
+        # fault-handling collaborators travel with the dispatch context so
+        # the sharded backend quarantines devices through the same policy
+        self.ctx.quarantine = self.quarantine
+        self.ctx.watchdog = self._watchdog
         self.ctx.telemetry = self.telemetry
         if residency is True:
             residency = ResidencyCache(mem_budget)
@@ -434,12 +454,9 @@ class OffloadExecutor:
 
     def set_n_devices(self, category: str, n: int) -> None:
         """Set a per-category sharded device count (the adaptive hook
-        ``PlanRouter.replan`` drives alongside ``set_max_batch``).  Only 1
-        until sharded dispatch is ported."""
+        ``PlanRouter.replan`` drives alongside ``set_max_batch``)."""
         if n < 1:
             raise ValueError("n_devices must be >= 1")
-        if n > 1:
-            raise NotImplementedError(_LATER_SLICE)
         self._category_n_devices[category] = n
 
     def category_n_devices(self) -> Mapping[str, int]:
@@ -521,8 +538,6 @@ class OffloadExecutor:
                   kernel: torch.Tensor | None,
                   weights: torch.Tensor | None) -> str:
         name = backend or self.default_backend
-        if name.startswith("sharded"):
-            raise NotImplementedError(_LATER_SLICE)
         be = self._backend(name)
         if not be.supports(category, self.ctx):
             raise ValueError(
@@ -662,6 +677,12 @@ class OffloadExecutor:
         ragged group tail (K % max_batch calls) still sets up on first
         encounter — call ``warm`` again with ``batch=tail`` when the tail
         size is known and the measurement window cannot tolerate it.
+
+        Sharded dispatch shapes are primed too: the per-category device
+        count is written into the context exactly as ``flush`` does it, so
+        a sharded backend warms the same per-device shard stacks (and conv
+        halo tiles) the first real sharded flush will dispatch, instead of
+        whatever stale device count the context last held.
         """
         x = self._to_device(x)
         kernel, weights = self._operand(kernel), self._operand(weights)
@@ -671,19 +692,25 @@ class OffloadExecutor:
             batch = self.max_batch_for(category)
         if batch < 1:
             raise ValueError("batch must be >= 1")
-        # the per-engine window depth is written for priming but must not
-        # leak into the shared context after the warm call: the context's
-        # pipeline depth feeds both the tile choice and the backends'
-        # modeled price, so warm primes the exact depth dispatch will run
-        # this category at, then restores it.
+        # the category fan-out and per-engine window depth are written for
+        # priming but must not leak into the shared context after the warm
+        # call: the context's pipeline depth feeds both the tile choice and
+        # the backends' modeled price, so warm primes the exact depth and
+        # device count dispatch will run this category at, then restores
+        # them.
+        saved_nd, self.ctx.n_devices = \
+            self.ctx.n_devices, self.n_devices_for(category)
         saved_pd, self.ctx.pipeline_depth = \
             self.ctx.pipeline_depth, self.pipeline_window_for(category)
         tile = self.resolve_tile_k(category, x, batch, weights=weights)
         # warm-up runs are not workload: suppress backend-side tracing so
-        # priming does not litter the trace with orphan spans, and the
-        # residency cache so priming stacks neither pollute the resident
-        # set nor skew the hit-rate ledger the router replans from
+        # priming does not litter the trace with orphan device spans, the
+        # straggler watchdog so first-call set-up time can never strike
+        # (let alone quarantine) a healthy device, and the residency cache
+        # so priming stacks neither pollute the resident set nor skew the
+        # hit-rate ledger the router replans from
         saved, self.ctx.tracer = self.ctx.tracer, None
+        saved_wd, self.ctx.watchdog = self.ctx.watchdog, None
         saved_res, self.ctx.residency = self.ctx.residency, None
         try:
             for b in sorted({1} | set(tile_sizes(batch, tile))):
@@ -692,8 +719,10 @@ class OffloadExecutor:
                 _block(_record_event(outs))
         finally:
             self.ctx.tracer = saved
+            self.ctx.watchdog = saved_wd
             self.ctx.residency = saved_res
             self.ctx.pipeline_depth = saved_pd
+            self.ctx.n_devices = saved_nd
 
     @property
     def pending(self) -> int:
@@ -864,6 +893,20 @@ class OffloadExecutor:
                                    weights=head.weights)
         start = 0
         sizes = tile_sizes(len(chunk), tile)
+        # Device-resident sharded dispatch: commit ONE sharded placement
+        # for the whole released chunk before tiling, so every tile's
+        # sub-stack routes through the same resident shards instead of
+        # re-scattering per tile (and repeat flushes of unchanged frames
+        # skip the host->device hop entirely).  Duck-typed: only backends
+        # that shard (and only with a residency cache attached) have the
+        # hook; without it dispatch is bit-identical to before.
+        commit = getattr(self._backend(head.backend),
+                         "commit_placement", None)
+        if commit is not None and self.ctx.residency is not None:
+            self.ctx.n_devices = self.n_devices_for(head.category)
+            commit(head.category, [p.x for p in chunk], self.ctx,
+                   kernel=head.kernel, weights=head.weights,
+                   tile_sizes=sizes)
         for t, size in enumerate(sizes):
             self._dispatch_invocation(chunk[start:start + size],
                                       reason=reason, parent=parent,
@@ -1016,9 +1059,10 @@ class OffloadExecutor:
         be = self._reroute_quarantined(head.category,
                                        self._backend(head.backend))
         xs = [p.x for p in chunk]
-        # per-engine window depth, written the same way warm() writes it
-        # (the context's depth feeds the backends' modeled pipeline
-        # collapse)
+        # per-category device fan-out and window depth, written the same
+        # way warm() writes them (the context's depth feeds the backends'
+        # modeled pipeline collapse)
+        self.ctx.n_devices = self.n_devices_for(head.category)
         self.ctx.pipeline_depth = depth
         # Queueing delay under admission control: age of the oldest
         # coalesced call at dispatch.  Only priced when a scheduler is in
@@ -1049,8 +1093,8 @@ class OffloadExecutor:
                                backend=head.backend).inc()
         t0 = time.perf_counter()
         if tr is not None:
-            # lexical: backend-side instants nest under the stage span via
-            # the tracer's stack
+            # lexical: backend-side spans (sharded per-device scatter /
+            # gather) nest under the stage span via the tracer's stack
             with tr.span("stage", lane="host", parent=inv,
                          batch=len(chunk), tile=tile):
                 outs, modeled, be = self._run_guarded(be, head, xs,
@@ -1063,6 +1107,8 @@ class OffloadExecutor:
         if inv is not None and be.name != head.backend:
             # graceful degradation happened: record who actually served it
             inv.annotate(served_backend=be.name)
+        take = getattr(be, "take_device_samples", None)
+        device_samples = take() if take is not None else None
         batch = len(chunk)
         if modeled is not None and hold_s > 0.0:
             # the modeled wall honestly prices the time this group spent
@@ -1093,7 +1139,8 @@ class OffloadExecutor:
                   and self.fidelity.should_check(head.category))
         inflight = _Inflight(chunk=chunk, be=be, outs=outs,
                              modeled=modeled, t0=t0, dispatch_s=dispatch_s,
-                             event=event, shadow=shadow,
+                             event=event, device_samples=device_samples,
+                             shadow=shadow,
                              hold_s=hold_s, span=inv,
                              t_stage_end=t_stage_end, wkey=wkey)
         if shadow:
@@ -1128,7 +1175,8 @@ class OffloadExecutor:
         self.telemetry.record(
             f.chunk[0].category, f.be.name, calls=batch,
             samples_in=samples_in, samples_out=samples_out, wall_s=wall,
-            modeled=f.modeled, bytes_in=bytes_in, bytes_out=bytes_out)
+            modeled=f.modeled, per_device=f.device_samples,
+            bytes_in=bytes_in, bytes_out=bytes_out)
         tr = self.tracer
         compute_end = 0.0
         if tr is not None and f.span is not None:

@@ -1,37 +1,67 @@
-"""Fault handling for the offload boundary (the executor-facing half).
+"""Fault injection + fault handling for the offload boundary.
 
 Real analog hardware makes the conversion boundary *unreliable*, not just
 expensive: converters drift out of their ENOB budget, apertures mis-range,
-links drop dispatches, devices stall or disappear.  This module holds the
-pieces :class:`~repro_torch.runtime.executor.OffloadExecutor` threads
-through every dispatch:
+links drop dispatches, devices stall or disappear.  This module gives the
+runtime both halves of that story:
 
-  :class:`FaultError`        the handleable fault hierarchy
-                             (:class:`TransientDispatchError`): anything
-                             else a
-                             backend raises is a programming error and
-                             propagates.
+**Injection** — :class:`ChaosBackend` wraps any registered backend and
+perturbs its dispatches according to a deterministic, seeded
+:class:`FaultSchedule`:
+
+  ``error``        the dispatch raises :class:`TransientDispatchError`
+                   before touching the inner backend (a dropped link
+                   handshake / failed launch).
+  ``straggle``     the dispatch completes but takes ``straggle_s`` longer
+                   (a slow host, a congested link) — injected through the
+                   executor's clock (``ManualClock.advance`` in tests, a
+                   real ``time.sleep`` otherwise), so straggler detection
+                   is exactly as deterministic as the clock.
+  ``drift``        the inner result is scaled by ``drift_gain`` on the
+                   result's own device (a DAC mis-range / detector
+                   drift): numerically wrong in a way only the
+                   :class:`~repro_torch.runtime.fidelity.FidelityChecker`
+                   shadow can catch.
+  ``device_loss``  under sharded dispatch (``ctx.n_devices > 1``) one
+                   logical device is marked lost via ``ctx.lost_devices``
+                   and the sharded backend's shard on it raises
+                   :class:`DeviceLostError` mid-scatter; unsharded, the
+                   whole dispatch raises it.
+
+**Handling** — the pieces
+:class:`~repro_torch.runtime.executor.OffloadExecutor` and
+:class:`~repro_torch.runtime.sharded.ShardedOpticalBackend` thread through
+every dispatch:
+
   :class:`RetryPolicy`       per-dispatch fault policy: max attempts,
                              exponential backoff with seeded jitter (slept
                              through the injected clock), the fallback
                              backend for graceful degradation, and the
                              straggler-deadline / quarantine-window knobs.
   :class:`DispatchWatchdog`  keyed :class:`TrailingMedianDeadline`
-                             detectors: a dispatch whose wall exceeds
+                             detectors (shared with the training runner's
+                             fault story): a dispatch whose wall exceeds
                              ``factor x max(trailing median, modeled
                              batched_step_cost wall, floor)`` is a
                              straggler.
   :class:`Quarantine`        time-windowed exclusion of failing devices
                              (``("device", d)``) and categories
                              (``("category", cat)``): quarantined keys are
-                             rerouted to the fallback backend; after the
-                             window a *probation* period follows —
-                             re-offending on probation doubles the next
-                             window, staying clean resets it.
+                             skipped by sharded scatter / rerouted to the
+                             fallback backend; after the window a
+                             *probation* period follows — re-offending on
+                             probation doubles the next window, staying
+                             clean resets it.
 
-The injection half of the reference (``ChaosBackend``, ``FaultSchedule``,
-``register_chaos``, ``DeviceLostError``) is not ported yet.  ``RetryPolicy`` keeps
-``random.Random(seed)`` so its jitter stream equals the reference's.
+The equivalence invariant under faults: every submitted frame retires, in
+submit order, with results equal to the fault-free run of the same backend
+(bit-for-bit on digital backends; frames served by the host fallback are
+bit-equal to the looped host baseline).  Faults change *when and where* a
+frame executes, never *what* it returns.
+
+Schedules draw from ``random.Random(seed)``, as the reference's do, so a
+seed gives the same fault sequence in both packages, fault by fault;
+``RetryPolicy``'s jitter stream is the reference's for the same reason.
 """
 
 from __future__ import annotations
@@ -39,19 +69,32 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
-from typing import Callable
+from typing import Callable, Mapping, Sequence
 
 from repro_torch.distributed.straggler import TrailingMedianDeadline
+from repro_torch.runtime.backends import (
+    BackendContext,
+    ExecutionBackend,
+    get_backend,
+    register_backend,
+)
 
 __all__ = [
+    "Fault",
     "FaultError",
     "TransientDispatchError",
+    "DeviceLostError",
+    "FaultSchedule",
+    "ChaosBackend",
+    "register_chaos",
     "RetryPolicy",
     "DispatchWatchdog",
     "QuarantineEvent",
     "Quarantine",
     "advance_or_sleep",
 ]
+
+FAULT_KINDS = ("error", "straggle", "drift", "device_loss")
 
 
 class FaultError(RuntimeError):
@@ -70,6 +113,16 @@ class TransientDispatchError(FaultError):
     kind = "error"
 
 
+class DeviceLostError(FaultError):
+    """A (logical) device disappeared mid-dispatch."""
+
+    kind = "device_loss"
+
+    def __init__(self, device: int, msg: str | None = None) -> None:
+        super().__init__(msg or f"device {device} lost mid-dispatch")
+        self.device = int(device)
+
+
 def advance_or_sleep(clock: Callable[[], float] | None, dt_s: float) -> None:
     """Let ``dt_s`` pass on whatever timebase the runtime runs on: a
     ``ManualClock`` is advanced (deterministic tests/benches — no real
@@ -81,6 +134,170 @@ def advance_or_sleep(clock: Callable[[], float] | None, dt_s: float) -> None:
         adv(dt_s)
     else:
         time.sleep(dt_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One injected fault: what goes wrong with one dispatch."""
+
+    kind: str                # one of FAULT_KINDS
+    delay_s: float = 0.0     # straggle: extra dispatch latency
+    gain: float = 1.0        # drift: multiplicative result corruption
+    device: int = 0          # device_loss: which logical device drops
+
+    def __post_init__(self) -> None:
+        if self.kind not in FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r}; "
+                             f"known: {FAULT_KINDS}")
+
+
+class FaultSchedule:
+    """Deterministic per-dispatch fault sequence.
+
+    Two authoring modes, composable:
+
+    * **seeded rate**: each dispatch draws from a ``random.Random(seed)``
+      stream; with probability ``rate`` it gets a fault of a uniformly
+      chosen kind from ``kinds``.  The draw sequence depends only on
+      ``(seed, dispatch index)``, so two identical runs fault identically.
+    * **scripted**: ``script={dispatch_index: Fault(...)}`` pins exact
+      faults to exact dispatches (the unit-test mode); scripted entries
+      take precedence over the rate draw at their index.
+
+    Schedules are stateful (they count dispatches); :meth:`fresh` returns
+    an unconsumed copy with the same parameters — the registration helper
+    hands every backend instantiation its own copy, so executors never
+    share (and therefore never race on) a draw stream.
+    """
+
+    def __init__(self, rate: float = 0.0, *, seed: int = 0,
+                 kinds: Sequence[str] = FAULT_KINDS,
+                 straggle_s: float = 0.25, drift_gain: float = 8.0,
+                 script: Mapping[int, Fault] | None = None) -> None:
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError("rate must be in [0, 1]")
+        for k in kinds:
+            if k not in FAULT_KINDS:
+                raise ValueError(f"unknown fault kind {k!r}")
+        self.rate = float(rate)
+        self.seed = int(seed)
+        self.kinds = tuple(kinds)
+        self.straggle_s = float(straggle_s)
+        self.drift_gain = float(drift_gain)
+        self.script = dict(script or {})
+        self.index = 0          # dispatches drawn so far
+        self.injected = 0       # faults actually handed out
+        self._rng = random.Random(self.seed)
+
+    def fresh(self) -> "FaultSchedule":
+        """An unconsumed copy: same parameters, rewound draw stream."""
+        return FaultSchedule(self.rate, seed=self.seed, kinds=self.kinds,
+                             straggle_s=self.straggle_s,
+                             drift_gain=self.drift_gain, script=self.script)
+
+    def draw(self) -> Fault | None:
+        """The fault (or None) for the next dispatch."""
+        i = self.index
+        self.index += 1
+        # the rate draw happens unconditionally so scripted entries do not
+        # shift the stream for later indices
+        hit = self.rate > 0.0 and self._rng.random() < self.rate
+        if i in self.script:
+            self.injected += 1
+            return self.script[i]
+        if not hit or not self.kinds:
+            return None
+        kind = self._rng.choice(self.kinds)
+        self.injected += 1
+        if kind == "straggle":
+            return Fault("straggle", delay_s=self.straggle_s)
+        if kind == "drift":
+            return Fault("drift", gain=self.drift_gain)
+        if kind == "device_loss":
+            return Fault("device_loss", device=self._rng.randrange(1 << 16))
+        return Fault("error")
+
+
+class ChaosBackend(ExecutionBackend):
+    """Any registered backend, with a :class:`FaultSchedule` between the
+    executor and it.
+
+    Transparent when the schedule draws nothing (same results, same
+    modeled cost, same device samples — the < 2% overhead contract);
+    otherwise the drawn fault is applied exactly as documented in the
+    module docstring.  ``inner_name`` exposes the wrapped backend's public
+    name so the executor's fidelity shadowing and quarantine rerouting
+    treat a chaos-wrapped optical backend like the optical backend itself.
+    """
+
+    def __init__(self, inner: str | ExecutionBackend = "optical-sim",
+                 schedule: FaultSchedule | None = None,
+                 name: str | None = None) -> None:
+        self.inner: ExecutionBackend = (get_backend(inner)
+                                        if isinstance(inner, str) else inner)
+        self.inner_name = self.inner.name
+        self.name = name or f"chaos-{self.inner.name}"
+        self.schedule = schedule or FaultSchedule()
+
+    def supports(self, category: str, ctx: BackendContext) -> bool:
+        return self.inner.supports(category, ctx)
+
+    def take_device_samples(self):
+        take = getattr(self.inner, "take_device_samples", None)
+        return take() if take is not None else None
+
+    def run(self, category, xs, ctx, *, kernel=None, weights=None):
+        fault = self.schedule.draw()
+        if fault is None:
+            return self.inner.run(category, xs, ctx, kernel=kernel,
+                                  weights=weights)
+        if fault.kind == "error":
+            raise TransientDispatchError(
+                f"injected dispatch fault (index {self.schedule.index - 1})")
+        if fault.kind == "device_loss":
+            n = max(1, int(getattr(ctx, "n_devices", 1)))
+            if n > 1:
+                # sharded dispatch: mark one logical device lost; the
+                # sharded backend's scatter loop raises DeviceLostError
+                # for the shard placed on it and recovers on a survivor
+                ctx.lost_devices = frozenset({fault.device % n})
+                try:
+                    return self.inner.run(category, xs, ctx, kernel=kernel,
+                                          weights=weights)
+                finally:
+                    ctx.lost_devices = frozenset()
+            raise DeviceLostError(0)
+        if fault.kind == "straggle":
+            outs, cost = self.inner.run(category, xs, ctx, kernel=kernel,
+                                        weights=weights)
+            advance_or_sleep(getattr(ctx, "clock", None), fault.delay_s)
+            return outs, cost
+        # drift: results come back numerically wrong (DAC mis-range /
+        # detector drift) — only the fidelity shadow can tell
+        outs, cost = self.inner.run(category, xs, ctx, kernel=kernel,
+                                    weights=weights)
+        return [o * fault.gain for o in outs], cost
+
+
+def register_chaos(inner: str = "optical-sim", *, name: str | None = None,
+                   schedule: FaultSchedule | None = None,
+                   **schedule_kwargs) -> str:
+    """Register a chaos-wrapped backend; returns its registered name.
+
+    ``schedule_kwargs`` build a :class:`FaultSchedule` when ``schedule``
+    is not given.  Every ``get_backend`` instantiation receives a
+    :meth:`FaultSchedule.fresh` copy, so each executor's fault sequence is
+    deterministic from dispatch 0 and independent of other executors.
+    """
+    sched = schedule if schedule is not None else FaultSchedule(
+        **schedule_kwargs)
+    reg_name = name or f"chaos-{inner}"
+
+    def factory() -> ChaosBackend:
+        return ChaosBackend(inner, schedule=sched.fresh(), name=reg_name)
+
+    register_backend(reg_name, factory)
+    return reg_name
 
 
 @dataclasses.dataclass

@@ -38,6 +38,13 @@ bit-equal gradients when launched twice.  The converter-boundary kernel
 is held to its plain version bit for bit (NaN where it has NaN) on both
 of its routes: both compute the same IEEE operations in the same order.  A smoke-config training loss and its
 gradients on the card match the CPU's at the bf16 bound (5e-2).
+
+The sharded offload backend's group-sharded fft flush equals the
+unsharded one bit for bit (a DFT frame has the same bits alone or in any
+batch, and the ADC ranges per frame), on one card (shards in turn) and,
+run with four cards, across them; its frame-sharded conv meets the
+reference's host bound (rtol 1e-4, atol 1e-5); a seeded chaos run
+retires every frame.
 """
 
 import numpy as np
@@ -238,6 +245,101 @@ def test_executor_launches_kernels_and_matches_host(cuda_device):
         top = float(r.value.max())
         err = float((h.value - r.value).abs().max())
         assert err <= 2e-4 * top + float(h.value.max()) / levels
+
+
+@pytest.mark.parametrize("n_devices,tile_k,shape", [
+    (4, None, (128, 128)), (4, 1, (128, 128)), (3, 5, (96, 64)),
+    (2, 8, (256, 256))])
+def test_sharded_fft_flush_is_bit_equal_to_unsharded(cuda_device, n_devices,
+                                                     tile_k, shape):
+    """Group sharding changes only how a flush's frames are grouped: each
+    frame's DFT has the same bits alone or in any batch on the
+    tensor-core route, and the ADC ranges per frame, so the sharded flush
+    equals the unsharded one bit for bit."""
+    imgs = [_rand(60 + i, shape, cuda_device) for i in range(8)]
+    outs = {}
+    for n, backend in ((1, "optical-sim"), (n_devices, "sharded")):
+        ex = trt.OffloadExecutor(trt.BATCHED_4F, max_batch=8, n_devices=n,
+                                 default_backend=backend, tile_k=tile_k)
+        od.reset_launches()
+        hs = [ex.submit("fft", im) for im in imgs]
+        ex.flush()
+        for stage in (od.dft_stage1_batched, od.dft_stage2_batched):
+            assert stage.launches >= 1
+            assert stage.launches_by_route["fma"] == 0
+        outs[backend] = [h.value for h in hs]
+        assert all(h.backend == backend for h in hs)
+    for a, b in zip(outs["sharded"], outs["optical-sim"]):
+        assert a.device == b.device == imgs[0].device
+        assert torch.equal(a, b)
+
+
+def test_sharded_placed_route_on_the_card(cuda_device, monkeypatch):
+    """The placed route (copies to each shard's card, per-device
+    residency, placements, the gather) with every logical device handed
+    the same card: bit-equal to the unsharded flush, placement committed
+    and served from residency on the repeat flush."""
+    from repro_torch.runtime import sharded as tsharded
+    monkeypatch.setattr(tsharded, "shard_devices",
+                        lambda n, home: None if n <= 1 else [home] * n)
+    imgs = [_rand(70 + i, (64, 64), cuda_device) for i in range(8)]
+    ref = trt.OffloadExecutor(trt.BATCHED_4F, max_batch=8)
+    want = [h.value for h in ([ref.submit("fft", im) for im in imgs],
+                              ref.flush())[0]]
+    ex = trt.OffloadExecutor(trt.BATCHED_4F, max_batch=8, n_devices=4,
+                             default_backend="sharded", residency=True)
+    for _ in range(2):
+        hs = [ex.submit("fft", im) for im in imgs]
+        ex.flush()
+        for h, w in zip(hs, want):
+            assert torch.equal(h.value, w)
+    assert ex._backend("sharded")._placements
+    assert ex.telemetry.residency_counts["fft"].get("hit", 0) >= 8
+
+
+def test_sharded_frame_conv_on_the_card(cuda_device):
+    """One frame tiled over four devices by overlap-save: the host inner
+    at the reference's frame-sharding bound (rtol 1e-4, atol 1e-5)."""
+    frame = _rand(80, (300, 160), cuda_device)
+    k = torch.zeros(300, 160, device=cuda_device)
+    k[0, 0], k[1, 2], k[299, 1], k[2, 0] = 0.5, 0.25, 0.15, 0.1
+    ex = trt.OffloadExecutor(trt.BATCHED_4F, max_batch=1, n_devices=4,
+                             default_backend="sharded-host",
+                             shard_mode="frame")
+    got = ex.run("conv", frame, kernel=k)
+    want = ex.run("conv", frame, kernel=k, backend="host")
+    assert len(ex.telemetry.device_samples("conv")) == 4
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_chaos_sharded_run_retires_every_frame(cuda_device):
+    """A seeded chaos run over the sharded backend under a ManualClock:
+    every frame retires, chaos-served frames bit-equal to the unfaulted
+    flush, host-served ones to the host backend."""
+    imgs = [_rand(90 + i, (64, 64), cuda_device) for i in range(16)]
+    ref = trt.OffloadExecutor(trt.BATCHED_4F, max_batch=16, tile_k=2)
+    want = [h.value for h in ([ref.submit("fft", im) for im in imgs],
+                              ref.flush())[0]]
+    host = [h.value for h in ([ref.submit("fft", im, backend="host")
+                               for im in imgs], ref.flush())[0]]
+    name = trt.register_chaos("sharded", name="chaos-card", rate=0.3,
+                              seed=0)
+    clk = trt.ManualClock()
+    ex = trt.OffloadExecutor(trt.BATCHED_4F, default_backend=name,
+                             max_batch=16, n_devices=4, tile_k=2, clock=clk,
+                             fidelity=trt.FidelityChecker())
+    for _ in range(6):
+        hs = [ex.submit("fft", im) for im in imgs]
+        ex.flush()
+        for h, w, r in zip(hs, want, host):
+            assert h.ready and h.value is not None
+            torch.testing.assert_close(h.value, w if h.backend == name
+                                       else r, rtol=0,
+                                       atol=0 if h.backend == name
+                                       else 1e-5 * float(r.max()))
+        clk.advance(1.0)
+    counts = ex.telemetry.fault_counts["fft"]
+    assert counts["device_loss"] and counts["straggle"] and counts["drift"]
 
 
 def _attn_inputs(seed, bh, lq, lk, d, groups, dtype, dev):

@@ -279,14 +279,19 @@ def test_results_ready_event_is_none_on_cpu():
 
 
 def test_sharded_dispatch_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _ex(n_devices=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _ex(default_backend="sharded")
-    ex = _ex()
+    """Sharded dispatch was stubbed out until ``runtime/sharded.py`` was
+    ported; now every entry point that raised runs (its parity tests are
+    ``tests/test_torch_sharded.py``)."""
+    ex = _ex(n_devices=2, default_backend="sharded", max_batch=4)
     ex.set_n_devices("fft", 1)
-    with pytest.raises(NotImplementedError):
-        ex.set_n_devices("fft", 4)
+    ex.set_n_devices("fft", 2)
+    assert ex.n_devices_for("fft") == 2
+    hs = [ex.submit("fft", im) for im in _tframes(3)]
+    ex.flush()
+    assert all(h.backend == "sharded" for h in hs)
+    assert ex.telemetry.devices_observed("fft") == 2
+    for name in ("sharded", "sharded-host", "sharded-ideal"):
+        assert trt.get_backend(name).name == name
 
 
 def test_submit_moves_numpy_operands_and_keeps_groups():
@@ -366,6 +371,9 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.optim, repro_torch.train, repro_torch.data\n"
             "import repro_torch.checkpoint, repro_torch.distributed.fault\n"
             "import repro_torch.launch.train, repro_torch.kernels.adc_dac\n"
+            "import repro_torch.runtime.sharded, "
+            "repro_torch.runtime.trace_export\n"
+            "import repro_torch.distributed.sharding\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
