@@ -1,0 +1,90 @@
+"""The case study's entry point: one section per paper table/figure.
+
+    python -m repro_torch.casestudy.run [--device cpu]
+
+Prints ``section,name,us_per_call,derived`` CSV rows, as the reference's
+``benchmarks/run.py`` does for the same sections:
+
+  * Table 1 / Fig 9: us_per_call = the benchmark's total time over its
+    timed repeats, derived = the ideal end-to-end Amdahl speedup and the
+    FFT/conv fraction, the paper's values beside them; then MEDIAN and
+    MEAN;
+  * Fig 8: the software FFT's time on the device against the modelled
+    prototype;
+  * Fig 2: converter frontier gaps; Fig 3: complexity crossovers.
+
+The first row after the header names the device the times were taken
+on.  It runs on the CUDA card unless ``--device cpu`` is given, and
+fails without a card: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda)")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("repro_torch.casestudy.run: no CUDA card available (pass "
+              "--device cpu to run on the CPU)", file=sys.stderr)
+        return 2
+
+    print("section,name,us_per_call,derived")
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device,{name},,")
+
+    # --- Table 1 / Figure 9: the 27-benchmark Amdahl suite ------------------
+    from repro_torch.casestudy.amdahl_suite import PAPER_TABLE1, run_suite
+    rows = run_suite(device=device)
+    speedups = []
+    for r in rows:
+        paper_pct, paper_s = PAPER_TABLE1[r.name]
+        speedups.append(r.end_to_end_speedup)
+        print(f"table1,{r.name},{1e6 * r.total_time_s:.1f},"
+              f"speedup={r.end_to_end_speedup:.2f}x|frac={100*r.fraction:.2f}%"
+              f"|paper={paper_s:.2f}x|paper_frac={paper_pct:.2f}%")
+    ss = sorted(speedups)
+    median = ss[len(ss) // 2]
+    mean = sum(ss) / len(ss)
+    print(f"table1,MEDIAN,,{median:.2f}x (paper 1.94x)")
+    print(f"table1,MEAN,,{mean:.2f}x (paper 9.39x)")
+
+    # --- Figure 8: prototype data-movement split ------------------------------
+    from repro_torch.casestudy.conversion_bottleneck import run as fig8
+    r8 = fig8(device)
+    print(f"fig8,software_fft,{1e6 * r8['software_fft_s']:.1f},measured")
+    print(f"fig8,hardware_total,{1e6 * r8['hardware_total_s']:.1f},"
+          f"movement={r8['hardware_movement_pct']:.3f}% (paper "
+          f"{r8['paper_movement_pct']}%)")
+    print(f"fig8,slowdown,,{r8['hardware_vs_software']:.1f}x slower than "
+          f"software (paper {r8['paper_hardware_vs_software']:.1f}x on rpi4)")
+    print(f"fig8,sim_intensity_rel_err,,{r8['sim_intensity_rel_err']:.2e}")
+
+    # --- Figure 2: converter Pareto frontier ------------------------------------
+    from repro_torch.casestudy.pareto import run as fig2
+    r2 = fig2()
+    for k in ("kim_dac_gap", "liu_adc_gap", "anderson_dac_gap",
+              "anderson_adc_gap"):
+        print(f"fig2,{k},,{r2[k]:.2f}x")
+
+    # --- Figure 3: complexity crossover -------------------------------------------
+    from repro_torch.casestudy.complexity_fig import run as fig3
+    r3 = fig3()
+    for name, n in r3["crossover_1x"].items():
+        n10 = r3["crossover_10x"][name]
+        print(f"fig3,{name.replace(' ', '_')},,"
+              f"crossover_1x=N{n}|crossover_10x=N{n10}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,9 +5,9 @@ Subsystems:
   accelerator — analog accelerator specs + step cost models (Fig. 7a, Fig. 8)
   optical     — differentiable 4f Fourier/convolution physics sim (App. A/B)
   amdahl      — Eq. 2/3 speedup machinery (App. C.2)
+  complexity  — compute vs conversion complexity C=2N (§4, Fig. 3)
+  profiler    — wall-time + dispatch-mode FLOP attribution by op category (App. C.1)
   planner     — the conversion-aware offload decision rule (§4–§6)
-
-The reference's ``complexity`` and ``profiler`` modules are not ported yet.
 """
 
 from repro_torch.core.accelerator import (
@@ -43,5 +43,6 @@ from repro_torch.core.planner import (
     OffloadPlan,
     plan_offload,
 )
+from repro_torch.core.profiler import OpProfiler, flops_by_category
 
 __all__ = [k for k in dir() if not k.startswith("_")]

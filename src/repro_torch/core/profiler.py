@@ -1,0 +1,293 @@
+"""Application profiling: per-op-category time and FLOP attribution.
+
+Two complementary profilers, mirroring the paper's methodology (App. C.1 —
+cProfile with FFT/conv-named functions attributed to the accelerator):
+
+* ``OpProfiler`` — wall-clock accumulation by category, used by the
+  27-benchmark Amdahl suite (``repro_torch.casestudy.amdahl_suite``).
+  Callers bracket accelerable ops with ``prof.run("fft", fn, ...)`` or
+  ``prof.op("fft")`` and the suite builds Table-1 rows from the totals.
+* ``flops_by_category`` — attribution by counting: runs ``fn`` under a
+  ``TorchDispatchMode`` that sees every aten op it dispatches and buckets
+  FLOPs into {matmul, conv, fft, other}; ``traffic_bytes`` sums the bytes
+  those ops read and write.  This is how the planner evaluates offload
+  for an LM architecture without timing it.
+
+The reference walks a jaxpr instead.  Counting eagerly changes three
+things.  A Python loop runs and is counted trip by trip, so the
+reference's ``scan`` multiplier is implicit and its
+``__while_unknown_trips__`` flag never appears; a branch counts the side
+that ran, where the reference's ``cond`` averages its branches.  Shapes
+alone are counted by passing tensors on ``device="meta"``, the
+counterpart of the reference's ``ShapeDtypeStruct`` arguments.
+
+The port's hand-written kernels launch through ``ctypes`` and dispatch no
+aten op, so a dispatch mode cannot see them.  Their wrappers are
+decorated with ``repro_torch.kernels.common.charged``: under
+``flops_by_category`` a wrapper's call charges the work the reference's
+walk gives the same call once, and nothing inside its body is counted, on
+every device.  The count is then the same on ``cuda``, ``cpu`` and
+``meta``.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import math
+import time
+from typing import Any, Callable, Iterable
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+__all__ = ["OpProfiler", "flops_by_category", "traffic_bytes",
+           "OFFLOADABLE_CATEGORIES"]
+
+OFFLOADABLE_CATEGORIES = ("fft", "conv", "matmul")
+
+
+def _arrays(tree: Any) -> list:
+    """The leaves of ``tree`` that have a shape (tensors, numpy arrays):
+    what the reference counts as array leaves.  Python scalars do not."""
+    return [x for x in pytree.tree_leaves(tree) if hasattr(x, "shape")]
+
+
+def _sync(tensors: Iterable) -> None:
+    """Wait for every CUDA device that holds one of ``tensors``."""
+    for dev in {t.device for t in tensors if isinstance(t, torch.Tensor)}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _sync_current() -> None:
+    """Wait for the current CUDA device, if this process has used one."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class OpProfiler:
+    """Accumulates wall time by op category.
+
+    Uses ``time.perf_counter``.  CUDA runs asynchronously, so on the card
+    a bracket synchronizes on entry and on exit: work queued before it
+    finishes outside it (and lands in the 'other' residual), and its own
+    work finishes inside it.  ``run`` waits for the devices of its tensors,
+    ``op`` (which sees no tensors), ``start`` and ``stop`` for the current
+    device.  On the CPU nothing is waited for.
+    """
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = collections.defaultdict(float)
+        self.calls: dict[str, int] = collections.defaultdict(int)
+        self.samples_in: dict[str, int] = collections.defaultdict(int)
+        self.samples_out: dict[str, int] = collections.defaultdict(int)
+        self._t0: float | None = None
+
+    # -- session -------------------------------------------------------------
+    def start(self) -> None:
+        _sync_current()
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self._t0 is None:
+            raise RuntimeError("profiler not started")
+        _sync_current()
+        total = time.perf_counter() - self._t0
+        self.seconds["__total__"] += total
+        self._t0 = None
+        return total
+
+    # -- op bracketing ---------------------------------------------------------
+    @contextlib.contextmanager
+    def op(self, category: str, n_in: int = 0, n_out: int = 0):
+        _sync_current()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync_current()
+            self.seconds[category] += time.perf_counter() - t0
+            self.calls[category] += 1
+            self.samples_in[category] += int(n_in)
+            self.samples_out[category] += int(n_out)
+
+    def run(self, category: str, fn: Callable, *args, **kwargs):
+        """Run ``fn`` under ``category``, waiting for its outputs."""
+        inputs = _arrays((args, kwargs))
+        _sync(inputs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        outputs = _arrays(out)
+        _sync(inputs + outputs)
+        dt = time.perf_counter() - t0
+        self.seconds[category] += dt
+        self.calls[category] += 1
+        self.samples_in[category] += sum(math.prod(a.shape) for a in inputs)
+        self.samples_out[category] += sum(math.prod(a.shape)
+                                          for a in outputs)
+        return out
+
+    # -- reporting --------------------------------------------------------------
+    @property
+    def total_s(self) -> float:
+        return self.seconds.get("__total__", 0.0)
+
+    def accelerable_s(self, categories=("fft", "conv")) -> float:
+        return sum(self.seconds.get(c, 0.0) for c in categories)
+
+    def fraction(self, categories=("fft", "conv")) -> float:
+        tot = self.total_s
+        return 0.0 if tot == 0.0 else min(self.accelerable_s(categories) / tot,
+                                          1.0)
+
+
+# --- FLOP attribution by dispatch ---------------------------------------------
+
+_aten = torch.ops.aten
+_MATMUL = {_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm}
+_FFT = {_aten._fft_c2c, _aten._fft_r2c, _aten._fft_c2r}
+# view ops whose schema does not say so
+_METADATA = {_aten._unsafe_view}
+
+
+def _is_view(func) -> bool:
+    return func.is_view or func.overloadpacket in _METADATA
+
+
+def _is_sdpa(func) -> bool:
+    """A fused scaled-dot-product attention forward (flash, efficient,
+    cuDNN, the CPU flash kernel)."""
+    name = func.overloadpacket.__name__
+    return name.startswith("_scaled_dot_product") and "backward" not in name
+
+
+def _matmul_flops(func, args) -> float:
+    """2·batch·m·n·k, as the reference counts a ``dot_general``."""
+    p = func.overloadpacket
+    if p in (_aten.addmm, _aten.baddbmm):
+        args = args[1:]                 # (bias, a, b, ...)
+    a, b = args[0], args[1]
+    return 2.0 * math.prod(a.shape) * b.shape[-1]
+
+
+def _sdpa_flops(args) -> float:
+    """Its two products: 2·B·H·L·S·E for the scores, 2·B·H·L·S·Ev for the
+    output (q (B,H,L,E), k (B,H,S,E), v (B,H,S,Ev))."""
+    q, k, v = args[0], args[1], args[2]
+    lead = math.prod(q.shape[:-1])      # B·H·L
+    s = k.shape[-2]
+    return 2.0 * lead * s * (q.shape[-1] + v.shape[-1])
+
+
+def _conv_flops(args, out) -> float:
+    """2·out_elems·(in_ch/groups)·prod(kernel), as the reference counts a
+    ``conv_general_dilated``."""
+    x, w, groups = args[0], args[1], args[8]
+    return (2.0 * math.prod(out.shape) * (x.shape[1] // groups)
+            * math.prod(w.shape[2:]))
+
+
+def _fft_flops(func, args, out) -> float:
+    """5·batch·n·log2(n), n the product of the transformed lengths (the
+    output's, for a complex-to-real transform) and batch the input's
+    elements over n, as the reference counts an ``fft``."""
+    x, dims = args[0], args[1]
+    lengths = out if func.overloadpacket is _aten._fft_c2r else x
+    n = float(math.prod(lengths.shape[d] for d in dims))
+    batch = math.prod(x.shape) / max(n, 1.0)
+    return 5.0 * batch * n * max(math.log2(max(n, 2.0)), 1.0)
+
+
+def _tensors(tree: Any) -> list[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _bytes(tensors: Iterable) -> float:
+    """Bytes of the tensors that have a shape (0-dim ones are skipped, as
+    the reference skips shapeless operands)."""
+    return float(sum(t.numel() * t.element_size() for t in tensors
+                     if t.dim()))
+
+
+class _Counter(TorchDispatchMode):
+    """Counts FLOPs by category and bytes moved for every aten op.
+
+    Kernel wrappers find it through ``charge_kernel`` (duck-typed, so the
+    kernels need not import this module) and pause it for their body."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.flops: dict[str, float] = collections.defaultdict(float)
+        self.bytes = 0.0
+        self._paused = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._paused or _is_view(func):
+            return out
+        outs = _tensors(out)
+        p = func.overloadpacket
+        if p in _MATMUL:
+            self.flops["matmul"] += _matmul_flops(func, args)
+        elif _is_sdpa(func):
+            self.flops["matmul"] += _sdpa_flops(args)
+        elif p is _aten.convolution:
+            self.flops["conv"] += _conv_flops(args, outs[0])
+        elif p in _FFT:
+            self.flops["fft"] += _fft_flops(func, args, outs[0])
+        else:
+            self.flops["other"] += float(sum(t.numel() for t in outs))
+        self.bytes += _bytes(_tensors((args, kwargs))) + _bytes(outs)
+        return out
+
+    def charge_kernel(self, work: dict[str, float], fn: Callable,
+                      *args, **kwargs):
+        """Run a kernel wrapper's body uncounted and charge ``work`` plus
+        one 'other' FLOP per output element and the bytes of its tensor
+        operands and outputs: what the reference's walk gives a
+        ``pallas_call``.  A call nested in a charged one is not charged
+        again."""
+        if self._paused:
+            return fn(*args, **kwargs)
+        self._paused += 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            self._paused -= 1
+        outs = _tensors(out)
+        for cat, v in work.items():
+            self.flops[cat] += v
+        self.flops["other"] += float(sum(t.numel() for t in outs))
+        self.bytes += _bytes(_tensors((args, kwargs))) + _bytes(outs)
+        return out
+
+
+def _count(fn: Callable, args, kwargs) -> _Counter:
+    with _Counter() as counter:
+        fn(*args, **kwargs)
+    return counter
+
+
+def traffic_bytes(fn: Callable, *args, **kwargs) -> float:
+    """Total memory traffic of ``fn``: operand + result bytes of every op
+    it dispatches, each loop trip counted.  Fusion-naive (an elementwise
+    chain is counted op by op), so this is an *upper bound* on HBM
+    traffic, and the consistent numerator for a roofline's memory term.
+    View ops move nothing and count nothing."""
+    return _count(fn, args, kwargs).bytes
+
+
+def flops_by_category(fn: Callable, *args, **kwargs) -> dict[str, float]:
+    """Run ``fn`` and attribute its FLOPs to {matmul, conv, fft, other}.
+
+    'other' counts one FLOP per produced element of every op that is not
+    a contraction, an FFT or a view (a deliberate *under*-estimate of
+    memory-bound time: the planner treats 'other' as non-offloadable, so
+    under-counting it makes the offload verdict *more* generous to the
+    accelerator — the paper's best-case methodology).  Only categories
+    that occurred are keys.
+    """
+    return dict(_count(fn, args, kwargs).flops)

@@ -34,6 +34,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels.common import charged
+
 __all__ = ["converter_boundary", "converter_boundary_plain",
            "reset_launches", "route", "ROUTES"]
 
@@ -175,6 +177,7 @@ def _on_cpu(x: torch.Tensor, noise: torch.Tensor | None) -> bool:
     return False
 
 
+@charged()
 def converter_boundary(x: torch.Tensor, noise: torch.Tensor | None = None,
                        *, dac_bits: int = 8, adc_bits: int = 8,
                        noise_std: float = 0.0) -> torch.Tensor:

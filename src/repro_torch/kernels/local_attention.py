@@ -45,8 +45,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
+
+from repro_torch.kernels.common import charged
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
            "reset_launches", "route", "HEAD_DIMS", "ROUTES"]
@@ -130,11 +133,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """True when q, k and v all lie on the CPU (take the plain version),
-    False when they lie on one CUDA device in a type and layout the
-    kernel takes (launch it); raises on anything else."""
+    """True when q, k and v all lie on the CPU, or all on the shape-only
+    ``meta`` device (take the plain version), False when they lie on one
+    CUDA device in a type and layout the kernel takes (launch it); raises
+    on anything else."""
     devices = {t.device for t in (q, k, v)}
-    if all(dv.type == "cpu" for dv in devices):
+    if all(dv.type == "cpu" for dv in devices) or all(
+            dv.type == "meta" for dv in devices):
         return True
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError("local_flash_attention: q, k and v must all lie on "
@@ -240,6 +245,24 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _attention_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **_) -> dict[str, float]:
+    """What the reference's model path counts for the same call: its dense
+    chunked einsums (scores and output, masked and windowed positions
+    included), 2·BH·Lq·Lk·(D + Dv) matmul FLOPs; and, by the port's rule
+    for 'other' (views and broadcasts count nothing), the five
+    elementwise passes over the scores around them (scale, mask, and the
+    softmax's subtract, exp and divide) and the casts of operands that are
+    not float32 to float32."""
+    scores = math.prod(q.shape[:-1]) * k.shape[-2]     # BH·Lq·Lk
+    other = 5.0 * scores
+    if q.dtype != torch.float32:
+        other += q.numel() + k.numel() + v.numel()
+    return {"matmul": 2.0 * scores * (q.shape[-1] + v.shape[-1]),
+            "other": other}
+
+
+@charged(_attention_work)
 def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, scale: float | None = None,
                           window: int = 0, causal: bool = True,

@@ -53,6 +53,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.common import charged
+
 __all__ = [
     "dft_matrix_factors",
     "dft_stage1",
@@ -230,6 +232,7 @@ def dft_stage1_batched_plain(wr: torch.Tensor, wi: torch.Tensor,
             torch.matmul(wi.to(torch.float32), a))
 
 
+@charged()
 def dft_stage1_batched(wr: torch.Tensor, wi: torch.Tensor, a: torch.Tensor,
                        *, dac_bits: int = 0, bb: int = 1, bm: int = 128,
                        bk: int = 128, bn: int = 128,
@@ -301,6 +304,7 @@ def dft_stage2_batched_plain(tr: torch.Tensor, ti: torch.Tensor,
     return ur * ur + ui * ui
 
 
+@charged()
 def dft_stage2_batched(tr: torch.Tensor, ti: torch.Tensor, wr: torch.Tensor,
                        wi: torch.Tensor, *, bb: int = 1, bm: int = 128,
                        bk: int = 128, bn: int = 128) -> torch.Tensor:

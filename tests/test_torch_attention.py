@@ -150,12 +150,21 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="kv_groups"):
         tla.local_flash_attention(q, k, v, kv_groups=3)
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
-        tla.local_flash_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+        tla.local_flash_attention(q, k.to("meta"), v.to("meta"),
                                   kv_groups=2)
     with pytest.raises(ValueError, match="no keys"):
         tla.local_flash_attention(q, k[:, :0], v[:, :0], kv_groups=2)
     with pytest.raises(ValueError, match="group"):
         tops.gqa_flash_attention(q[None, :3], k[None], v[None])
+
+
+def test_wrapper_takes_meta_operands_shape_only():
+    """On the meta device (a FLOP count of shapes alone) the wrapper runs
+    its plain version, which computes shapes only."""
+    q, k, v = (torch.from_numpy(a).to("meta") for a in _qkv(4, 64, 48, 16, 2))
+    out = tla.local_flash_attention(q, k, v, kv_groups=2)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert out.dtype == q.dtype
 
 
 @pytest.mark.parametrize("lq,lk,d,groups,causal,window", [

@@ -45,7 +45,17 @@ batch, and the ADC ranges per frame), on one card (shards in turn) and,
 run with four cards, across them; its frame-sharded conv meets the
 reference's host bound (rtol 1e-4, atol 1e-5); a seeded chaos run
 retires every frame.
+
+The case study: ``OpProfiler`` waits for the card at a bracket's edges, so
+work queued before a bracket is charged to 'other', not to the bracket;
+``flops_by_category`` of a smoke LM loss is the same on the card (its
+attention through kernel 6) as on the CPU; three benchmarks of the Amdahl
+suite bracket on the card what the reference brackets, and their first
+bracketed output is held to the CPU's on the same inputs within the CPU
+test's replay bound (1e-4 * max).
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -57,9 +67,11 @@ from repro_torch.kernels import adc_dac
 from repro_torch.kernels import local_attention as la
 from repro_torch.kernels import ops
 from repro_torch.kernels import optical_dft as od
+from repro_torch.casestudy import amdahl_suite
+from repro_torch.core.profiler import OpProfiler, flops_by_category
 from repro_torch.launch import train as ttrain
 from repro_torch.models import LM, compute_params, init_params
-from repro_torch.models.params import leaves
+from repro_torch.models.params import leaves, map_tree
 from repro_torch.train import loss_and_grads
 
 pytestmark = pytest.mark.cuda
@@ -758,3 +770,91 @@ def test_training_resumes_bit_exact_on_the_card(cuda_device, tmp_path):
     assert crashed["done"]
     for (path, a), (_, b) in zip(leaves(got), leaves(want)):
         assert torch.equal(a, b), path
+
+
+# --- the case study -------------------------------------------------------------
+
+
+def test_op_profiler_charges_queued_work_to_other(cuda_device):
+    """Matmuls queued before an fft bracket finish before it starts."""
+    a = torch.randn(4096, 4096, device=cuda_device) / 64.0
+    x = torch.randn(256, 256, device=cuda_device)
+
+    def queue():
+        b = a
+        for _ in range(8):
+            b = b @ a
+        return b
+
+    queue()
+    torch.fft.fft2(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queue()
+    torch.cuda.synchronize()
+    queued_s = time.perf_counter() - t0
+    prof = OpProfiler()
+    prof.start()
+    queue()
+    prof.run("fft", torch.fft.fft2, x)
+    prof.stop()
+    assert prof.seconds["fft"] < 0.25 * queued_s
+    assert prof.total_s >= 0.9 * queued_s
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b"])
+def test_flops_of_the_smoke_loss_equal_on_cuda_and_cpu(cuda_device, arch):
+    cfg = tcfgs.get_smoke_config(arch)
+    params = init_params(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+    batch = {"tokens": tokens, "labels": tokens}
+    model = LM(cfg)
+    loss = lambda p, b: model.loss(p, b)[0]
+    want = flops_by_category(loss, params, batch)
+    la.reset_launches()
+    got = flops_by_category(
+        loss, map_tree(lambda t: t.to(cuda_device), params),
+        {k: v.to(cuda_device) for k, v in batch.items()})
+    assert la.local_flash_attention.launches == cfg.n_layers
+    assert got == want
+
+
+# one run's (calls, samples in, samples out) by category, the reference's
+_SUITE_COUNTS = {"fourier_transform": {"fft": (1, 2_250_000, 2_250_000)},
+                 "convolution": {"conv": (4, 80_000, 158_404)},
+                 "cnn_training": {"conv": (4, 945_504, 3_145_728)}}
+
+
+@pytest.mark.parametrize("name", list(_SUITE_COUNTS))
+def test_suite_benchmark_on_the_card_matches_the_cpu(cuda_device, name):
+    calls = []
+
+    class Recording(OpProfiler):
+        def run(self, category, fn, *args, **kwargs):
+            out = super().run(category, fn, *args, **kwargs)
+            calls.append((fn, args, out))
+            return out
+
+    profs = []
+
+    def profiler():
+        profs.append(Recording())
+        return profs[-1]
+
+    row = amdahl_suite.run_one(name, dict(amdahl_suite.BENCHMARKS)[name],
+                               device=cuda_device, profiler=profiler)
+    assert 0.0 < row.fraction <= 1.0
+    warm, timed = profs
+    want = _SUITE_COUNTS[name]
+    assert {c: (warm.calls[c], warm.samples_in[c], warm.samples_out[c])
+            for c in warm.calls} == want
+    assert dict(timed.calls) == {c: amdahl_suite.REPEATS * v[0]
+                                 for c, v in want.items()}
+    fn, args, out = calls[0]
+    assert out.is_cuda and all(a.is_cuda for a in args
+                               if isinstance(a, torch.Tensor))
+    ref = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    assert bool(torch.isfinite(out).all())
+    err = float((out.cpu() - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max())
