@@ -2024,6 +2024,290 @@ def phase_casestudy(od, la, dev, card: str) -> dict:
             "phase_wall_s": wall}
 
 
+# --- phase 10: the runtime bench and the examples ----------------------------
+
+# The columns of casestudy/runtime_bench.py's payload, each run once by
+# bench_payload(); and each frame shape the bench flushes through the DFT
+# kernels with the deepest group it dispatches there.
+BENCH_COLUMNS = ("roundtrip", "sweep", "pipeline_comparison",
+                 "sharded_comparison", "trickle_comparison",
+                 "large_frame_comparison", "traced_comparison",
+                 "chaos_comparison", "chaos_overhead", "residency_comparison")
+BENCH_SHAPES = {(64, 64): 8, (128, 128): 16, (256, 256): 16, (512, 512): 16}
+# the reference's CI gates that time walls: printed with their verdicts
+TRACER_OVERHEAD_BOUND, CHAOS_OVERHEAD_BOUND = 0.05, 0.02
+
+
+def dft_routes(od) -> dict:
+    return {n: dict(getattr(od, n).launches_by_route) for n in DFT_STAGES}
+
+
+def routes_since(od, before: dict) -> dict:
+    return {n: {r: c - before[n][r] for r, c in routes.items()}
+            for n, routes in dft_routes(od).items()}
+
+
+def bench_by_column(rb, od, dev) -> tuple[dict, dict]:
+    """``rb.bench_payload(dev)``, and the DFT launches by route that each
+    of its columns made (each column wrapped while the payload runs)."""
+    by_column, saved = {}, {n: getattr(rb, n) for n in BENCH_COLUMNS}
+
+    def counted(name, fn):
+        def column(*args, **kwargs):
+            before = dft_routes(od)
+            out = fn(*args, **kwargs)
+            by_column[name] = routes_since(od, before)
+            return out
+        return column
+    try:
+        for name, fn in saved.items():
+            setattr(rb, name, counted(name, fn))
+        payload = rb.bench_payload(dev)
+    finally:
+        for name, fn in saved.items():
+            setattr(rb, name, fn)
+    return payload, by_column
+
+
+def check_bench_gates(p: dict) -> None:
+    """The reference CI's asserts that are deterministic or guard
+    correctness, and batched < looped at 128^2 x 16."""
+    sweep = {r["max_batch"]: r for r in p["sweep"]}
+    check(sweep[16]["wall_s_per_call"] < sweep[1]["wall_s_per_call"],
+          f"batched {sweep[16]['wall_s_per_call']:.3e} s/call is not under "
+          f"looped {sweep[1]['wall_s_per_call']:.3e} at 128^2 x 16")
+    shard = {r["n_devices"]: r for r in p["sharded"]}
+    check(shard[4]["modeled_s_per_call"] <= shard[1]["modeled_s_per_call"],
+          f"sharded modeled {shard[4]['modeled_s_per_call']} > single "
+          f"{shard[1]['modeled_s_per_call']}")
+    t = p["trickle_comparison"]
+    check(t["held_occupancy"] > t["drain_occupancy"]
+          and t["held_samples_per_crossing"]
+          > t["drain_samples_per_crossing"], f"trickle: {t}")
+    check(p["large_frame"]["tile_matches_dispatch"],
+          f"large frame: tile {p['large_frame']['chosen_tile_k']} chosen, "
+          f"{p['large_frame']['dispatched_tile_sizes']} dispatched")
+    rows = p["chaos"]["rows"]
+    for r in rows:
+        check(r["all_retired"] and r["within_bound"], f"chaos row {r}")
+    check(any(r["faults_total"] > 0 for r in rows if r["fault_rate"] > 0),
+          "no fault injected at a non-zero rate")
+    res = p["residency"]
+    check(res["modeled_hit_dac_s"] == 0.0
+          and 0.0 < res["modeled_delta_dac_s"] < res["modeled_restage_dac_s"]
+          and res["hit_rate"] > 0.5
+          and 0.0 < res["delta_flip_fraction"] < 0.35
+          and res["bit_equal_to_plain"] and res["delta_bit_equal_to_plain"],
+          f"residency: {res}")
+    check(p["traced"]["reconcile"]["coverage"] > 0.5,
+          f"traced coverage {p['traced']['reconcile']}")
+    check(p["roundtrip"]["decisions_match_execution"],
+          f"roundtrip: {p['roundtrip']}")
+
+
+def timing_gates(rb, p: dict) -> list[dict]:
+    """The reference CI's timing gates, each with its value, its bound
+    and whether it held on this card (printed, not asserted)."""
+    lf, tc, co, res = (p["large_frame"], p["traced"], p["chaos_overhead"],
+                       p["residency"])
+    gates = []
+    if lf["chosen_tile_k"] < lf["calls"]:
+        gates.append({"gate": "large frame tiled <= monolithic (s/call)",
+                      "value": lf["tiled_wall_s_per_call"],
+                      "bound": lf["monolithic_wall_s_per_call"],
+                      "held": lf["tiled_wall_s_per_call"]
+                      <= lf["monolithic_wall_s_per_call"]})
+    gates.append({"gate": "tracer overhead < 5 %",
+                  "value": tc["tracer_overhead"],
+                  "bound": TRACER_OVERHEAD_BOUND,
+                  "held": tc["tracer_overhead"] < TRACER_OVERHEAD_BOUND})
+    gates.append({"gate": "rate-0 chaos wrapper overhead < 2 %",
+                  "value": co["overhead"], "bound": CHAOS_OVERHEAD_BOUND,
+                  "held": co["overhead"] < CHAOS_OVERHEAD_BOUND})
+    walls = [res[f"{k}_wall_s_per_call"] for k in ("hit", "delta", "restage")]
+    gates.append({"gate": "residency hit < delta < restage (s/call)",
+                  "value": walls, "bound": "strictly increasing",
+                  "held": walls[0] < walls[1] < walls[2]})
+    ok, msg = rb.drift_gate(tc["drift"], [])
+    gates.append({"gate": "drift_gate (no history on a fresh machine)",
+                  "value": tc["drift"]["stages"].get("stage", {})
+                  .get("drift"), "bound": list(rb.DRIFT_BAND), "held": ok,
+                  "message": msg})
+    return gates
+
+
+def check_bench_frames(rt, rb, od, dev) -> dict:
+    """At each frame shape the bench flushes, on the bench's frames: the
+    batched flush bit-equal to the frames flushed one at a time, and to
+    the ADC of the DFT kernels' outputs, which are within the reference's
+    bounds of their plain versions."""
+    from repro_torch.core.optical import adc_quantize_batched
+
+    spec = rt.BATCHED_4F
+    errs = {}
+    for (h, w), k in BENCH_SHAPES.items():
+        frames = rb._images(k, (h, w), dev)
+        flushed = {}
+        for mb in (k, 1):
+            ex = rt.OffloadExecutor(spec, max_batch=mb, device=dev,
+                                    mem_budget=rt.MemoryBudget.unlimited())
+            hs = [ex.submit("fft", f) for f in frames]
+            ex.flush()
+            flushed[mb] = [r.value for r in hs]
+        for i, (a, b) in enumerate(zip(flushed[k], flushed[1])):
+            check(torch.equal(a, b), f"{h}x{w}: frame {i} of a batch of {k} "
+                  "differs from its flush alone")
+        stack = torch.stack(frames)
+        whr, whi = od.dft_matrix_factors(h, device=dev)
+        wwr, wwi = od.dft_matrix_factors(w, device=dev)
+        tr, ti = od.dft_stage1_batched(whr, whi, stack,
+                                       dac_bits=spec.dac.bits)
+        pr, pi = od.dft_stage1_batched_plain(whr, whi, stack,
+                                             dac_bits=spec.dac.bits)
+        got = od.dft_stage2_batched(tr, ti, wwr, wwi)
+        want = od.dft_stage2_batched_plain(tr, ti, wwr, wwi)
+        torch.cuda.synchronize()
+        check(max(max_violation(tr, pr, 1e-4, 1e-5),
+                  max_violation(ti, pi, 1e-4, 1e-5)) <= 0.0,
+              f"stage 1 at ({k}, {h}, {h}, {w}) outside rtol 1e-4 / atol "
+              "1e-5 of its plain version")
+        check(max_violation(got, want, 2e-4, 2e-4 * float(want.max()))
+              <= 0.0, f"stage 2 at ({k}, {h}, {w}, {w}) outside rtol 2e-4 / "
+              "atol 2e-4*max of its plain version")
+        adc = adc_quantize_batched(got, spec.adc.bits)
+        check(all(torch.equal(adc[i], flushed[k][i]) for i in range(k)),
+              f"{h}x{w}: the flush differs from the ADC of the kernels")
+        errs[f"{h}x{w}"] = {
+            "batch": k,
+            "stage1_max_abs_err": max(float((tr - pr).abs().max()),
+                                      float((ti - pi).abs().max())),
+            "stage2_max_abs_err": float((got - want).abs().max())}
+        print(f"  {h}x{w} x{k}: batched == looped == ADC(kernels) bit for "
+              f"bit; stage 1 / 2 max |err| vs plain "
+              f"{errs[f'{h}x{w}']['stage1_max_abs_err']:.3e} / "
+              f"{errs[f'{h}x{w}']['stage2_max_abs_err']:.3e}")
+    return errs
+
+
+def run_example(module) -> tuple[dict, str]:
+    """``module.main([])`` (the card, its default) with its output kept,
+    and what the ``run`` it calls returned."""
+    import contextlib
+    import io
+    got, real = {}, module.run
+
+    def recording(device):
+        got["result"] = real(device)
+        return got["result"]
+    out = io.StringIO()
+    module.run = recording
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = module.main([])
+    finally:
+        module.run = real
+    check(rc == 0 and "result" in got, f"{module.__name__}.main exited {rc}")
+    return got["result"], out.getvalue()
+
+
+def check_examples(rt, od, dev) -> dict:
+    """Both examples' mains on the card, held to their invariants and
+    the quickstart's physics to the CPU's on the same image."""
+    from repro_torch.examples import optical_offload, quickstart
+
+    od.reset_launches()
+    qs, _ = run_example(quickstart)
+    oo, text = run_example(optical_offload)
+    routes = dft_routes(od)
+    cpu = quickstart.physics(quickstart.image(), "cpu")
+    for bits, err in qs["physics"]["fft_rel_err"].items():
+        want = cpu["fft_rel_err"][bits]
+        check(abs(err - want) <= 1e-5 * want, f"quickstart |FFT| error at "
+              f"{bits} bits: card {err} vs cpu {want}")
+    want = cpu["conv_rel_err"]
+    check(abs(qs["physics"]["conv_rel_err"] - want) <= 5e-2 * want,
+          f"quickstart conv error: card {qs['physics']['conv_rel_err']} vs "
+          f"cpu {want}")
+    plan, sh, tr = oo["plan"], oo["sharded"], oo["trickle"]
+    check(not plan["prototype_offload"] and plan["fidelity_ok"],
+          f"offload example plan: {plan}")
+    enob = min(rt.BATCHED_4F.dac.effective_bits,
+               rt.BATCHED_4F.adc.effective_bits)
+    check(sh["rel_err"] <= rt.enob_error_bound(enob, 16.0)
+          and sh["sharded_modeled_s"] < sh["single_modeled_s"],
+          f"offload example sharded step: {sh}")
+    check(tr["scheduler-held"]["occupancy"]
+          > tr["drain-on-flush"]["occupancy"], f"trickle step: {tr}")
+    check(max(oo["tiled"]["dispatched_tile_sizes"]) == oo["tiled"]["tile_k"],
+          f"tiled step: {oo['tiled']}")
+    ch, res = oo["chaos"], oo["residency"]
+    check(ch["all_retired"] and ch["faults_total"] > 0
+          and ch["worst_rel_err"] <= ch["enob_bound"], f"chaos step: {ch}")
+    check(res["hit_dac_s"] == 0.0 and res["bit_equal"],
+          f"residency step: {res}")
+    for name, r in routes.items():
+        check(r["tensor_core"] > 0 and r["fma"] == 0,
+              f"the examples' {name} launches by route: {r}")
+    print(f"  quickstart |FFT| error at 8/12/16 bits "
+          f"{[round(e, 6) for e in qs['physics']['fft_rel_err'].values()]} "
+          f"(cpu {[round(e, 6) for e in cpu['fft_rel_err'].values()]}), "
+          f"conv {qs['physics']['conv_rel_err']:.3e}")
+    print(f"  optical_offload: conv routed {plan['routes']['conv']}, "
+          f"stack error {plan['stack_rel_err']:.4f}; sharded error "
+          f"{sh['rel_err']:.4f}; tile_k {oo['tiled']['tile_k']} of a "
+          f"{oo['tiled']['budget_bytes'] // (1 << 20)} MiB budget; chaos "
+          f"worst {ch['worst_rel_err']:.2e}; {len(text.splitlines())} lines "
+          f"printed; DFT launches by route {routes}")
+    return {"quickstart": qs["physics"], "offload": oo, "launches": routes}
+
+
+def phase_runtime_bench(rt, od, la, cb, dev, card: str) -> dict:
+    """casestudy/runtime_bench.py's payload at the reference's sizes on
+    the card, then the examples' mains."""
+    from repro_torch.casestudy import runtime_bench as rb
+
+    t0 = time.perf_counter()
+    for reset in (od.reset_launches, la.reset_launches, cb.reset_launches):
+        reset()
+    payload, by_column = bench_by_column(rb, od, dev)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    launches = {n: getattr(od, n).launches for n in DFT_STAGES}
+    others = {"local_flash_attention": la.local_flash_attention.launches,
+              "converter_boundary": cb.converter_boundary.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"the bench did not launch the DFT kernels: {launches}")
+    check(not any(others.values()),
+          f"the bench launched a kernel off its path: {others}")
+    for column, routes in by_column.items():
+        for name, r in routes.items():
+            check(r["fma"] == 0, f"{column}: {name} left the tensor-core "
+                  f"route: {r}")
+    print(f"  [{card}] bench {bench_s:.2f} s; DFT launches {launches}")
+    for row in rb.run(payload):
+        print(f"  {row}")
+    check_bench_gates(payload)
+    print("  asserted gates held: batched < looped at 128^2 x 16, sharded "
+          "modeled <= single, trickle held > drain, tile chosen == "
+          "dispatched, chaos rows retired within bound with faults, "
+          "residency model and bit-equality, coverage > 0.5, plan == "
+          "execution")
+    gates = timing_gates(rb, payload)
+    for g in gates:
+        print(f"  timing gate {g['gate']}: value {g['value']}, bound "
+              f"{g['bound']}: {'held' if g['held'] else 'not held'}"
+              + (f" ({g['message']})" if "message" in g else ""))
+    frames = check_bench_frames(rt, rb, od, dev)
+    print("phase 10b: the examples")
+    examples = check_examples(rt, od, dev)
+    wall = time.perf_counter() - t0
+    print(f"  [{card}] phase wall {wall:.2f} s (bench {bench_s:.2f} s)")
+    return {"card": card, "payload": payload, "launches": launches,
+            "launches_by_column": by_column, "timing_gates": gates,
+            "frames": frames, "examples": examples, "bench_s": bench_s,
+            "phase_wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2116,11 +2400,19 @@ def main() -> int:
             sharded["flush"]["launches"][row["name"]]
     print("phase 9: the paper's case study")
     casestudy = phase_casestudy(od, la, dev, card)
+    print("phase 10: the runtime bench and the examples")
+    bench = phase_runtime_bench(rt, od, la, cb, dev, card)
+    for row in rows[:2]:
+        row["launches_by_path"]["runtime_bench"] = bench["launches"][
+            row["name"]]
+        row["launches_by_path"]["examples"] = sum(
+            bench["examples"]["launches"][row["name"]].values())
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"casestudy": casestudy}))
+    print(json.dumps({"runtime_bench": bench}, default=str))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

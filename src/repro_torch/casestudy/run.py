@@ -1,6 +1,6 @@
 """The case study's entry point: one section per paper table/figure.
 
-    python -m repro_torch.casestudy.run [--device cpu]
+    python -m repro_torch.casestudy.run [--device cpu] [--out DIR]
 
 Prints ``section,name,us_per_call,derived`` CSV rows, as the reference's
 ``benchmarks/run.py`` does for the same sections:
@@ -11,7 +11,13 @@ Prints ``section,name,us_per_call,derived`` CSV rows, as the reference's
     MEAN;
   * Fig 8: the software FFT's time on the device against the modelled
     prototype;
-  * Fig 2: converter frontier gaps; Fig 3: complexity crossovers.
+  * Fig 2: converter frontier gaps; Fig 3: complexity crossovers;
+  * the offload runtime's benchmark (``runtime_bench``): its CSV rows and
+    the ``drift_gate`` row.  It writes its snapshot and history under
+    ``--out`` (default ``build/bench/``).
+
+The planner table and the roofline rows of the reference's driver are not
+here yet (ROADMAP.md, queue 1 item d).
 
 The first row after the header names the device the times were taken
 on.  It runs on the CUDA card unless ``--device cpu`` is given, and
@@ -21,15 +27,21 @@ fails without a card: there is no fallback.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
+
+from repro_torch.casestudy import runtime_bench as rb
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
+    ap.add_argument("--out", default=rb.OUT_DIR,
+                    help="directory of the runtime bench's snapshot and "
+                         f"history (default: {rb.OUT_DIR})")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -83,6 +95,16 @@ def main(argv: list[str] | None = None) -> int:
         n10 = r3["crossover_10x"][name]
         print(f"fig3,{name.replace(' ', '_')},,"
               f"crossover_1x=N{n}|crossover_10x=N{n10}")
+
+    # --- Offload runtime: batching amortization + telemetry round trip ------
+    # write_json also appends the record to the bench's history, which the
+    # drift gate's history band reads (loaded before this run appends).
+    history = rb.load_history(os.path.join(args.out, rb.HISTORY))
+    payload = rb.write_json(device, args.out)
+    for row in rb.run(payload):
+        print(row)
+    ok, msg = rb.drift_gate(payload["traced"]["drift"], history)
+    print(f"drift_gate,{'ok' if ok else 'FAIL'},,{msg}")
     return 0
 
 
