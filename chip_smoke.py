@@ -42,8 +42,18 @@ and read just after:
   benchmark's first bracketed output held to the CPU's on the same
   inputs; Table 1 beside the paper's, Fig. 8's software FFT, and
   ``flops_by_category`` of an LM loss on the card (its attention through
-  kernel 6) against the same count on ``meta``.  It launches no
-  hand-written kernel, and checks that.
+  kernel 6) against the same count on ``meta``; the planner table's rows
+  for the four ported dense architectures, priced at the H100's bf16
+  peak.  It launches no hand-written kernel, and checks that;
+* the runtime bench at the reference's sizes and both examples' mains;
+* dense serving at full width: qwen2.5-32b at its full width and depth
+  (64 layers, 65.5 GB of bf16 weights) and nemotron-4-340b at its full
+  width with its depth cut to 4 of 96 layers (46.5 GB; all 96 would be
+  682 GB), each serving the serving path's 8 requests with aux fft
+  frames, every prefill's attention on kernel 6's tensor-core route (D
+  128 with GQA 5, D 192 with GQA 12), tokens against an offline greedy
+  loop; kernel 6 at each model's prefill shape against its plain
+  version, forward and backward, and at D 256.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -56,6 +66,7 @@ It imports ``torch``, numpy and ``repro_torch`` only.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -179,6 +190,10 @@ def card_line() -> str:
 
 TC_KERNELS = ("attention_tc_kernel", "attention_bwd_kv_tc_kernel",
               "attention_bwd_q_tc_kernel")
+TC_HEAD_DIMS = (64, 128, 192, 256)
+# kernel 6's FMA kernels (each at 3 dtypes and 7 head-dim buckets)
+FMA_KERNELS = ("attention_kernel", "attention_bwd_kv_kernel",
+               "attention_bwd_q_kernel")
 # kernel 6's kernels as the profiler names them, both routes
 KERNEL6_NAMES = TC_KERNELS + ("attention_kernel<", "attention_bwd_kv_kernel<",
                               "attention_bwd_q_kernel<", "delta_kernel<")
@@ -868,38 +883,86 @@ def check_attention(la, dev, lens) -> float:
               (16, 333, 128, 2, torch.float32, False, 64),
               (32, 1023, 64, 8, torch.bfloat16, True, 200),
               (16, 333, 128, 2, torch.bfloat16, False, 64)]
+    # every head dim the reference's kernel takes up to 256: the FMA route
+    # between and at its buckets in f32 and float16, the tensor-core route
+    # at D 192 and 256 with GQA
+    cases += [(16, 1000, d, 2, dt, True, 0) for d in (48, 80, 192, 256)
+              for dt in (torch.float32, torch.float16)]
+    cases += [(24, 1023, 192, 12, torch.bfloat16, True, 0),
+              (16, 1000, 256, 16, torch.bfloat16, True, 0),
+              (16, 777, 256, 4, torch.bfloat16, False, 200)]
     for bh, l, d, g, dtype, causal, window in cases:
         q, k, v = attn_inputs(rng, bh, l, d, g, dtype, dev)
+        la.reset_launches()
         got = la.local_flash_attention(q, k, v, causal=causal, window=window,
                                        kv_groups=g)
         want = la.local_flash_attention_plain(q, k, v, causal=causal,
                                               window=window, kv_groups=g)
         torch.cuda.synchronize()
-        rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+        check(la.local_flash_attention.launches_by_route[la.route(dtype, d)]
+              == 1, f"attention ({bh}, {l}, {d}) {dtype} not launched on "
+              f"its route {la.route(dtype, d)}")
+        rtol, atol = {torch.float32: (2e-5, 2e-5),
+                      torch.float16: (2e-3, 1e-3)}.get(dtype, (1e-2, 1e-3))
         err = float((got.float() - want.float()).abs().max())
         check(max_violation(got.float(), want.float(), rtol, atol) <= 0.0,
               f"attention ({bh}, {l}, {d}) groups {g} {dtype} causal "
               f"{causal} window {window}: max |err| {err:.3e} outside rtol "
               f"{rtol} / atol {atol}")
-        if dtype == torch.bfloat16 and g == 1 and window == 0:
+        if dtype == torch.bfloat16 and g == 1 and window == 0 and d == 64:
             err_bf16 = max(err_bf16, err)
+    # a misaligned operand of the tensor-core route is copied once and
+    # launched there; a head dim past 256 raises
+    buf = torch.from_numpy(rng.standard_normal(24 * 517 * 192 + 1).astype(
+        np.float32)).to(device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(24, 517, 192)
+    k, v = (torch.randn_like(q[:2]) for _ in range(2))
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, kv_groups=12)
+    want = la.local_flash_attention_plain(q, k, v, kv_groups=12)
+    torch.cuda.synchronize()
+    check(la.local_flash_attention.realigned == 1
+          and la.local_flash_attention.launches_by_route ==
+          {"tensor_core": 1, "fma": 0}
+          and max_violation(got.float(), want.float(), 1e-2, 1e-3) <= 0.0,
+          f"misaligned D-192 operand: realigned "
+          f"{la.local_flash_attention.realigned}, routes "
+          f"{la.local_flash_attention.launches_by_route}")
+    try:
+        la.local_flash_attention(*attn_inputs(rng, 4, 64, 264, 1,
+                                              torch.bfloat16, dev))
+        check(False, "head dim 264 did not raise")
+    except ValueError as e:
+        check("ROADMAP" in str(e), f"head dim 264 raised {e}")
     print(f"  attention kernel vs plain: {len(cases)} shapes ok (bf16 "
           f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}, at rtol "
-          "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5; bf16 at D 128 "
-          "and bf16 GQA at 1e-2 / 1e-3)")
+          "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5; bf16 at D 128, "
+          "192 and 256 and bf16 GQA at 1e-2 / 1e-3; the FMA route at D 48, "
+          "80, 192 and 256 in f32 at 2e-5 and float16 at 2e-3 / 1e-3); a "
+          "misaligned D-192 operand realigned once on the tensor-core "
+          "route; D 264 raises")
     return err_bf16
 
 
-def phase_serving(rt, od, la, dev) -> dict:
-    from repro_torch import configs
+def serve_requests(rt, od, la, dev, cfg) -> tuple:
+    """``cfg`` at random weights from SEED serving PROMPT_LENS's 8
+    requests through ``ServingEngine`` (SLOTS slots of MAX_LEN) with
+    AUX_FRAMES fft frames on its ``OffloadScheduler``, every kernel's
+    count set to 0 just before and read just after; then its checks:
+    one tensor-core launch of kernel 6 per layer and prefill, the aux
+    frames through the DFT kernels' tensor-core route and within 2e-4*max
+    + one ADC step of the host, finite logits, and the tokens of
+    OFFLINE_RIDS equal to an offline greedy loop.  Returns (engine,
+    requests, the run's numbers)."""
     from repro_torch.models import init_params, param_counts
+    from repro_torch.models.params import leaves
     from repro_torch.serving import Request, ServingEngine
 
-    cfg = configs.get_config(ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
-           cfg.vocab_size) == (24, 2048, 32, 64, 5632, 100352),
-          f"{ARCH} is not at full width and depth")
+    arch = cfg.name
+    gc.collect()             # an earlier model's engine, cycles included
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
@@ -909,8 +972,12 @@ def phase_serving(rt, od, la, dev) -> dict:
                            offload=sched)
     engine.model = CheckedLM(engine.model, dev)
     torch.cuda.synchronize()
-    print(f"  {ARCH}: {param_counts(cfg)[0]:,} parameters, init + load "
-          f"{time.perf_counter() - t0:.2f} s")
+    weight_gb = sum(t.numel() * t.element_size()
+                    for _, t in leaves(params)) / 1e9
+    init_s = time.perf_counter() - t0
+    print(f"  {arch}: {param_counts(cfg)[0]:,} parameters ({weight_gb:.2f} "
+          f"GB of weights), init + load {init_s:.2f} s, "
+          f"{held_gb:.2f} GB held before it")
 
     # warm-up request (cuBLAS handles, the kernel library), not counted
     engine.submit(Request(rid=-1, prompt=list(range(1, 101)),
@@ -1018,6 +1085,41 @@ def phase_serving(rt, od, la, dev) -> dict:
           f"{'also agree' if single == reqs[OFFLINE_RIDS[0]].out_tokens else 'differ'}")
     ex.close()
 
+    ttfts = [ttft[r.rid] * 1e3 for r in reqs]
+    dec_s = sum(t for t, _ in decode_steps)
+    dec_tokens = sum(n for _, n in decode_steps)
+    step_ms = [t * 1e3 for t, _ in decode_steps]
+    out = {"arch": arch, "n_layers": cfg.n_layers, "slots": SLOTS,
+           "max_len": MAX_LEN, "max_new_tokens": MAX_NEW,
+           "prompt_lens": list(PROMPT_LENS), "steps": steps,
+           "wall_s": wall_s, "launches": launches,
+           "aux_batches": aux_batches,
+           "ttft_ms": ttfts, "ttft_ms_median": statistics.median(ttfts),
+           "decode_steps": len(decode_steps),
+           "decode_step_ms_median": statistics.median(step_ms),
+           "decode_tokens_per_s": dec_tokens / dec_s,
+           "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+           "weight_gb": weight_gb, "init_s": init_s,
+           "offline_single_lane_agrees": single ==
+           reqs[OFFLINE_RIDS[0]].out_tokens}
+    print(f"  time to first token (ms, from submit): "
+          f"{', '.join(f'{t:.1f}' for t in ttfts)}; decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s over {len(decode_steps)} "
+          f"steps without a prefill, median step "
+          f"{out['decode_step_ms_median']:.3f} ms")
+    return engine, reqs, out
+
+
+def phase_serving(rt, od, la, dev) -> dict:
+    from repro_torch import configs
+
+    cfg = configs.get_config(ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff,
+           cfg.vocab_size) == (24, 2048, 32, 64, 5632, 100352),
+          f"{ARCH} is not at full width and depth")
+    engine, reqs, out = serve_requests(rt, od, la, dev, cfg)
+    model = engine.model.model
+
     def decode() -> float:
         tokens = torch.tensor([[t] for t in engine.last_token], device=dev)
         t0 = time.perf_counter()
@@ -1043,63 +1145,19 @@ def phase_serving(rt, od, la, dev) -> dict:
     print(f"  unprofiled: decode step {unprofiled['decode_step_ms']} ms, "
           f"prefill of {n} tokens {unprofiled['prefill_ms']} ms")
 
-    ttfts = [ttft[r.rid] * 1e3 for r in reqs]
-    dec_s = sum(t for t, _ in decode_steps)
-    dec_tokens = sum(n for _, n in decode_steps)
-    step_ms = [t * 1e3 for t, _ in decode_steps]
-    out = {"arch": ARCH, "slots": SLOTS, "max_len": MAX_LEN,
-           "max_new_tokens": MAX_NEW, "prompt_lens": list(PROMPT_LENS),
-           "steps": steps, "wall_s": wall_s, "launches": launches,
-           "aux_batches": aux_batches,
-           "ttft_ms": ttfts, "ttft_ms_median": statistics.median(ttfts),
-           "decode_steps": len(decode_steps),
-           "decode_step_ms_median": statistics.median(step_ms),
-           "decode_tokens_per_s": dec_tokens / dec_s,
-           "peak_memory_gb": peak_gb,
-           "offline_single_lane_agrees": single ==
-           reqs[OFFLINE_RIDS[0]].out_tokens,
-           "unprofiled": unprofiled, "profiled": profiled}
-    print(f"  time to first token (ms, from submit): "
-          f"{', '.join(f'{t:.1f}' for t in ttfts)}; decode "
-          f"{out['decode_tokens_per_s']:.1f} tok/s over {len(decode_steps)} "
-          f"steps without a prefill, median step "
-          f"{out['decode_step_ms_median']:.3f} ms")
+    out.update(unprofiled=unprofiled, profiled=profiled)
     return out
 
 
 def attention_times(la, dev, serving: dict, err: float) -> dict:
-    """Kernel 6 at (1, 32, L, 64) bf16 causal for L in ATTN_TIMED_LENS:
-    kernel, plain version and one ``scaled_dot_product_attention`` call
-    (the library yardstick; the port never calls it), with the bound."""
-    import torch.nn.functional as F
-    rng = np.random.default_rng(SEED + 6)
-    rows = {}
-    for l in ATTN_TIMED_LENS:
-        bh, d = 32, 64
-        q, k, v = attn_inputs(rng, bh, l, d, 1, torch.bfloat16, dev)
-        q4, k4, v4 = (t.view(1, bh, l, d) for t in (q, k, v))
-        kern = lambda: la.local_flash_attention(q, k, v, causal=True)
-        plain = lambda: la.local_flash_attention_plain(q, k, v, causal=True)
-        ms = [median_ms(kern), median_ms(plain), median_ms(plain),
-              median_ms(kern)]
-        library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
-        flops = 2 * bh * l * l * d          # QK^T and PV, causal half each
-        nbytes = 4 * bh * l * d * 2         # q, k, v read, out written
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        rows[l] = {"ms": statistics.mean((ms[0], ms[3])),
-                   "plain_ms": statistics.mean((ms[1], ms[2])),
-                   "library_ms": library_ms,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "flops": flops, "bytes": nbytes}
-        r = rows[l]
-        print(f"  local_flash_attention (1, {bh}, {l}, {d}) bf16 causal: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {flops / (r['ms'] * 1e-3) / 1e12:.2f} "
-              "TFLOP/s")
+    """Kernel 6 at (1, 32, L, 64) bf16 causal for L in ATTN_TIMED_LENS
+    (``attention_case``: kernel, plain version, SDPA and the bound), and
+    the host cost of its TMA descriptors."""
+    rows = {l: attention_case(la, dev, 32, 32, l, 64)
+            for l in ATTN_TIMED_LENS}
+    bh, l, d = 32, max(ATTN_TIMED_LENS), 64
+    q, k, v = attn_inputs(np.random.default_rng(SEED + 6), bh, l, d, 1,
+                          torch.bfloat16, dev)
     # the host cost of the tensor-core forward's three TMA descriptors, per
     # forward call, at the serving shape
     reps = 10000
@@ -1123,6 +1181,116 @@ def attention_times(la, dev, serving: dict, err: float) -> dict:
             "kernel_route": la.route(torch.bfloat16, 64),
             "descriptor_encode_us": encode_us,
             "at": {str(l): rows[l] for l in ATTN_TIMED_LENS}}
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for ``flops`` bf16 tensor
+    operations moving ``nbytes``, and which of the two bounds it."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
+                   window: int = 0, backward: bool = False) -> dict:
+    """Kernel 6 at one (1, h, l, d) bf16 causal attention on hkv KV heads:
+    held to its plain version (forward at rtol 1e-2 / atol 1e-3, the
+    backward within 2e-2 * max|plain| and bit-equal on a repeat), then
+    timed beside the plain version and one
+    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+    call (the library yardstick; the port never calls it), with the bound
+    from this shape's visible pairs."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(SEED + 10 + d)
+    g = h // hkv
+    q, k, v = attn_inputs(rng, h, l, d, g, torch.bfloat16, dev)
+    kw = dict(causal=True, window=window, kv_groups=g)
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, **kw)
+    want = la.local_flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(la.local_flash_attention.launches_by_route ==
+          {"tensor_core": 1, "fma": 0}
+          and max_violation(got.float(), want.float(), 1e-2, 1e-3) <= 0.0,
+          f"attention ({h}/{hkv}, {l}, {d}) bf16: route "
+          f"{la.local_flash_attention.launches_by_route}, max |err| "
+          f"{err:.3e} outside rtol 1e-2 / atol 1e-3")
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+    scale = d ** -0.5
+    kern = lambda: la.local_flash_attention(q, k, v, **kw)
+    plain = lambda: la.local_flash_attention_plain(q, k, v, **kw)
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                 enable_gqa=True)
+    t = [median_ms(kern), median_ms(plain), median_ms(plain), median_ms(kern)]
+    if window and window < l:   # SDPA's causal mask has no window
+        lib = None
+    vis = sum(min(i + 1, window) if window else i + 1 for i in range(l))
+    flops = 4 * vis * d * h                 # QK^T and PV over visible pairs
+    nbytes = 2 * l * d * (2 * h + 2 * hkv)  # q, out and k, v in bf16
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"shape": [h, hkv, l, d], "dtype": "bfloat16", "causal": True,
+           "window": window, "kernel_route": la.route(torch.bfloat16, d),
+           "max_abs_err": err, "ms": statistics.mean((t[0], t[3])),
+           "plain_ms": statistics.mean((t[1], t[2])),
+           "library_ms": None if lib is None else median_ms(lib),
+           "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+           "bytes": nbytes}
+    if backward:
+        dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+            np.float32)).to(device=dev, dtype=torch.bfloat16)
+        out, lse = la._forward(q, k, v, scale, window, True, g,
+                               with_lse=True)
+        grads = la._backward(q, k, v, out, lse, dout, scale, window, True, g)
+        again = la._backward(q, k, v, out, lse, dout, scale, window, True, g)
+        plain_g = attn_grads(lambda *a: la.local_flash_attention_plain(
+            *a, **kw), q, k, v, dout)[1:]
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b, c in zip(("dq", "dk", "dv"), grads, plain_g, again):
+            e = float((a.float() - b.float()).abs().max())
+            top = float(b.float().abs().max())
+            check(e <= 2e-2 * top and torch.equal(a, c),
+                  f"attention backward {name} ({h}/{hkv}, {l}, {d}): max "
+                  f"|err| {e:.3e} > 2e-2 * {top:.3e} or not bit-equal on a "
+                  "repeat")
+            errs.append(e)
+        qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+        p_out = la.local_flash_attention_plain(qp, kp, vp, **kw)
+        q4g, k4g, v4g = (x.unsqueeze(0).detach().requires_grad_()
+                         for x in (q, k, v))
+        l_out = F.scaled_dot_product_attention(q4g, k4g, v4g,
+                                               is_causal=True,
+                                               enable_gqa=True)
+        kern_b = lambda: la._backward(q, k, v, out, lse, dout, scale, window,
+                                      True, g)
+        plain_b = lambda: torch.autograd.grad(p_out, (qp, kp, vp), dout,
+                                              retain_graph=True)
+        lib_b = lambda: torch.autograd.grad(l_out, (q4g, k4g, v4g),
+                                            dout.unsqueeze(0),
+                                            retain_graph=True)
+        tb = [median_ms(kern_b), median_ms(plain_b), median_ms(plain_b),
+              median_ms(kern_b)]
+        # 2.5x the forward's products; q, k, v, out, dout and lse read,
+        # dq, dk, dv written
+        bb_ms, bb_by = bound(5 * flops / 2, nbytes + 2 * l * d * (
+            2 * h + 2 * hkv) + 4 * h * l)
+        row["backward"] = {
+            "max_abs_err": max(errs), "ms": statistics.mean((tb[0], tb[3])),
+            "plain_ms": statistics.mean((tb[1], tb[2])),
+            "library_ms": None if lib is None else median_ms(lib_b),
+            "bound_ms": bb_ms, "bound_by": bb_by}
+    print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}, D {d}) bf16 "
+          f"causal{f' window {window}' if window else ''}: forward "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
+          f"{row['library_ms']}, bound {b_ms:.4f} ({b_by}); max |err| "
+          f"{err:.3e}" + ("" if not backward else
+                          f"; backward {row['backward']['ms']:.4f} ms, plain "
+                          f"{row['backward']['plain_ms']:.4f}, SDPA "
+                          f"{row['backward']['library_ms']}, bound "
+                          f"{bb_ms:.4f} ({bb_by})"))
+    return row
 
 
 # --- phase 6: the training path ----------------------------------------------
@@ -1151,7 +1319,12 @@ def check_attention_backward(la, dev) -> float:
              (32, 517, 64, 4, torch.float32, True, 0, 1e-4),
              (32, 777, 64, 1, torch.float32, True, 256, 1e-4),
              (16, 333, 128, 2, torch.float32, False, 64, 1e-4),
-             (32, 1023, 64, 8, torch.bfloat16, True, 200, 2e-2)]
+             (32, 1023, 64, 8, torch.bfloat16, True, 200, 2e-2),
+             (48, 1024, 192, 12, torch.bfloat16, True, 0, 2e-2),
+             (16, 1000, 256, 16, torch.bfloat16, True, 0, 2e-2),
+             (16, 517, 192, 2, torch.float32, True, 0, 1e-4),
+             (16, 333, 256, 1, torch.float32, False, 64, 1e-4),
+             (16, 517, 80, 2, torch.float16, True, 0, 2e-2)]
     err_train = 0.0
     for bhq, l, d, g, dtype, causal, window, tol in cases:
         q, k, v = attn_inputs(rng, bhq, l, d, g, dtype, dev)
@@ -1182,7 +1355,10 @@ def check_attention_backward(la, dev) -> float:
     print(f"  attention backward vs plain autograd: {len(cases)} shapes ok "
           f"(bf16 causal ({bh}, {TRAIN_SEQ}, 64), the training shape: max "
           f"|err| {err_train:.3e} within 2e-2 * max|plain|; f32, GQA and "
-          "windowed within 1e-4 * max|plain|); bit-equal on a repeat launch")
+          "windowed within 1e-4 * max|plain|; bf16 at D 192 and 256 on the "
+          "tensor-core route and float16 at D 80 within 2e-2 * max|plain|, "
+          "f32 at D 192 and 256 within 1e-4 * max|plain|); bit-equal on a "
+          "repeat launch")
     return err_train
 
 
@@ -1351,13 +1527,7 @@ def attention_train_times(la, dev, training: dict, err: float,
     flops_b = 5 * flops_f // 2            # dS, dQ, dK, dV and P: 2.5x
     bytes_f = 2 * 4 * bh * l * d + 4 * bh * l          # q k v out + lse
     bytes_b = 2 * 8 * bh * l * d + 4 * bh * l          # + dout, dq dk dv
-    bound = {}
-    for name, fl, by in (("fwd", flops_f, bytes_f), ("bwd", flops_b,
-                                                     bytes_b)):
-        t_ops = fl / PEAK_BF16_FLOPS * 1e3
-        t_bytes = by / PEAK_BYTES_S * 1e3
-        bound[name] = (max(t_ops, t_bytes),
-                       "operations" if t_ops >= t_bytes else "bytes")
+    bounds = {"fwd": bound(flops_f, bytes_f), "bwd": bound(flops_b, bytes_b)}
     flops = {"fwd": flops_f, "bwd": flops_b}
     for name, label in (("fwd", "forward (with lse)"), ("bwd", "backward")):
         print(f"  [{card}] local_flash_attention {label} ({bh}, {l}, {d}) "
@@ -1365,7 +1535,7 @@ def attention_train_times(la, dev, training: dict, err: float,
               f"({flops[name] / ms[name] / 1e9:.1f} TFLOP/s), plain "
               f"{ms['plain_' + name]:.4f} ms, SDPA {ms['lib_' + name]:.4f} "
               f"ms ({flops[name] / ms['lib_' + name] / 1e9:.1f} TFLOP/s), "
-              f"bound {bound[name][0]:.4f} ms ({bound[name][1]})")
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     # the model's call: q, k, v come transposed from (B, S, H, hd), and
     # ops.gqa_flash_attention makes each contiguous before the kernel
     from repro_torch.kernels import ops
@@ -1387,8 +1557,8 @@ def attention_train_times(la, dev, training: dict, err: float,
                "call_site_device_ms": call_ms,
                "call_site_copies_ms": copies_ms,
                "ms": ms["fwd"], "plain_ms": ms["plain_fwd"],
-               "library_ms": ms["lib_fwd"], "bound_ms": bound["fwd"][0],
-               "bound_by": bound["fwd"][1],
+               "library_ms": ms["lib_fwd"], "bound_ms": bounds["fwd"][0],
+               "bound_by": bounds["fwd"][1],
                "launches": training["launches"]["local_flash_attention"]}
     bwd_row = {"name": "local_flash_attention_backward", "route": "cuda",
                "source": ATTN_SOURCE,
@@ -1396,14 +1566,64 @@ def attention_train_times(la, dev, training: dict, err: float,
                "launches": training["launches"][
                    "local_flash_attention_backward"],
                "max_abs_err": err, "ms": ms["bwd"],
-               "plain_ms": ms["plain_bwd"], "bound_ms": bound["bwd"][0],
-               "bound_by": bound["bwd"][1], "library_ms": ms["lib_bwd"],
+               "plain_ms": ms["plain_bwd"], "bound_ms": bounds["bwd"][0],
+               "bound_by": bounds["bwd"][1], "library_ms": ms["lib_bwd"],
                "shape": [bh, l, d], "dtype": "bfloat16", "causal": True,
                "kernel_route": la.route(torch.bfloat16, d),
                "tflops": flops_b / ms["bwd"] / 1e9,
                "fwd_plus_bwd_ms": ms["fwd"] + ms["bwd"],
                "library_fwd_plus_bwd_ms": ms["lib_fwd"] + ms["lib_bwd"]}
     return fwd_row, bwd_row
+
+
+# --- phase 11: dense serving at full width -------------------------------------
+
+# (arch, the layers kept, None for all): nemotron-4-340b's 96 layers would
+# be 682 GB of bf16; 4 layers and the untied embed and head are 46.5 GB
+DENSE_SERVING = (("qwen2.5-32b", None), ("nemotron-4-340b", 4))
+# (layers, d_model, heads, KV heads, head dim, d_ff, vocab) as published
+DENSE_WIDTHS = {"qwen2.5-32b": (64, 5120, 40, 8, 128, 27648, 152064),
+                "nemotron-4-340b": (96, 18432, 96, 8, 192, 73728, 256000)}
+PREFILL_L = 1024         # kernel 6's check and timing: the longest prompt
+                         # (1023 tokens) rounded up to whole 64-key tiles
+
+
+def phase_dense_serving(rt, od, la, dev, card: str) -> dict:
+    """qwen2.5-32b at full width and depth and nemotron-4-340b at full
+    width on 4 of its 96 layers, each serving phase 5's traffic; kernel 6
+    at each model's prefill attention against its plain version."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import param_counts
+
+    out = {}
+    for arch, layers in DENSE_SERVING:
+        cfg = configs.get_config(arch)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.head_dim_, cfg.d_ff, cfg.vocab_size) == DENSE_WIDTHS[arch],
+              f"{arch} is not at its published width and depth")
+        full_params = param_counts(cfg)[0]
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+            print(f"  {arch}: depth cut to {layers} of "
+                  f"{DENSE_WIDTHS[arch][0]} layers at full width "
+                  f"({param_counts(cfg)[0]:,} of {full_params:,} "
+                  "parameters)")
+        check(la.route(cfg.activation_dtype, cfg.head_dim_) == "tensor_core",
+              f"{arch}'s attention (D {cfg.head_dim_}) is not on kernel 6's "
+              "tensor-core route")
+        _, _, run = serve_requests(rt, od, la, dev, cfg)
+        run["full_params"] = full_params
+        run["depth_cut"] = layers
+        run["kernel6"] = attention_case(la, dev, cfg.n_heads, cfg.n_kv_heads,
+                                        PREFILL_L, cfg.head_dim_,
+                                        backward=True)
+        print(f"  [{card}] {arch}: TTFT median {run['ttft_ms_median']:.1f} "
+              f"ms, decode {run['decode_tokens_per_s']:.1f} tok/s, peak "
+              f"memory {run['peak_memory_gb']:.2f} GB, weights "
+              f"{run['weight_gb']:.2f} GB")
+        out[arch] = run
+    return out
 
 
 # --- phase 7: the converter boundary -------------------------------------------
@@ -2016,12 +2236,33 @@ def phase_casestudy(od, la, dev, card: str) -> dict:
           f"Fig. 8 is not finite: {r8}")
 
     flops = casestudy_flops(la, dev)
+    planner = planner_rows()
     wall = time.perf_counter() - t0
     print(f"  [{card}] phase wall {wall:.2f} s (suite {suite_s:.2f} s)")
     return {"card": card, "table1": table, "median": median, "mean": mean,
             "paper_median": PAPER_MEDIAN, "paper_mean": PAPER_MEAN,
-            "fig8": r8, "flops": flops, "suite_wall_s": suite_s,
-            "phase_wall_s": wall}
+            "fig8": r8, "flops": flops, "planner": planner,
+            "suite_wall_s": suite_s, "phase_wall_s": wall}
+
+
+def planner_rows() -> list[dict]:
+    """The planner table's rows (its counts on meta), host seconds priced
+    at the H100's dense bf16 peak."""
+    from repro_torch.casestudy import planner_table as planner
+    check(planner.HOST_PEAK == PEAK_BF16_FLOPS,
+          f"the planner prices at {planner.HOST_PEAK}, not the H100's bf16 "
+          f"peak {PEAK_BF16_FLOPS}")
+    rows = planner.run()
+    print(f"  planner table at {planner.HOST_PEAK:.3g} FLOP/s (H100 bf16):")
+    for r in rows:
+        check(r["mvm_speedup"] >= 1.0 and r["fourier_speedup"] >= 1.0,
+              f"planner row {r}")
+        print(f"  planner,{r['arch']},mvm={r['mvm_speedup']:.4f}x"
+              f"|fourier={r['fourier_speedup']:.4f}x"
+              f"|matmul_flops={r['flops_pct'].get('matmul', 0.0):.2f}%"
+              f"|worthwhile={r['mvm_worthwhile']}"
+              f"|conversion_bound={r['mvm_conversion_bound']}")
+    return rows
 
 
 # --- phase 10: the runtime bench and the examples ----------------------------
@@ -2336,9 +2577,20 @@ def main() -> int:
     for r in tc_build:
         print(f"  ptxas: {r['kernel']}<{r['d']}>: {r['registers']} registers, "
               f"{r['spill_bytes']} bytes spilled")
-    check(len(tc_build) == 2 * len(TC_KERNELS)
+    check(sorted((r["kernel"], r["d"]) for r in tc_build) ==
+          sorted((k, d) for k in TC_KERNELS for d in TC_HEAD_DIMS)
           and all(r["spill_bytes"] == 0 for r in tc_build),
           f"kernel 6's tensor-core kernels spill or are missing: {tc_build}")
+    fma_build = ptxas_report(build.build_log("local_attention"),
+                             FMA_KERNELS)
+    spills = [r for r in fma_build if r["spill_bytes"]]
+    print(f"  ptxas: kernel 6's FMA route, {len(fma_build)} instantiations "
+          f"(3 kernels x 3 dtypes x 7 head-dim buckets), registers "
+          f"{min(r['registers'] for r in fma_build)}-"
+          f"{max(r['registers'] for r in fma_build)}, spilling: "
+          f"{[(r['entry'], r['spill_bytes']) for r in spills]}")
+    check(len(fma_build) == 3 * 3 * 7,
+          f"kernel 6's FMA kernels are missing: {len(fma_build)} built")
     dft_build = ptxas_report(build.build_log("optical_dft"), DFT_TC_KERNELS)
     for r in dft_build:
         print(f"  ptxas: {r['kernel']}: {r['registers']} registers, "
@@ -2407,12 +2659,35 @@ def main() -> int:
             row["name"]]
         row["launches_by_path"]["examples"] = sum(
             bench["examples"]["launches"][row["name"]].values())
+    print("phase 11: dense serving at full width")
+    dense = phase_dense_serving(rt, od, la, dev, card)
+    for row in rows[:2]:
+        row["launches_by_path"]["dense_serving"] = sum(
+            run["launches"][row["name"]] for run in dense.values())
+    # kernel 6 beyond the main path: D 256 (recurrentgemma's local
+    # attention, 16 heads on 1 KV head, window 2048) forward and backward
+    attn_row["at_d256"] = attention_case(la, dev, 16, 1, PREFILL_L, 256,
+                                         window=2048, backward=True)
+    for arch, name in (("qwen2.5-32b", "local_flash_attention_d128_gqa5"),
+                       ("nemotron-4-340b",
+                        "local_flash_attention_d192_gqa12")):
+        k6 = dense[arch]["kernel6"]
+        rows.append({"name": name, "route": "cuda", "source": ATTN_SOURCE,
+                     "replaces": REPLACES["local_flash_attention"],
+                     "launches": dense[arch]["launches"][
+                         "local_flash_attention"],
+                     **{key: k6[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape", "dtype",
+                         "kernel_route", "backward")},
+                     "path": f"phase 11 serving {arch}"})
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"casestudy": casestudy}))
     print(json.dumps({"runtime_bench": bench}, default=str))
+    print(json.dumps({"dense_serving": dense}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,17 @@ Prints ``section,name,us_per_call,derived`` CSV rows, as the reference's
   * Fig 8: the software FFT's time on the device against the modelled
     prototype;
   * Fig 2: converter frontier gaps; Fig 3: complexity crossovers;
+  * the planner: the paper's decision rule on each ported LM
+    architecture (``planner_table``), host seconds priced at the H100's
+    bf16 peak;
   * the offload runtime's benchmark (``runtime_bench``): its CSV rows and
     the ``drift_gate`` row.  It writes its snapshot and history under
     ``--out`` (default ``build/bench/``).
 
-The planner table and the roofline rows of the reference's driver are not
-here yet (ROADMAP.md, queue 1 item d).
+The planner covers the four dense architectures the port runs; the other
+six come with their model code (ROADMAP.md, queue 1 items g and h).  The
+roofline rows of the reference's driver are not here yet: they read the
+dry run's cells (ROADMAP.md, queue 1 item d).
 
 The first row after the header names the device the times were taken
 on.  It runs on the CUDA card unless ``--device cpu`` is given, and
@@ -95,6 +100,16 @@ def main(argv: list[str] | None = None) -> int:
         n10 = r3["crossover_10x"][name]
         print(f"fig3,{name.replace(' ', '_')},,"
               f"crossover_1x=N{n}|crossover_10x=N{n10}")
+
+    # --- Planner: the ported archs under the decision rule -----------------------
+    from repro_torch.casestudy.planner_table import run as planner
+    for row in planner():
+        mm = row["flops_pct"].get("matmul", 0.0)
+        print(f"planner,{row['arch']},,mvm={row['mvm_speedup']:.2f}x"
+              f"|fourier={row['fourier_speedup']:.2f}x"
+              f"|matmul_flops={mm:.1f}%"
+              f"|worthwhile={row['mvm_worthwhile']}"
+              f"|conversion_bound={row['mvm_conversion_bound']}")
 
     # --- Offload runtime: batching amortization + telemetry round trip ------
     # write_json also appends the record to the bench's history, which the

@@ -4,17 +4,21 @@
 reduced configs of an architecture the port runs.  ``ARCHS`` names every
 architecture of the reference; one whose model code the port does not
 have yet raises ``NotImplementedError`` (``ROADMAP.md`` lists the order in
-which they come).  ``input_specs`` and the shape table wait for the
-dry-run's port.
+which they come).  The shape table (``SHAPES``, ``Shape``,
+``applicable``, ``applicable_shapes``) is the reference's; ``input_specs``
+waits for the dry run's port.
 """
 
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import (SHAPES, Shape, applicable,
+                                        applicable_shapes)
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["ARCHS", "PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "PORTED", "get_config", "get_smoke_config", "SHAPES",
+           "Shape", "applicable", "applicable_shapes"]
 
 ARCHS: dict[str, str] = {
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
@@ -30,7 +34,8 @@ ARCHS: dict[str, str] = {
 }
 
 # architectures whose configs and model code the port has
-PORTED: tuple[str, ...] = ("qwen2-72b", "stablelm-1.6b")
+PORTED: tuple[str, ...] = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b",
+                           "nemotron-4-340b")
 
 
 def _module(arch: str):

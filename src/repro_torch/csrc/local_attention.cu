@@ -15,47 +15,69 @@
 // heads is 2 * 32 * L^2 * D = 4.3 GFLOP (QK^T and PV over the lower
 // triangle) against 16.8 MB of bf16 q, k, v and out, so at the card's bf16
 // rate (989 TFLOP/s) and memory rate (3.35 TB/s) both bounds are about
-// 5 us and the bytes bound is the larger.  Two routes, chosen by the
-// caller from the dtype and the head dim, never by a failure:
+// 5 us and the bytes bound is the larger.  The FLOPs grow with the query
+// heads and the bytes with the KV heads, so under GQA the operations bound
+// wins: nemotron-4-340b's prefill (96 query heads on 8 KV heads, D 192)
+// is 3.87e10 FLOP against 81.8 MB, 39 us against 24 us.  Two routes,
+// chosen by the caller from the dtype and the head dim, never by a
+// failure:
 //
-// * The tensor-core route (bf16, D in {64, 128}: every attention of the
-//   serving and training paths).  The forward is warp-specialised: one
-//   CTA of three warpgroups per (batch*head, 128-query tile), the
-//   heaviest causal tiles launched first.  A producer warpgroup gives up
-//   registers (setmaxnreg) and one of its threads starts TMA loads: the
-//   Q tile once, then 64-key K and V tiles into a two-stage ring, each
-//   stage with a full and an empty mbarrier.  Two consumer warpgroups own
-//   64 query rows each: S = Q K^T is wgmma (both operands in shared
-//   memory, 128-byte swizzled as TMA wrote them), the online softmax runs
-//   on the accumulator fragment in registers, and O += P V is wgmma with
-//   P from registers and V as the transposed (MN-major) shared operand.
-//   S is exact in its products (bf16 x bf16 into fp32); P is not bf16,
-//   so it is split into hi = bf16(p) and lo = bf16(p - hi), two products
-//   into the same fp32 accumulator: about 16 bits of P, 1.5x the
-//   tensor-core products.  With the products there, what bounds the
-//   forward is the softmax on the CUDA cores (a scale, a max, an exp, a
-//   sum and the split per score), so it runs in the log2 domain (each
-//   exponential one exp2) and interior tiles compile without masks.  The
-//   TMA descriptors are 3-D, (D, L, heads),
+// * The tensor-core route (bf16, D in {64, 128, 192, 256}: every
+//   attention of the serving and training paths).  The forward is
+//   warp-specialised: one CTA of three warpgroups per (batch*head,
+//   128-query tile; at D 256 two warpgroups and 64 queries), the
+//   heaviest causal tiles launched first.  A
+//   producer warpgroup gives up registers (setmaxnreg) and one of its
+//   threads starts TMA loads: the Q tile once, then 64-key K and V tiles
+//   into a two-stage ring, each stage with a full and an empty mbarrier.
+//   Each tile is D / 64 sub-tiles of 64 columns, so D only changes how
+//   many boxes a load takes and how many n64 products a step issues:
+//   shared memory is 145 KB at D 192 (of 227 KB).  A consumer thread
+//   holds D / 2 fp32 of O beside 32 of S and 32 of P; ptxas compiles the
+//   kernel at the 384-thread launch bound's 168 registers, which that
+//   fits up to D 192.  At D 256 (O alone is 128 registers) one consumer
+//   owns a 64-query CTA of two warpgroups, compiled at up to 255
+//   registers, in 161 KB of shared memory (tc_consumers).  Each
+//   consumer warpgroup owns 64 query rows: S = Q K^T is wgmma (both
+//   operands in shared memory, 128-byte swizzled as TMA wrote them), the
+//   online softmax runs on the accumulator fragment in registers, and
+//   O += P V is wgmma with P from registers and V as the transposed
+//   (MN-major) shared operand.  S is exact in its products (bf16 x bf16
+//   into fp32); P is not bf16, so it is split into hi = bf16(p) and
+//   lo = bf16(p - hi), two products into the same fp32 accumulator: about
+//   16 bits of P, 1.5x the tensor-core products.  With the products
+//   there, what bounds the forward is the softmax on the CUDA cores (a
+//   scale, a max, an exp, a sum and the split per score), so it runs in
+//   the log2 domain (each exponential one exp2) and interior tiles
+//   compile without masks.  The TMA descriptors are 3-D, (D, L, heads),
 //   so the ragged last key tile of a head reads zeros, never the next
 //   head's keys; keys past Lk are still masked, since a zero key scores
 //   0, not -1e30.  The backward keeps the FMA route's structure (below)
 //   with every product on mma.sync.m16n8k16 bf16: operands through
 //   ldmatrix (.trans where a tile serves in the other role) from padded
 //   shared tiles, the streamed tiles double-buffered with cp.async, P
-//   and dS split hi/lo as in the forward.
-// * The FMA route (float32 at every head dim, bf16 at D <= 32): every
-//   product is an fp32 FMA on the CUDA cores (67 TFLOP/s peak), so that
-//   it meets the reference's f32 bound (rtol/atol 2e-5).  One block of
-//   256 threads per (batch*head, 64-query tile).  Four neighbouring
-//   lanes share one query row: each keeps the whole query row in
-//   registers, 16 of the tile's 64 scores, and D/4 columns of the fp32
-//   accumulator.  The block loops over 64-key tiles of K and V, staged
-//   through shared memory as fp32; that loop takes the place of the
-//   TPU's sequential kv grid axis and its VMEM scratch (acc, m, l).  Row
-//   max and row sum are reduced across the four lanes with shuffles; P
-//   goes through shared memory to the P.V product, read only by its own
-//   warp.
+//   and dS split hi/lo as in the forward.  Above D 128 its accumulators
+//   (dK and dV, 2 x 64 x D fp32 a CTA) would not fit 128 threads'
+//   registers, so eight warps split the columns (tcb_splits).
+// * The FMA route (float32 and float16 at every head dim from 1 to 256,
+//   bf16 at the rest): every product is an fp32 FMA on the CUDA cores
+//   (67 TFLOP/s peak), so that it meets the reference's f32 bound
+//   (rtol/atol 2e-5).  The kernels are built for head-dim buckets DP of
+//   8, 16, 32, 64, 128, 192 and 256 and take the head dim d at run time:
+//   tiles are zero past column d (a zero adds nothing to a dot product)
+//   and only columns below d are stored, so the result does not depend on
+//   the bucket.  One block of 4 R threads per (batch*head, R-query tile),
+//   R = 64 up to DP 128 and 32 above (fma_rows), so that the fp32 tiles
+//   fit in shared memory (at most 162 KB, the dK/dV kernel at DP 128)
+//   and the accumulators in registers.  Four neighbouring lanes share one
+//   query row: each keeps R / 4 of the tile's R scores and DP / 4 columns
+//   of the fp32 accumulator, and up to DP 128 the whole query row in
+//   registers (above, it is read from shared memory).  The block loops
+//   over R-key tiles of K and V, staged through shared memory as fp32;
+//   that loop takes the place of the TPU's sequential kv grid axis and
+//   its VMEM scratch (acc, m, l).  Row max and row sum are reduced across
+//   the four lanes with shuffles; P goes through shared memory to the
+//   P.V product, read only by its own warp.
 //
 // Both routes skip tiles that are fully masked for every row of the
 // block (above the causal diagonal, or older than the window): their
@@ -74,12 +96,12 @@
 // The backward (the JAX reference has none: it trains through its chunked
 // jnp path) is the standard recompute design, in three kernels:
 //   1. delta[bh, i] = sum_d dO . O per row (one warp per row);
-//   2. dK and dV: one block per (KV head, 64-key tile).  It loops over the
+//   2. dK and dV: one block per (KV head, key tile).  It loops over the
 //      query tiles of every query head of its group that can see the tile,
 //      recomputes P = exp(s - lse), dP = dO . V and dS = P (dP - delta),
 //      and sums dV += P^T dO and dK += dS^T Q in registers, so GQA's sum
 //      over the group needs no atomics;
-//   3. dQ: one block per (batch*head, 64-query tile), looping over the key
+//   3. dQ: one block per (batch*head, query tile), looping over the key
 //      tiles the forward visits, dQ += dS K.
 // The masks, the tile skips and the ragged edges are the forward's.  On
 // the FMA route all products are fp32 FMA, so the f32 path meets the
@@ -95,108 +117,166 @@
 // never changes it.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stddef.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                  // queries per block
-constexpr int BK = 64;                  // keys per tile
-constexpr int LANES = 4;                // lanes per query row
-constexpr int THREADS = BQ * LANES;     // 256
-constexpr int KEYS_PER_LANE = BK / LANES;
+constexpr int LANES = 4;                // lanes per row
+constexpr int DELTA_THREADS = 256;      // the delta kernel: 8 rows a block
 constexpr float NEG = -1.0e30f;
+
+// Rows a block of the FMA kernels owns (queries, keys and the query or key
+// step alike): 64 up to a padded head dim of 128, 32 above, so that the
+// fp32 tiles fit in shared memory and the per-lane accumulators (DP / 4
+// columns, two of them in the dK/dV kernel) in registers.
+template <int DP>
+__host__ __device__ constexpr int fma_rows() { return DP > 128 ? 32 : 64; }
+
+// The FMA forward keeps each lane's query row in registers up to DP 128;
+// above, that row alone would spill, so it stays in shared memory.
+template <int DP>
+__host__ __device__ constexpr bool fma_q_in_regs() { return DP <= 128; }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_f(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// Shared memory: K tile [BK][D + 1] (padded against bank conflicts), V
-// tile [BK][D], P [BQ][BK + 1].  The K buffer stages the Q tile first.
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BK * (D + 1) + BK * D + BQ * (BK + 1));
+__device__ __forceinline__ void store_f(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// Element (r, c) of rows [r0, ..) of a (rows, d) plane as fp32: 0 past
+// ``limit`` rows and past column d (the padding of the DP bucket).
+template <typename T>
+__device__ __forceinline__ float load_padded(const T* plane, int r0, int r,
+                                             int c, int limit, int d) {
+  return (r0 + r < limit && c < d)
+             ? load_f(plane + static_cast<size_t>(r0 + r) * d + c)
+             : 0.0f;
+}
+
+// Shared memory of the forward: K tile [R][DP + 1] (padded against bank
+// conflicts), V tile [R][DP], P [R][R + 1], and, where the query rows stay
+// in shared memory, the Q tile [R][DP + 1]; otherwise the K buffer stages
+// the Q tile first.
+template <int DP>
+constexpr size_t smem_bytes() {
+  constexpr int R = fma_rows<DP>();
+  return sizeof(float) * (R * (DP + 1) + R * DP + R * (R + 1) +
+                          (fma_q_in_regs<DP>() ? 0 : R * (DP + 1)));
+}
+
+// One block of 4 R threads per (batch*head, R-query tile); four lanes
+// share one query row.  DP is the head dim's bucket, d the head dim: the
+// tiles are zero past column d, which adds nothing to any dot product,
+// and only columns below d are stored.
+template <typename T, int DP>
+__global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int lq, int lk, int kv_groups,
-                 float scale, int causal, int window) {
+                 float* __restrict__ lse, int lq, int lk, int d,
+                 int kv_groups, float scale, int causal, int window) {
+  constexpr int R = fma_rows<DP>();
+  constexpr int NT = R * LANES;
+  constexpr int KPL = R / LANES;          // keys a lane scores per tile
+  constexpr bool QREG = fma_q_in_regs<DP>();
   extern __shared__ float smem[];
-  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
-  float (*vs)[D] = reinterpret_cast<float (*)[D]>(smem + BK * (D + 1));
-  float (*ps)[BK + 1] =
-      reinterpret_cast<float (*)[BK + 1]>(smem + BK * (D + 1) + BK * D);
+  float (*ks)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem);
+  float (*vs)[DP] = reinterpret_cast<float (*)[DP]>(smem + R * (DP + 1));
+  float (*ps)[R + 1] =
+      reinterpret_cast<float (*)[R + 1]>(smem + R * (DP + 1) + R * DP);
+  float (*qs)[DP + 1] =
+      QREG ? ks
+           : reinterpret_cast<float (*)[DP + 1]>(smem + R * (DP + 1) +
+                                                 R * DP + R * (R + 1));
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const int row = threadIdx.x / LANES;   // query row within the tile
   const int sub = threadIdx.x % LANES;   // lane within the row's four
   const int qi = q0 + row;               // absolute query index
-  const size_t q_base = static_cast<size_t>(bh) * lq * D;
-  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * D;
+  const T* q_plane = q + static_cast<size_t>(bh) * lq * d;
+  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * d;
 
-  // Stage the Q tile through the K buffer, then keep the own row in
-  // registers.  Rows past lq read 0 and are never stored.
-  for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    ks[r][c] = (q0 + r < lq)
-        ? load_f(q + q_base + static_cast<size_t>(q0 + r) * D + c) : 0.0f;
+  // The Q tile; rows past lq read 0 and are never stored.  Up to DP 128
+  // each lane then keeps its row in registers.
+  for (int e = threadIdx.x; e < R * DP; e += NT) {
+    const int r = e / DP, c = e % DP;
+    qs[r][c] = load_padded(q_plane, q0, r, c, lq, d);
   }
   __syncthreads();
-  float qr[D];
+  float qr[QREG ? DP : 1];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = ks[row][c];
-  __syncthreads();
+    for (int c = 0; c < DP; ++c) qr[c] = qs[row][c];
+    __syncthreads();   // the K tile overwrites the staged Q tile
+  }
 
-  float acc[D / LANES];
+  float acc[DP / LANES];
 #pragma unroll
-  for (int c = 0; c < D / LANES; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < DP / LANES; ++c) acc[c] = 0.0f;
   float m = NEG, l = 0.0f;
 
   // The key range any row of this block can see; tiles outside it are
   // fully masked for every row and skipped.
-  const int q_last = min(q0 + BQ, lq) - 1;
+  const int q_last = min(q0 + R, lq) - 1;
   int k_end = lk;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
+  k_begin = (k_begin / R) * R;
 
   const unsigned full = 0xffffffffu;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < lk;
-      const size_t off = kv_base + static_cast<size_t>(k0 + r) * D + c;
-      ks[r][c] = in ? load_f(k + off) : 0.0f;
-      vs[r][c] = in ? load_f(v + off) : 0.0f;
+  for (int k0 = k_begin; k0 < k_end; k0 += R) {
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
+      vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
     }
     __syncthreads();
 
-    // S = scale * q . k for keys j = sub + LANES * jj, masked to -1e30.
-    float s[KEYS_PER_LANE];
+    // S = scale * q . k for keys j = sub + LANES * jj, masked to -1e30;
+    // each dot sums over c in order, from registers or from shared memory.
+    float s[KPL];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int jj = 0; jj < KPL; ++jj) {
+        const int j = sub + LANES * jj;
+        float dot = 0.0f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+        s[jj] = dot;
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < KPL; ++jj) s[jj] = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < DP; ++c) {
+        const float qc = qs[row][c];
+#pragma unroll
+        for (int jj = 0; jj < KPL; ++jj)
+          s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
+      }
+    }
     unsigned valid = 0u;   // bit jj: key sub + LANES * jj is visible
     float tile_max = NEG;
 #pragma unroll
-    for (int jj = 0; jj < KEYS_PER_LANE; ++jj) {
-      const int j = sub + LANES * jj;
-      float dot = 0.0f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[j][c], dot);
-      const int kj = k0 + j;
+    for (int jj = 0; jj < KPL; ++jj) {
+      const int kj = k0 + sub + LANES * jj;
       bool ok = kj < lk;
       if (causal) ok = ok && qi >= kj;
       if (window > 0) ok = ok && (qi - kj) < window;
-      s[jj] = ok ? dot * scale : NEG;
+      s[jj] = ok ? s[jj] * scale : NEG;
       valid |= static_cast<unsigned>(ok) << jj;
       tile_max = fmaxf(tile_max, s[jj]);
     }
@@ -206,7 +286,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - m_new);
     float row_sum = 0.0f;
 #pragma unroll
-    for (int jj = 0; jj < KEYS_PER_LANE; ++jj) {
+    for (int jj = 0; jj < KPL; ++jj) {
       const float p = ((valid >> jj) & 1u) ? expf(s[jj] - m_new) : 0.0f;
       row_sum += p;
       ps[row][sub + LANES * jj] = p;
@@ -219,11 +299,11 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // acc = alpha * acc + P . V for columns c = sub + LANES * cc.
 #pragma unroll
-    for (int cc = 0; cc < D / LANES; ++cc) acc[cc] *= alpha;
-    for (int j = 0; j < BK; ++j) {
+    for (int cc = 0; cc < DP / LANES; ++cc) acc[cc] *= alpha;
+    for (int j = 0; j < R; ++j) {
       const float p = ps[row][j];
 #pragma unroll
-      for (int cc = 0; cc < D / LANES; ++cc)
+      for (int cc = 0; cc < DP / LANES; ++cc)
         acc[cc] = fmaf(p, vs[j][sub + LANES * cc], acc[cc]);
     }
     __syncthreads();   // the next tile overwrites K, V and P
@@ -231,10 +311,13 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi < lq) {
     const float inv = 1.0f / fmaxf(l, 1e-20f);
-    T* o = out + q_base + static_cast<size_t>(qi) * D;
+    T* o = out + static_cast<size_t>(bh) * lq * d +
+           static_cast<size_t>(qi) * d;
 #pragma unroll
-    for (int cc = 0; cc < D / LANES; ++cc)
-      store_f(o + sub + LANES * cc, acc[cc] * inv);
+    for (int cc = 0; cc < DP / LANES; ++cc) {
+      const int c = sub + LANES * cc;
+      if (c < d) store_f(o + c, acc[cc] * inv);
+    }
     if (lse != nullptr && sub == 0)
       lse[static_cast<size_t>(bh) * lq + qi] = m + logf(fmaxf(l, 1e-20f));
   }
@@ -245,7 +328,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // delta[r] = sum_c dout[r][c] * out[r][c] over rows r of (rows, d), one
 // warp per row, lanes striding the columns.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DELTA_THREADS)
 delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
              float* __restrict__ delta, int rows, int d) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -261,75 +344,74 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[r] = acc;
 }
 
-// Shared memory of the dK/dV kernel: K and V tiles [BK][D + 1], Q and dO
-// tiles [BQ][D + 1], P and dS [BK][BQ + 1], lse and delta [BQ].
-template <int D>
+// Shared memory of the dK/dV kernel: K and V tiles [R][DP + 1], Q and dO
+// tiles [R][DP + 1], P and dS [R][R + 1], lse and delta [R].
+template <int DP>
 constexpr size_t bwd_kv_smem_bytes() {
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
-                          2 * BK * (BQ + 1) + 2 * BQ);
+  constexpr int R = fma_rows<DP>();
+  return sizeof(float) * (4 * R * (DP + 1) + 2 * R * (R + 1) + 2 * R);
 }
 
-// One block per (KV head g, 64-key tile).  Four lanes share one key row:
-// each computes s and dP for 16 of the tile's 64 queries and keeps D/4
+// One block per (KV head g, R-key tile).  Four lanes share one key row:
+// each computes s and dP for R / 4 of a step's R queries and keeps DP / 4
 // columns of the row's dK and dV accumulators.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int DP>
+__global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         T* __restrict__ dk, T* __restrict__ dv, int lq,
-                        int lk, int kv_groups, float scale, int causal,
-                        int window) {
+                        int lk, int d, int kv_groups, float scale,
+                        int causal, int window) {
+  constexpr int R = fma_rows<DP>();
+  constexpr int NT = R * LANES;
+  constexpr int PER_LANE = R / LANES;
   extern __shared__ float smem[];
-  float (*ks)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
-  float (*vs)[D + 1] = ks + BK;
-  float (*qs)[D + 1] = vs + BK;
-  float (*dos)[D + 1] = qs + BQ;
-  float (*ps)[BQ + 1] = reinterpret_cast<float (*)[BQ + 1]>(dos + BQ);
-  float (*dss)[BQ + 1] = ps + BK;
-  float* lse_s = reinterpret_cast<float*>(dss + BK);
-  float* delta_s = lse_s + BQ;
+  float (*ks)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem);
+  float (*vs)[DP + 1] = ks + R;
+  float (*qs)[DP + 1] = vs + R;
+  float (*dos)[DP + 1] = qs + R;
+  float (*ps)[R + 1] = reinterpret_cast<float (*)[R + 1]>(dos + R);
+  float (*dss)[R + 1] = ps + R;
+  float* lse_s = reinterpret_cast<float*>(dss + R);
+  float* delta_s = lse_s + R;
 
   const int g = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const int row = threadIdx.x / LANES;   // key row within the tile
   const int sub = threadIdx.x % LANES;
   const int kj = k0 + row;               // absolute key index
-  const size_t kv_base = static_cast<size_t>(g) * lk * D;
+  const size_t kv_base = static_cast<size_t>(g) * lk * d;
 
-  for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    const bool in = k0 + r < lk;
-    const size_t off = kv_base + static_cast<size_t>(k0 + r) * D + c;
-    ks[r][c] = in ? load_f(k + off) : 0.0f;
-    vs[r][c] = in ? load_f(v + off) : 0.0f;
+  for (int e = threadIdx.x; e < R * DP; e += NT) {
+    const int r = e / DP, c = e % DP;
+    ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
+    vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
   }
 
-  float dk_acc[D / LANES], dv_acc[D / LANES];
+  float dk_acc[DP / LANES], dv_acc[DP / LANES];
 #pragma unroll
-  for (int cc = 0; cc < D / LANES; ++cc) dk_acc[cc] = dv_acc[cc] = 0.0f;
+  for (int cc = 0; cc < DP / LANES; ++cc) dk_acc[cc] = dv_acc[cc] = 0.0f;
 
   // The query range that can see some key of this tile (the forward's
   // skips, seen from the key side); tiles outside it contribute nothing.
-  const int k_last = min(k0 + BK, lk) - 1;
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int k_last = min(k0 + R, lk) - 1;
+  const int q_begin = causal ? (k0 / R) * R : 0;
   const int q_end = window > 0 ? min(lq, k_last + window) : lq;
 
   for (int hg = 0; hg < kv_groups; ++hg) {
     const int bh = g * kv_groups + hg;
-    const size_t q_base = static_cast<size_t>(bh) * lq * D;
+    const size_t q_base = static_cast<size_t>(bh) * lq * d;
     const size_t r_base = static_cast<size_t>(bh) * lq;
-    for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
+    for (int q0 = q_begin; q0 < q_end; q0 += R) {
       __syncthreads();   // the last tile's readers are done (and K, V in)
-      for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
-        const int r = e / D, c = e % D;
-        const bool in = q0 + r < lq;
-        const size_t off = q_base + static_cast<size_t>(q0 + r) * D + c;
-        qs[r][c] = in ? load_f(q + off) : 0.0f;
-        dos[r][c] = in ? load_f(dout + off) : 0.0f;
+      for (int e = threadIdx.x; e < R * DP; e += NT) {
+        const int r = e / DP, c = e % DP;
+        qs[r][c] = load_padded(q + q_base, q0, r, c, lq, d);
+        dos[r][c] = load_padded(dout + q_base, q0, r, c, lq, d);
       }
-      if (threadIdx.x < BQ) {
+      if (threadIdx.x < R) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < lq ? lse[r_base + qi] : 0.0f;
         delta_s[threadIdx.x] = qi < lq ? delta[r_base + qi] : 0.0f;
@@ -337,19 +419,19 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // s = q . k and dP = dO . v for queries i = sub + LANES * ii.
-      float s[BQ / LANES], dp[BQ / LANES];
+      float s[PER_LANE], dp[PER_LANE];
 #pragma unroll
-      for (int ii = 0; ii < BQ / LANES; ++ii) s[ii] = dp[ii] = 0.0f;
-      for (int c = 0; c < D; ++c) {
+      for (int ii = 0; ii < PER_LANE; ++ii) s[ii] = dp[ii] = 0.0f;
+      for (int c = 0; c < DP; ++c) {
         const float kc = ks[row][c], vc = vs[row][c];
 #pragma unroll
-        for (int ii = 0; ii < BQ / LANES; ++ii) {
+        for (int ii = 0; ii < PER_LANE; ++ii) {
           s[ii] = fmaf(kc, qs[sub + LANES * ii][c], s[ii]);
           dp[ii] = fmaf(vc, dos[sub + LANES * ii][c], dp[ii]);
         }
       }
 #pragma unroll
-      for (int ii = 0; ii < BQ / LANES; ++ii) {
+      for (int ii = 0; ii < PER_LANE; ++ii) {
         const int i = sub + LANES * ii;
         const int qi = q0 + i;
         bool ok = kj < lk && qi < lq;
@@ -362,10 +444,10 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncwarp();   // a key row's P and dS are read by its own warp only
 
       // dV += P^T dO and dK += dS^T Q for columns c = sub + LANES * cc.
-      for (int i = 0; i < BQ; ++i) {
+      for (int i = 0; i < R; ++i) {
         const float p = ps[row][i], ds = dss[row][i];
 #pragma unroll
-        for (int cc = 0; cc < D / LANES; ++cc) {
+        for (int cc = 0; cc < DP / LANES; ++cc) {
           dv_acc[cc] = fmaf(p, dos[i][sub + LANES * cc], dv_acc[cc]);
           dk_acc[cc] = fmaf(ds, qs[i][sub + LANES * cc], dk_acc[cc]);
         }
@@ -374,97 +456,98 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (kj < lk) {
-    const size_t off = kv_base + static_cast<size_t>(kj) * D;
+    const size_t off = kv_base + static_cast<size_t>(kj) * d;
 #pragma unroll
-    for (int cc = 0; cc < D / LANES; ++cc) {
-      store_f(dk + off + sub + LANES * cc, dk_acc[cc] * scale);
-      store_f(dv + off + sub + LANES * cc, dv_acc[cc]);
+    for (int cc = 0; cc < DP / LANES; ++cc) {
+      const int c = sub + LANES * cc;
+      if (c >= d) continue;
+      store_f(dk + off + c, dk_acc[cc] * scale);
+      store_f(dv + off + c, dv_acc[cc]);
     }
   }
 }
 
-// Shared memory of the dQ kernel: Q and dO tiles [BQ][D + 1], K and V
-// tiles [BK][D + 1], dS [BQ][BK + 1].
-template <int D>
+// Shared memory of the dQ kernel: Q and dO tiles [R][DP + 1], K and V
+// tiles [R][DP + 1], dS [R][R + 1].
+template <int DP>
 constexpr size_t bwd_q_smem_bytes() {
-  return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) +
-                          BQ * (BK + 1));
+  constexpr int R = fma_rows<DP>();
+  return sizeof(float) * (4 * R * (DP + 1) + R * (R + 1));
 }
 
-// One block per (batch*head, 64-query tile), as the forward.  Four lanes
-// share one query row: each computes s and dP for 16 of a tile's 64 keys
-// and keeps D/4 columns of the row's dQ accumulator.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// One block per (batch*head, R-query tile), as the forward.  Four lanes
+// share one query row: each computes s and dP for R / 4 of a tile's R keys
+// and keeps DP / 4 columns of the row's dQ accumulator.
+template <typename T, int DP>
+__global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta, T* __restrict__ dq,
-                       int lq, int lk, int kv_groups, float scale,
+                       int lq, int lk, int d, int kv_groups, float scale,
                        int causal, int window) {
+  constexpr int R = fma_rows<DP>();
+  constexpr int NT = R * LANES;
+  constexpr int PER_LANE = R / LANES;
   extern __shared__ float smem[];
-  float (*qs)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);
-  float (*dos)[D + 1] = qs + BQ;
-  float (*ks)[D + 1] = dos + BQ;
-  float (*vs)[D + 1] = ks + BK;
-  float (*dss)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(vs + BK);
+  float (*qs)[DP + 1] = reinterpret_cast<float (*)[DP + 1]>(smem);
+  float (*dos)[DP + 1] = qs + R;
+  float (*ks)[DP + 1] = dos + R;
+  float (*vs)[DP + 1] = ks + R;
+  float (*dss)[R + 1] = reinterpret_cast<float (*)[R + 1]>(vs + R);
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const int row = threadIdx.x / LANES;
   const int sub = threadIdx.x % LANES;
   const int qi = q0 + row;
-  const size_t q_base = static_cast<size_t>(bh) * lq * D;
-  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * D;
+  const size_t q_base = static_cast<size_t>(bh) * lq * d;
+  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * d;
 
-  for (int e = threadIdx.x; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    const bool in = q0 + r < lq;
-    const size_t off = q_base + static_cast<size_t>(q0 + r) * D + c;
-    qs[r][c] = in ? load_f(q + off) : 0.0f;
-    dos[r][c] = in ? load_f(dout + off) : 0.0f;
+  for (int e = threadIdx.x; e < R * DP; e += NT) {
+    const int r = e / DP, c = e % DP;
+    qs[r][c] = load_padded(q + q_base, q0, r, c, lq, d);
+    dos[r][c] = load_padded(dout + q_base, q0, r, c, lq, d);
   }
   const size_t r_off = static_cast<size_t>(bh) * lq + qi;
   const float row_lse = qi < lq ? lse[r_off] : 0.0f;
   const float row_delta = qi < lq ? delta[r_off] : 0.0f;
 
-  float dq_acc[D / LANES];
+  float dq_acc[DP / LANES];
 #pragma unroll
-  for (int cc = 0; cc < D / LANES; ++cc) dq_acc[cc] = 0.0f;
+  for (int cc = 0; cc < DP / LANES; ++cc) dq_acc[cc] = 0.0f;
 
   // The forward's key range for this block.
-  const int q_last = min(q0 + BQ, lq) - 1;
+  const int q_last = min(q0 + R, lq) - 1;
   int k_end = lk;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
+  k_begin = (k_begin / R) * R;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += R) {
     __syncthreads();   // the last tile's readers are done (and Q, dO in)
-    for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < lk;
-      const size_t off = kv_base + static_cast<size_t>(k0 + r) * D + c;
-      ks[r][c] = in ? load_f(k + off) : 0.0f;
-      vs[r][c] = in ? load_f(v + off) : 0.0f;
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
+      vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
     }
     __syncthreads();
 
     // s = q . k and dP = dO . v for keys j = sub + LANES * jj.
-    float s[BK / LANES], dp[BK / LANES];
+    float s[PER_LANE], dp[PER_LANE];
 #pragma unroll
-    for (int jj = 0; jj < BK / LANES; ++jj) s[jj] = dp[jj] = 0.0f;
-    for (int c = 0; c < D; ++c) {
+    for (int jj = 0; jj < PER_LANE; ++jj) s[jj] = dp[jj] = 0.0f;
+    for (int c = 0; c < DP; ++c) {
       const float qc = qs[row][c], dc = dos[row][c];
 #pragma unroll
-      for (int jj = 0; jj < BK / LANES; ++jj) {
+      for (int jj = 0; jj < PER_LANE; ++jj) {
         s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
         dp[jj] = fmaf(dc, vs[sub + LANES * jj][c], dp[jj]);
       }
     }
 #pragma unroll
-    for (int jj = 0; jj < BK / LANES; ++jj) {
+    for (int jj = 0; jj < PER_LANE; ++jj) {
       const int j = sub + LANES * jj;
       const int kj = k0 + j;
       bool ok = kj < lk && qi < lq;
@@ -476,19 +559,21 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();   // a query row's dS is read by its own warp only
 
     // dQ += dS K for columns c = sub + LANES * cc.
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < R; ++j) {
       const float ds = dss[row][j];
 #pragma unroll
-      for (int cc = 0; cc < D / LANES; ++cc)
+      for (int cc = 0; cc < DP / LANES; ++cc)
         dq_acc[cc] = fmaf(ds, ks[j][sub + LANES * cc], dq_acc[cc]);
     }
   }
 
   if (qi < lq) {
-    T* o = dq + q_base + static_cast<size_t>(qi) * D;
+    T* o = dq + q_base + static_cast<size_t>(qi) * d;
 #pragma unroll
-    for (int cc = 0; cc < D / LANES; ++cc)
-      store_f(o + sub + LANES * cc, dq_acc[cc] * scale);
+    for (int cc = 0; cc < DP / LANES; ++cc) {
+      const int c = sub + LANES * cc;
+      if (c < d) store_f(o + c, dq_acc[cc] * scale);
+    }
   }
 }
 
@@ -577,11 +662,26 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a,
 
 // --- the tensor-core route: forward -------------------------------------------
 
-constexpr int TC_BM = 128;          // queries per CTA: two consumer warpgroups
 constexpr int TC_BN = 64;           // keys per K/V tile
 constexpr int TC_STAGES = 2;        // K/V ring depth
-constexpr int TC_THREADS = 384;     // consumers 0 and 1, producer 2
-constexpr int TC_CONSUMER_WARPS = 8;
+
+// Consumer warpgroups of the forward, 64 query rows each, and the producer
+// after them.  Up to D 192 two consumers share a 128-query CTA of 384
+// threads, compiled at the launch bound's 168 registers a thread (ptxas
+// allocates for the bound; setmaxnreg only moves registers between the
+// warpgroups at run time), which holds O's D / 2 fp32, S and P up to
+// D 192.  At D 256 O alone is 128 registers, so one consumer owns a
+// 64-query CTA of 256 threads, compiled at up to 255 registers, and no
+// warpgroup changes its count.
+__host__ __device__ constexpr int tc_consumers(int d) {
+  return d > 192 ? 1 : 2;
+}
+__host__ __device__ constexpr int tc_bm(int d) {   // queries a CTA
+  return 64 * tc_consumers(d);
+}
+__host__ __device__ constexpr int tc_threads(int d) {
+  return 128 * (tc_consumers(d) + 1);
+}
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -589,7 +689,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // tile is stored as D/64 sub-tiles of [rows][64] bf16, 128-byte swizzled.
 template <int D>
 struct TcFwdSmem {
-  static constexpr int Q_BYTES = TC_BM * D * 2;
+  static constexpr int Q_BYTES = tc_bm(D) * D * 2;
   static constexpr int KV_BYTES = TC_BN * D * 2;          // one K or V tile
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_BYTES;                    // K[stage]
@@ -647,7 +747,7 @@ __device__ __forceinline__ void online_softmax(
 }
 
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(tc_threads(D), 1)
 attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -658,6 +758,8 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BN = TC_BN;
   constexpr int NS = BN / 2;                // S registers a thread
   constexpr int SUBS = D / 64;              // 64-column sub-tiles
+  constexpr int CONS = tc_consumers(D);
+  constexpr int BM = tc_bm(D);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::BAR;
@@ -665,8 +767,8 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_empty = bar_full + 8 * TC_STAGES;    // + 8 * stage
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BM;   // heaviest first
-  const int q_last = min(q0 + TC_BM, lq) - 1;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest first
+  const int q_last = min(q0 + BM, lq) - 1;
   int k_end = lk;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -678,21 +780,22 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar_q, 1);
     for (int s = 0; s < TC_STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, TC_CONSUMER_WARPS);
+      mbar_init(bar_empty + 8 * s, 4 * CONS);   // one arrive a warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == CONS) {
     // The producer: one thread starts every load of the CTA.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
+    if constexpr (CONS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * CONS) {
       const int g = bh / kv_groups;
       mbar_expect_tx(bar_q, L::Q_BYTES);
       for (int h = 0; h < SUBS; ++h)
-        tma_load_3d(base + L::Q + h * TC_BM * 128, &tm_q, bar_q, h * 64, q0,
+        tma_load_3d(base + L::Q + h * BM * 128, &tm_q, bar_q, h * 64, q0,
                     bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % TC_STAGES, n = t / TC_STAGES;
@@ -714,7 +817,8 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // every 8-column chunk c the columns 8 c + 2 (lane % 4) + {0, 1}
     // (the wgmma accumulator layout): element 4 c + e is row r + 8 (e / 2),
     // column 8 c + 2 (lane % 4) + e % 2.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (CONS == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
     const int col0 = 2 * (lane % 4);
@@ -746,7 +850,7 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        const uint64_t da = sw128_desc(q_tile + (kk / 4) * TC_BM * 128 + off,
+        const uint64_t da = sw128_desc(q_tile + (kk / 4) * BM * 128 + off,
                                        0);
         const uint64_t db = sw128_desc(k_tile + (kk / 4) * BN * 128 + off, 0);
         wgmma_ss_n64(sc, da, db, 1);
@@ -926,8 +1030,23 @@ __device__ __forceinline__ void c_to_a(float (*acc)[4], int kk,
   split_bf16x2(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
 }
 
-constexpr int TCB_THREADS = 128;    // four warps, 16 rows each
 constexpr int TCB_ROWS = 64;        // keys (dK/dV) or queries (dQ) a CTA owns
+
+// Column splits of the backward's accumulators: up to D 128 four warps own
+// 16 rows each and every column of them; above, the dK and dV rows alone
+// (2 x 64 x D fp32 a CTA) would pass the 255 registers a thread may hold,
+// so eight warps split the columns in two: warps w and w + 4 own the same
+// 16 rows, each half of the columns.  Both recompute the rows' S and dP
+// over all of D (the products are the cheap part of the budget); each
+// keeps and stores only its own columns, so nothing is summed across
+// warps and the order of every sum is the D <= 128 one.
+template <int D>
+__host__ __device__ constexpr int tcb_splits() { return D > 128 ? 2 : 1; }
+
+template <int D>
+__host__ __device__ constexpr int tcb_threads() {
+  return 128 * tcb_splits<D>();
+}
 
 // dK/dV: queries a step (a register budget: D = 128 takes 32).
 template <int D>
@@ -946,7 +1065,7 @@ constexpr size_t tcb_kv_smem_bytes() {
 // straight from the accumulators; Q, dO, lse and delta stream through
 // two buffers.
 template <int D>
-__global__ void __launch_bounds__(TCB_THREADS)
+__global__ void __launch_bounds__(tcb_threads<D>())
 attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -959,6 +1078,8 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            int window) {
   constexpr int BQT = tcb_kv_bq<D>();
   constexpr int LD = D + 8;
+  constexpr int NT = tcb_threads<D>();
+  constexpr int DC = D / tcb_splits<D>();       // columns a warp keeps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = ks + TCB_ROWS * LD;
@@ -969,10 +1090,11 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int g = blockIdx.y;
   const int k0 = blockIdx.x * TCB_ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c_off = (threadIdx.x / 128) * DC;   // the warp's first column
   const size_t kv_base = static_cast<size_t>(g) * lk * D;
-  load_rows<D, TCB_ROWS, TCB_THREADS>(ks, k + kv_base, k0, lk);
-  load_rows<D, TCB_ROWS, TCB_THREADS>(vs, v + kv_base, k0, lk);
+  load_rows<D, TCB_ROWS, NT>(ks, k + kv_base, k0, lk);
+  load_rows<D, TCB_ROWS, NT>(vs, v + kv_base, k0, lk);
 
   // The query range that can see some key of this tile.
   const int k_last = min(k0 + TCB_ROWS, lk) - 1;
@@ -985,9 +1107,8 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int bh = g * kv_groups + it / n_qt;
     const int q0 = q_begin + (it % n_qt) * BQT;
     const size_t q_base = static_cast<size_t>(bh) * lq * D;
-    load_rows<D, BQT, TCB_THREADS>(qs + buf * BQT * LD, q + q_base, q0, lq);
-    load_rows<D, BQT, TCB_THREADS>(dos + buf * BQT * LD, dout + q_base, q0,
-                                   lq);
+    load_rows<D, BQT, NT>(qs + buf * BQT * LD, q + q_base, q0, lq);
+    load_rows<D, BQT, NT>(dos + buf * BQT * LD, dout + q_base, q0, lq);
     if (threadIdx.x < BQT) {
       const int qi = q0 + threadIdx.x;
       const bool in = qi < lq;
@@ -997,9 +1118,9 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c)
+  for (int c = 0; c < DC / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.0f;
 
@@ -1067,14 +1188,14 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
       c_to_a(st, kq, ph, pl);
       c_to_a(dpt, kq, sh, sl);
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < DC / 16; ++n2) {
         uint32_t b[4];
-        load_b_t<D>(b, dob, 16 * n2, 16 * kq, lane);
+        load_b_t<D>(b, dob, c_off + 16 * n2, 16 * kq, lane);
         mma_bf16(dv_acc[2 * n2], ph, b[0], b[1]);
         mma_bf16(dv_acc[2 * n2], pl, b[0], b[1]);
         mma_bf16(dv_acc[2 * n2 + 1], ph, b[2], b[3]);
         mma_bf16(dv_acc[2 * n2 + 1], pl, b[2], b[3]);
-        load_b_t<D>(b, qb, 16 * n2, 16 * kq, lane);
+        load_b_t<D>(b, qb, c_off + 16 * n2, 16 * kq, lane);
         mma_bf16(dk_acc[2 * n2], sh, b[0], b[1]);
         mma_bf16(dk_acc[2 * n2], sl, b[0], b[1]);
         mma_bf16(dk_acc[2 * n2 + 1], sh, b[2], b[3]);
@@ -1091,9 +1212,9 @@ attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kj = key0 + 8 * r;
     if (kj >= lk) continue;
-    const size_t off = kv_base + static_cast<size_t>(kj) * D;
+    const size_t off = kv_base + static_cast<size_t>(kj) * D + c_off;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DC / 8; ++c) {
       store_bf16x2(dk + off + 8 * c + col0, dk_acc[c][2 * r] * scale,
                    dk_acc[c][2 * r + 1] * scale);
       store_bf16x2(dv + off + 8 * c + col0, dv_acc[c][2 * r],
@@ -1111,7 +1232,7 @@ constexpr size_t tcb_q_smem_bytes() {
 // 16 w .. 16 w + 15, over the key tiles the forward visits.  S = Q K^T and
 // dP = dO V^T, then dQ += dS K; K and V stream through two buffers.
 template <int D>
-__global__ void __launch_bounds__(TCB_THREADS)
+__global__ void __launch_bounds__(tcb_threads<D>())
 attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -1123,6 +1244,8 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           int window) {
   constexpr int LD = D + 8;
   constexpr int BKT = TCB_ROWS;                 // keys a step
+  constexpr int NT = tcb_threads<D>();
+  constexpr int DC = D / tcb_splits<D>();       // columns a warp keeps
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + TCB_ROWS * LD;
@@ -1131,11 +1254,12 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TCB_ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int c_off = (threadIdx.x / 128) * DC;   // the warp's first column
   const size_t q_base = static_cast<size_t>(bh) * lq * D;
   const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * D;
-  load_rows<D, TCB_ROWS, TCB_THREADS>(qs, q + q_base, q0, lq);
-  load_rows<D, TCB_ROWS, TCB_THREADS>(dos, dout + q_base, q0, lq);
+  load_rows<D, TCB_ROWS, NT>(qs, q + q_base, q0, lq);
+  load_rows<D, TCB_ROWS, NT>(dos, dout + q_base, q0, lq);
 
   const int row0 = q0 + 16 * warp + lane / 4;   // rows row0 and row0 + 8
   const int col0 = 2 * (lane % 4);
@@ -1160,15 +1284,13 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   auto load_tile = [&](int t, int buf) {
     const int kt0 = k_begin + t * BKT;
-    load_rows<D, BKT, TCB_THREADS>(ks + buf * BKT * LD, k + kv_base, kt0,
-                                   lk);
-    load_rows<D, BKT, TCB_THREADS>(vs + buf * BKT * LD, v + kv_base, kt0,
-                                   lk);
+    load_rows<D, BKT, NT>(ks + buf * BKT * LD, k + kv_base, kt0, lk);
+    load_rows<D, BKT, NT>(vs + buf * BKT * LD, v + kv_base, kt0, lk);
   };
 
-  float dq_acc[D / 8][4];
+  float dq_acc[DC / 8][4];
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c)
+  for (int c = 0; c < DC / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.0f;
 
@@ -1227,9 +1349,9 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t sh[4], sl[4];
       c_to_a(dp, kc, sh, sl);
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < DC / 16; ++n2) {
         uint32_t b[4];
-        load_b_t<D>(b, kb, 16 * n2, 16 * kc, lane);
+        load_b_t<D>(b, kb, c_off + 16 * n2, 16 * kc, lane);
         mma_bf16(dq_acc[2 * n2], sh, b[0], b[1]);
         mma_bf16(dq_acc[2 * n2], sl, b[0], b[1]);
         mma_bf16(dq_acc[2 * n2 + 1], sh, b[2], b[3]);
@@ -1246,9 +1368,9 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
     if (qi >= lq) continue;
-    __nv_bfloat16* dst = dq + q_base + static_cast<size_t>(qi) * D;
+    __nv_bfloat16* dst = dq + q_base + static_cast<size_t>(qi) * D + c_off;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DC / 8; ++c)
       store_bf16x2(dst + 8 * c + col0, dq_acc[c][2 * r] * scale,
                    dq_acc[c][2 * r + 1] * scale);
   }
@@ -1257,67 +1379,71 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // --- launches ----------------------------------------------------------------
 
 struct Problem {
-  int bh, lq, lk, kv_groups;
+  int bh, lq, lk, d, kv_groups;
   float scale;
   int causal, window;
 };
 
-template <typename T, int D>
+// The FMA kernels at head-dim bucket DP (d <= DP).
+template <typename T, int DP>
 int launch_forward(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Problem& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = opt_in_smem<attention_kernel<T, D>>(smem);
+  constexpr int R = fma_rows<DP>();
+  const size_t smem = smem_bytes<DP>();
+  cudaError_t err = opt_in_smem<attention_kernel<T, DP>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + BQ - 1) / BQ, p.bh);
-  attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid((p.lq + R - 1) / R, p.bh);
+  attention_kernel<T, DP><<<grid, R * LANES, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
-      p.window);
+      static_cast<float*>(lse), p.lq, p.lk, p.d, p.kv_groups, p.scale,
+      p.causal, p.window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 cudaError_t launch_delta(const void* out, const void* dout, void* delta,
                          int rows, int d, cudaStream_t stream) {
-  const int warps_per_block = THREADS / 32;
-  delta_kernel<T><<<(rows + warps_per_block - 1) / warps_per_block, THREADS,
-                    0, stream>>>(
+  const int warps_per_block = DELTA_THREADS / 32;
+  delta_kernel<T><<<(rows + warps_per_block - 1) / warps_per_block,
+                    DELTA_THREADS, 0, stream>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<float*>(delta), rows, d);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* out, const void* dout, const void* lse,
                     void* delta, void* dq, void* dk, void* dv,
                     const Problem& p, cudaStream_t stream) {
-  cudaError_t err = launch_delta<T>(out, dout, delta, p.bh * p.lq, D, stream);
+  constexpr int R = fma_rows<DP>();
+  cudaError_t err =
+      launch_delta<T>(out, dout, delta, p.bh * p.lq, p.d, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t kv_smem = bwd_kv_smem_bytes<D>();
-  err = opt_in_smem<attention_bwd_kv_kernel<T, D>>(kv_smem);
+  const size_t kv_smem = bwd_kv_smem_bytes<DP>();
+  err = opt_in_smem<attention_bwd_kv_kernel<T, DP>>(kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid((p.lk + BK - 1) / BK, p.bh / p.kv_groups);
-  attention_bwd_kv_kernel<T, D><<<kv_grid, THREADS, kv_smem, stream>>>(
+  const dim3 kv_grid((p.lk + R - 1) / R, p.bh / p.kv_groups);
+  attention_bwd_kv_kernel<T, DP><<<kv_grid, R * LANES, kv_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), p.lq, p.lk, p.kv_groups,
-      p.scale, p.causal, p.window);
+      static_cast<T*>(dk), static_cast<T*>(dv), p.lq, p.lk, p.d,
+      p.kv_groups, p.scale, p.causal, p.window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t q_smem = bwd_q_smem_bytes<D>();
-  err = opt_in_smem<attention_bwd_q_kernel<T, D>>(q_smem);
+  const size_t q_smem = bwd_q_smem_bytes<DP>();
+  err = opt_in_smem<attention_bwd_q_kernel<T, DP>>(q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid((p.lq + BQ - 1) / BQ, p.bh);
-  attention_bwd_q_kernel<T, D><<<q_grid, THREADS, q_smem, stream>>>(
+  const dim3 q_grid((p.lq + R - 1) / R, p.bh);
+  attention_bwd_q_kernel<T, DP><<<q_grid, R * LANES, q_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
+      static_cast<T*>(dq), p.lq, p.lk, p.d, p.kv_groups, p.scale, p.causal,
       p.window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1341,11 +1467,12 @@ bool encode_3d(CUtensorMap* map, const void* base, int planes, int rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The forward's three maps: Q boxes of 128 rows, K and V boxes of a tile.
+// The forward's three maps: Q boxes of a CTA's queries, K and V boxes of a
+// tile.
 bool encode_qkv(const void* q, const void* k, const void* v, const Problem& p,
                 int d, CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv) {
   const int bhkv = p.bh / p.kv_groups;
-  return encode_3d(tq, q, p.bh, p.lq, d, TC_BM) &&
+  return encode_3d(tq, q, p.bh, p.lq, d, tc_bm(d)) &&
          encode_3d(tk, k, bhkv, p.lk, d, TC_BN) &&
          encode_3d(tv, v, bhkv, p.lk, d, TC_BN);
 }
@@ -1359,8 +1486,8 @@ int launch_forward_tc(const void* q, const void* k, const void* v, void* out,
   constexpr size_t smem = TcFwdSmem<D>::BYTES;
   cudaError_t err = opt_in_smem<attention_tc_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.bh, (p.lq + TC_BM - 1) / TC_BM);
-  attention_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(p.bh, (p.lq + tc_bm(D) - 1) / tc_bm(D));
+  attention_tc_kernel<D><<<grid, tc_threads(D), smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       p.lq, p.lk, p.kv_groups, p.scale, p.causal, p.window);
   return static_cast<int>(cudaGetLastError());
@@ -1380,7 +1507,8 @@ int launch_backward_tc(const void* q, const void* k, const void* v,
   err = opt_in_smem<attention_bwd_kv_tc_kernel<D>>(kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid((p.lk + TCB_ROWS - 1) / TCB_ROWS, p.bh / p.kv_groups);
-  attention_bwd_kv_tc_kernel<D><<<kv_grid, TCB_THREADS, kv_smem, stream>>>(
+  attention_bwd_kv_tc_kernel<D><<<kv_grid, tcb_threads<D>(), kv_smem,
+                                  stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1393,7 +1521,8 @@ int launch_backward_tc(const void* q, const void* k, const void* v,
   err = opt_in_smem<attention_bwd_q_tc_kernel<D>>(q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid((p.lq + TCB_ROWS - 1) / TCB_ROWS, p.bh);
-  attention_bwd_q_tc_kernel<D><<<q_grid, TCB_THREADS, q_smem, stream>>>(
+  attention_bwd_q_tc_kernel<D><<<q_grid, tcb_threads<D>(), q_smem,
+                                 stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1407,9 +1536,9 @@ struct Forward {
   void *out, *lse;
   Problem p;
   cudaStream_t stream;
-  template <typename T, int D>
+  template <typename T, int DP>
   int fma() const {
-    return launch_forward<T, D>(q, k, v, out, lse, p, stream);
+    return launch_forward<T, DP>(q, k, v, out, lse, p, stream);
   }
   template <int D>
   int tensor_core() const {
@@ -1422,10 +1551,10 @@ struct Backward {
   void *delta, *dq, *dk, *dv;
   Problem p;
   cudaStream_t stream;
-  template <typename T, int D>
+  template <typename T, int DP>
   int fma() const {
-    return launch_backward<T, D>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                 p, stream);
+    return launch_backward<T, DP>(q, k, v, out, dout, lse, delta, dq, dk,
+                                  dv, p, stream);
   }
   template <int D>
   int tensor_core() const {
@@ -1436,40 +1565,49 @@ struct Backward {
 
 constexpr int kRouteFma = 0;
 constexpr int kRouteTensorCore = 1;
+constexpr int kMaxHeadDim = 256;
 
-// Calls the route's kernels for the runtime dtype code and head dim:
-// the tensor-core route takes bf16 at D 64 and 128, the FMA route float32
-// at every D and bf16 at D <= 32.  cudaErrorInvalidValue for anything
-// else, so a route never takes a case that is the other's.
+// The head dims of the tensor-core route (bf16 only).
+bool tc_head_dim(int d) { return d == 64 || d == 128 || d == 192 || d == 256; }
+
+// The FMA route's kernels for element type T at the smallest bucket DP >= d.
+template <typename T, typename Fn>
+int fma_bucket(int d, const Fn& fn) {
+  if (d <= 8) return fn.template fma<T, 8>();
+  if (d <= 16) return fn.template fma<T, 16>();
+  if (d <= 32) return fn.template fma<T, 32>();
+  if (d <= 64) return fn.template fma<T, 64>();
+  if (d <= 128) return fn.template fma<T, 128>();
+  if (d <= 192) return fn.template fma<T, 192>();
+  return fn.template fma<T, 256>();
+}
+
+// Calls the route's kernels for the runtime dtype code and head dim: the
+// tensor-core route takes bf16 at D 64, 128, 192 and 256; the FMA route
+// float32 and float16 at every D from 1 to 256 and bf16 at every other D
+// up to 256.  cudaErrorInvalidValue for anything else, so a route never
+// takes a case that is the other's.
 template <typename Fn>
 int dispatch(int route, int dtype, int d, const Fn& fn) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteTensorCore) {
     if (dtype != 1) return invalid;
-    if (d == 64) return fn.template tensor_core<64>();
-    if (d == 128) return fn.template tensor_core<128>();
-    return invalid;
-  }
-  if (route != kRouteFma) return invalid;
-  if (dtype == 0) {
     switch (d) {
-      case 8: return fn.template fma<float, 8>();
-      case 16: return fn.template fma<float, 16>();
-      case 32: return fn.template fma<float, 32>();
-      case 64: return fn.template fma<float, 64>();
-      case 128: return fn.template fma<float, 128>();
+      case 64: return fn.template tensor_core<64>();
+      case 128: return fn.template tensor_core<128>();
+      case 192: return fn.template tensor_core<192>();
+      case 256: return fn.template tensor_core<256>();
       default: return invalid;
     }
   }
-  if (dtype == 1) {
-    switch (d) {
-      case 8: return fn.template fma<__nv_bfloat16, 8>();
-      case 16: return fn.template fma<__nv_bfloat16, 16>();
-      case 32: return fn.template fma<__nv_bfloat16, 32>();
-      default: return invalid;
-    }
+  if (route != kRouteFma || d < 1 || d > kMaxHeadDim) return invalid;
+  switch (dtype) {
+    case 0: return fma_bucket<float>(d, fn);
+    case 1:
+      return tc_head_dim(d) ? invalid : fma_bucket<__nv_bfloat16>(d, fn);
+    case 2: return fma_bucket<__half>(d, fn);
+    default: return invalid;
   }
-  return invalid;
 }
 
 bool valid_problem(const Problem& p) {
@@ -1481,9 +1619,9 @@ bool valid_problem(const Problem& p) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); d in
-// {8, 16, 32, 64, 128}; route: 0 = FMA, 1 = tensor cores, as ``dispatch``
-// takes them.  lse, (bh, lq) float32, may be null: it is then not
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out alike);
+// d from 1 to 256; route: 0 = FMA, 1 = tensor cores, as ``dispatch`` takes
+// them.  lse, (bh, lq) float32, may be null: it is then not
 // written.  Returns cudaErrorInvalidValue for anything else.
 int local_attention_forward(const void* q, const void* k, const void* v,
                             void* out, void* lse, int dtype, int bh, int lq,
@@ -1491,7 +1629,7 @@ int local_attention_forward(const void* q, const void* k, const void* v,
                             int causal, int window, int route,
                             void* stream) {
   if (bh == 0 || lq == 0) return 0;
-  const Problem p{bh, lq, lk, kv_groups, scale, causal, window};
+  const Problem p{bh, lq, lk, d, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(route, dtype, d,
                   Forward{q, k, v, out, lse, p,
@@ -1510,7 +1648,7 @@ int local_attention_backward(const void* q, const void* k, const void* v,
                              int causal, int window, int route,
                              void* stream) {
   if (bh == 0) return 0;
-  const Problem p{bh, lq, lk, kv_groups, scale, causal, window};
+  const Problem p{bh, lq, lk, d, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(route, dtype, d,
                   Backward{q, k, v, out, dout, lse, delta, dq, dk, dv, p,
@@ -1522,8 +1660,8 @@ int local_attention_backward(const void* q, const void* k, const void* v,
 int local_attention_encode_descriptors(const void* q, const void* k,
                                        const void* v, int bh, int lq, int lk,
                                        int d, int kv_groups, int reps) {
-  const Problem p{bh, lq, lk, kv_groups, 1.0f, 1, 0};
-  if (!valid_problem(p) || (d != 64 && d != 128))
+  const Problem p{bh, lq, lk, d, kv_groups, 1.0f, 1, 0};
+  if (!valid_problem(p) || !tc_head_dim(d))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   for (int i = 0; i < reps; ++i)

@@ -15,14 +15,22 @@ skips tiles that are fully masked, which the reference runs; skipping is
 exact.  Ragged lengths are masked inside the kernel, so any Lq and Lk
 work (the reference's ``pick_block`` falls back to one whole-axis block).
 
-It has two routes, chosen by :func:`route` from the dtype and the head
-dim alone, never by a failure: ``"tensor_core"`` for bfloat16 at head
-dims 64 and 128 (every attention of the serving and training paths:
-``wgmma`` with TMA-fed K/V tiles forward, ``mma.sync`` backward) and
-``"fma"`` for float32 at every head dim and bfloat16 at 8, 16 and 32
-(fp32 FMA, which the reference's f32 bound of 2e-5 needs).  The source
-note says what bounds each on an H100 and what its design does about
-that.
+It takes what the reference's kernel takes up to a head dim of 256:
+any D from 1 to 256, in float32, bfloat16 or float16 (computed in fp32,
+stored in q's dtype).  D above 256 raises (no config of the reference
+reaches it; ``ROADMAP.md`` keeps it open), and so does Dqk != Dv, which
+the reference's kernel does not take either.  It has two routes, chosen
+by :func:`route` from the dtype and the head dim alone, never by a
+failure: ``"tensor_core"`` for bfloat16 at head dims 64, 128, 192 and 256
+(every attention of the serving and training paths: ``wgmma`` with
+TMA-fed K/V tiles forward, ``mma.sync`` backward) and ``"fma"`` for every
+other case (fp32 FMA, which the reference's f32 bound of 2e-5 needs; a D
+that is not a power of two runs in the next bucket of 8, 16, 32, 64,
+128, 192 or 256 columns with the padding masked).  TMA needs 16-byte
+aligned base addresses: an operand of the tensor-core route that is not
+aligned is copied to a fresh tensor and the same kernel runs on the copy,
+counted in ``local_flash_attention.realigned``.  The source note says
+what bounds each case on an H100 and what its design does about that.
 
 The kernel is differentiable: when autograd needs a gradient of q, k or
 v, the forward also writes each row's log-sum-exp and the backward is a
@@ -38,7 +46,8 @@ backward's plain version.  The wrapper takes it only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  It counts its
 forward launches in ``local_flash_attention.launches`` and its backward
 calls in ``local_flash_attention.backward_launches``, and both again per
-route in ``launches_by_route`` and ``backward_launches_by_route``.
+route in ``launches_by_route`` and ``backward_launches_by_route``; the
+operands it copied to align them in ``realigned``.
 """
 
 from __future__ import annotations
@@ -55,18 +64,19 @@ __all__ = ["local_flash_attention", "local_flash_attention_plain",
            "reset_launches", "route", "HEAD_DIMS", "ROUTES"]
 
 _NEG = -1.0e30
-HEAD_DIMS = (8, 16, 32, 64, 128)  # head dims the kernel is built for
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = range(1, 257)         # head dims the kernel takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535               # CUDA's limit on the (batch*head) axis
 ROUTES = ("tensor_core", "fma")
 _ROUTE_CODE = {"fma": 0, "tensor_core": 1}
-_TC_HEAD_DIMS = (64, 128)         # head dims of the tensor-core route
+_TC_HEAD_DIMS = (64, 128, 192, 256)   # head dims of the tensor-core route
 _TMA_ALIGN = 16                   # bytes: TMA's base-address alignment
 
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel route for q, k and v of ``dtype`` at head dim ``d``:
-    ``"tensor_core"`` for bfloat16 at 64 and 128, ``"fma"`` otherwise."""
+    ``"tensor_core"`` for bfloat16 at 64, 128, 192 and 256, ``"fma"``
+    otherwise."""
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
         return "tensor_core"
     return "fma"
@@ -148,19 +158,26 @@ def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("local_flash_attention: the CUDA kernel takes q, k "
-                        "and v all float32 or all bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+                        "and v all float32, all bfloat16 or all float16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("local_flash_attention: the CUDA kernel takes "
                          "contiguous operands")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"local_flash_attention: the CUDA kernel takes "
-                         f"head dims {HEAD_DIMS}, got {q.shape[-1]}")
-    if route(q.dtype, q.shape[-1]) == "tensor_core" and any(
-            t.data_ptr() % _TMA_ALIGN for t in (q, k, v)):
-        raise ValueError("local_flash_attention: the tensor-core route takes "
-                         f"{_TMA_ALIGN}-byte aligned operands")
+                         f"head dims 1 to {HEAD_DIMS[-1]}, got {q.shape[-1]} "
+                         "(larger head dims are an open item of ROADMAP.md)")
     return False
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where TMA can read it (a 16-byte aligned base), else a copy at
+    a fresh allocation, counted in ``realigned``; the copy is
+    differentiable, so gradients reach ``t``."""
+    if t.data_ptr() % _TMA_ALIGN == 0:
+        return t
+    local_flash_attention.realigned += 1
+    return t.clone()
 
 
 def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -277,8 +294,9 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
         ``w`` most recent keys.
       causal: lower-triangular masking (assumes aligned q/k positions).
 
-    The kernel picks its own tiles (64 or 128 queries by 64 keys, by
-    route); unlike the reference's Pallas kernel it takes no block sizes.
+    The kernel picks its own tiles (32 to 128 queries by 32 or 64 keys,
+    by route and head dim); unlike the reference's Pallas kernel it takes
+    no block sizes.
     Gradients flow to q, k and v: through the CUDA backward on the card,
     through the plain version's autograd on the CPU.
     """
@@ -305,6 +323,8 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if bh > _MAX_GRID_Y:
         raise ValueError(f"local_flash_attention: BH {bh} exceeds "
                          f"{_MAX_GRID_Y}")
+    if route(q.dtype, d) == "tensor_core":
+        q, k, v = (_aligned(t) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale, window, causal,
@@ -315,8 +335,9 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 def reset_launches() -> None:
     """Set the kernel's forward and backward launch counters, the totals
-    and those per route, to 0."""
+    and those per route, and the count of realigned operands to 0."""
     local_flash_attention.launches = 0
+    local_flash_attention.realigned = 0
     local_flash_attention.backward_launches = 0
     local_flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     local_flash_attention.backward_launches_by_route = dict.fromkeys(ROUTES,

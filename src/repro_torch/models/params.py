@@ -145,6 +145,13 @@ def model_templates(cfg: ModelConfig) -> dict:
 # --- materialization ---------------------------------------------------------------
 
 
+# float32 elements drawn at once (256 MiB): a larger leaf is drawn in
+# pieces of its flattened elements, so that initializing a model takes its
+# weights plus one piece of float32 draw, never a whole leaf in float32
+# (qwen2.5-32b's stacked w_in is 36 GB of it)
+_DRAW_ELEMENTS = 1 << 26
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if spec.init == "zeros":
@@ -156,9 +163,14 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
     else:  # fan_in: std = 1/sqrt(fan_in), fan_in = second-to-last dim
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return x.mul_(std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _DRAW_ELEMENTS):
+        piece = flat[i:i + _DRAW_ELEMENTS]
+        piece.copy_(torch.randn(piece.shape, generator=generator,
+                                dtype=torch.float32,
+                                device=device).mul_(std))
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,

@@ -8,10 +8,11 @@ Bounds are the reference's (``tests/test_kernels.py``): rtol/atol 2e-5 in
 float32, 3e-2 in bfloat16.  The grid is the reference test's, (lq, lk, d)
 in {(128,128,64), (256,128,32), (128,256,64)} x {causal, causal + window
 64, non-causal}, at kv_groups 2 and 4, plus ragged lengths (77, 200) that
-no 64-block divides.  Causal cases with lq > lk, which the reference test
-skips, are included: both sides mask by index (query i sees keys <= i),
-so they compute the same function there too, including the rows that a
-window leaves with no key at all (both give 0 there).
+no 64-block divides, and head dims 48, 192 and 256 beside them.  Causal
+cases with lq > lk, which the reference test skips, are included: both
+sides mask by index (query i sees keys <= i), so they compute the same
+function there too, including the rows that a window leaves with no key
+at all (both give 0 there).
 
 The port's attention is differentiable (training runs through it): on
 the CPU its gradients are the plain version's autograd, held to
@@ -92,6 +93,21 @@ def test_plain_matches_reference_kernel_bf16(lq, lk, groups, causal, window):
     np.testing.assert_allclose(got, want, **BF16)
 
 
+# every head dim the reference's kernel takes, not only the powers of two
+# the card's tensor cores like: 48 (the FMA route's bucket of 64 with 16
+# columns masked), 192 (nemotron-4-340b) and 256 (recurrentgemma)
+@pytest.mark.parametrize("d", [48, 192, 256])
+@pytest.mark.parametrize("causal,window", MODES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_reference_kernel_at_any_head_dim(d, causal, window,
+                                                        dtype):
+    q, k, v = _qkv(4, 128, 128, d, 2, seed=4)
+    want, got = _both(q, k, v, dtype, causal=causal, window=window,
+                      kv_groups=2)
+    np.testing.assert_allclose(got, want,
+                               **(F32 if dtype == "float32" else BF16))
+
+
 @pytest.mark.parametrize("hq,hkv,l", [(8, 2, 128), (8, 8, 77), (4, 1, 200)])
 def test_gqa_4d_wrapper_matches_reference(hq, hkv, l):
     rng = np.random.default_rng(3)
@@ -170,7 +186,9 @@ def test_wrapper_takes_meta_operands_shape_only():
 @pytest.mark.parametrize("lq,lk,d,groups,causal,window", [
     (128, 128, 64, 1, True, 0), (77, 77, 32, 2, True, 0),
     (128, 128, 16, 4, True, 24), (96, 128, 32, 2, False, 0),
-    (64, 200, 16, 1, False, 40), (200, 200, 64, 2, True, 64)])
+    (64, 200, 16, 1, False, 40), (200, 200, 64, 2, True, 64),
+    (128, 128, 192, 2, True, 0), (77, 77, 192, 1, True, 32),
+    (96, 96, 192, 4, False, 0)])
 def test_gradients_match_reference_oracle(lq, lk, d, groups, causal, window):
     q, k, v = _qkv(8, lq, lk, d, groups, seed=5)
     dout = np.random.default_rng(6).standard_normal(q.shape).astype(
@@ -210,7 +228,7 @@ def test_gqa_wrapper_gradients_reach_q_k_v():
 
 # --- the CUDA kernel's tensor-core route, emulated on the CPU ---------------
 #
-# On the card, bfloat16 q, k, v at head dims 64 and 128 take the
+# On the card, bfloat16 q, k, v at head dims 64, 128, 192 and 256 take the
 # tensor-core route (``tla.route``): S = Q K^T from bf16 operands into fp32
 # (exact products), an online softmax over 64-key tiles in fp32, and the
 # second products (P V; dS K, dS^T Q, P^T dO) with their 16-bit operand
@@ -283,12 +301,14 @@ def _tc_backward(q, k, v, out, lse, dout, *, causal, window, kv_groups):
     return _bf16(dq), _bf16(fold(dk)), _bf16(fold(dv))
 
 
-# (bh, lq, lk, d, kv_groups, causal, window): D 64 and 128, ragged L, GQA,
-# a window and non-causal; every query sees a key (the reference oracle
-# averages uniformly over a row that sees none).
+# (bh, lq, lk, d, kv_groups, causal, window): D 64, 128, 192 and 256,
+# ragged L, GQA, a window and non-causal; every query sees a key (the
+# reference oracle averages uniformly over a row that sees none).
 TC_CASES = [(4, 77, 77, 64, 1, True, 0), (4, 200, 200, 128, 4, True, 64),
             (8, 128, 128, 64, 4, False, 0), (4, 77, 200, 128, 2, False, 64),
-            (4, 200, 77, 64, 1, True, 0)]
+            (4, 200, 77, 64, 1, True, 0), (12, 200, 200, 192, 12, True, 0),
+            (4, 77, 77, 192, 2, False, 64), (4, 130, 130, 256, 4, True, 0),
+            (2, 77, 200, 256, 1, False, 0)]
 
 
 def _bf16_inputs(bh, lq, lk, d, groups, seed):
@@ -332,8 +352,12 @@ def test_tensor_core_backward_design_matches_reference_grads(
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 192, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
     (torch.bfloat16, 8, "fma"), (torch.bfloat16, 16, "fma"),
-    (torch.bfloat16, 32, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 128, "fma"), (torch.float32, 8, "fma")])
+    (torch.bfloat16, 32, "fma"), (torch.bfloat16, 48, "fma"),
+    (torch.bfloat16, 160, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 8, "fma"),
+    (torch.float32, 192, "fma"), (torch.float16, 128, "fma"),
+    (torch.float16, 256, "fma")])
 def test_route_follows_dtype_and_head_dim(dtype, d, want):
     assert tla.route(dtype, d) == want

@@ -22,10 +22,13 @@ kernel is held to its plain version at rtol/atol 2e-5 in float32, the
 reference's bound (``tests/test_kernels.py``), and at rtol 1e-2 / atol
 1e-3 in bfloat16: both sides compute in fp32 from the same inputs, so they
 differ by at most one bf16 rounding of the output (2^-7 relative).
-bf16 at head dims 64 and 128 takes the kernel's tensor-core route
-(``wgmma`` forward, ``mma.sync`` backward, P and dS split into two bf16
-terms), everything else its FMA route; each test asserts the route's
-launch counter, and the same bounds hold on both.
+bf16 at head dims 64, 128, 192 and 256 takes the kernel's tensor-core
+route (``wgmma`` forward, ``mma.sync`` backward, P and dS split into two
+bf16 terms), everything else (float32, float16 and bf16 at any other head
+dim up to 256) its FMA route; each test asserts the route's launch
+counter, and the same bounds hold on both (float16 at rtol 2e-3, one
+rounding of its 11-bit output).  A misaligned operand of the
+tensor-core route is copied once and counted in ``realigned``.
 An LM prefill on the card goes through it once per layer and matches the
 same model's prefill on the CPU at the bf16 decode bound of
 ``tests/test_models.py`` (5e-2).
@@ -55,6 +58,7 @@ bracketed output is held to the CPU's on the same inputs within the CPU
 test's replay bound (1e-4 * max).
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -449,35 +453,155 @@ def test_gqa_wrapper_launches_the_kernel(cuda_device):
 
 def test_flash_attention_raises_on_what_the_kernel_does_not_take(
         cuda_device):
+    """Head dim 48 and float16 are taken (and held to the plain version);
+    a head dim past 256, a strided operand and mixed devices raise."""
     q, k, v = _attn_inputs(41, 4, 64, 64, 64, 1, torch.float32, cuda_device)
-    with pytest.raises(TypeError):
-        la.local_flash_attention(q.half(), k.half(), v.half())
+    la.reset_launches()
+    for got, want in (
+            (la.local_flash_attention(q.half(), k.half(), v.half()),
+             la.local_flash_attention_plain(q.half(), k.half(), v.half())),
+            (la.local_flash_attention(*(t[..., :48].contiguous()
+                                        for t in (q, k, v))),
+             la.local_flash_attention_plain(*(t[..., :48]
+                                              for t in (q, k, v))))):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2e-3 if got.dtype == torch.float16
+                                   else 2e-5, atol=2e-5)
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 0, "fma": 2}
+    with pytest.raises(ValueError, match="ROADMAP"):
+        la.local_flash_attention(*_attn_inputs(41, 4, 64, 64, 264, 1,
+                                               torch.bfloat16, cuda_device))
     with pytest.raises(ValueError):
         la.local_flash_attention(q.transpose(1, 2), k, v)   # not contiguous
     with pytest.raises(ValueError):
-        la.local_flash_attention(q[..., :48].contiguous(),
-                                 k[..., :48].contiguous(),
-                                 v[..., :48].contiguous())  # head dim 48
-    with pytest.raises(ValueError):
         la.local_flash_attention(q, k.cpu(), v)             # mixed devices
+    assert la.local_flash_attention.launches == 2
 
 
-def test_tensor_core_route_raises_on_misaligned_operands(cuda_device):
-    """TMA takes 16-byte aligned base addresses: an operand that is not
-    raises instead of taking another route."""
-    buf = torch.randn(4 * 64 * 64 + 1, device=cuda_device,
+@pytest.mark.parametrize("d", [64, 192])
+def test_tensor_core_route_realigns_misaligned_operands(cuda_device, d):
+    """TMA takes 16-byte aligned base addresses: an operand that is not is
+    copied once to a fresh allocation, counted in ``realigned``, and the
+    tensor-core kernel runs on the copy, forward and backward."""
+    buf = torch.randn(4 * 200 * d + 1, device=cuda_device,
                       dtype=torch.bfloat16)
-    q = buf[1:].view(4, 64, 64)                 # contiguous, 2 bytes off
+    q = buf[1:].view(4, 200, d)                 # contiguous, 2 bytes off
     k, v = torch.randn_like(q), torch.randn_like(q)
+    dout = torch.randn_like(q)
     la.reset_launches()
-    with pytest.raises(ValueError, match="aligned"):
-        la.local_flash_attention(q, k, v)
-    assert la.local_flash_attention.launches == 0
+    got = _grads(lambda *t: la.local_flash_attention(*t), q, k, v, dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t), q, k, v,
+                  dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.realigned == 1
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 1, "fma": 0}
+    assert la.local_flash_attention.backward_launches_by_route == {
+        "tensor_core": 1, "fma": 0}
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=1e-2,
+                               atol=1e-3)
+    for g, w in zip(got[1:], want[1:]):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=2e-2 * top)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b"])
+# The tensor-core route at head dims 192 and 256 (nemotron-4-340b's and
+# recurrentgemma's): ragged and whole tiles, GQA groups 1, 4 and 12, a
+# window and non-causal, forward at rtol 1e-2 / atol 1e-3 and backward at
+# 2e-2 * max|plain|.
+@pytest.mark.parametrize("lq,lk,groups", [
+    (77, 77, 1), (1000, 1000, 4), (1024, 1024, 12), (333, 1023, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("d", [192, 256])
+def test_tensor_core_route_at_large_head_dims(cuda_device, lq, lk, groups,
+                                              causal, window, d):
+    q, k, v = _attn_inputs(47, 12, lq, lk, d, groups, torch.bfloat16,
+                           cuda_device)
+    kw = dict(causal=causal, window=window, kv_groups=groups)
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, **kw)
+    want = la.local_flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 1, "fma": 0}
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+    if lq != lk:
+        return      # the backward's causal masks assume aligned positions
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(5), device=cuda_device,
+        dtype=torch.bfloat16)
+    got = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                 dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t, **kw), q, k,
+                  v, dout)
+    again = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                   dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.backward_launches_by_route == {
+        "tensor_core": 2, "fma": 0}
+    for name, g, w, r in zip(("dq", "dk", "dv"), got[1:], want[1:],
+                             again[1:]):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=2e-2 * top, msg=name)
+        assert torch.equal(g, r), name
+
+
+# The FMA route at every kind of head dim: below, between and at the
+# buckets (1, 5, 48, 80, 100, 160, 192, 255, 256), in float32 (2e-5 forward,
+# 1e-4 * max backward), float16 and bfloat16 (one rounding of the output:
+# 2e-3 / 1e-2 relative; backward 2e-2 * max).
+@pytest.mark.parametrize("d", [1, 5, 48, 80, 100, 160, 192, 255, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_fma_route_at_any_head_dim(cuda_device, d, dtype):
+    if la.route(dtype, d) != "fma":
+        pytest.skip("bf16 at this head dim takes the tensor-core route")
+    q, k, v = _attn_inputs(48, 8, 300, 300, d, 2, dtype, cuda_device)
+    kw = dict(causal=True, window=100, kv_groups=2)
+    dout = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(6), device=cuda_device, dtype=dtype)
+    la.reset_launches()
+    got = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                 dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t, **kw), q, k,
+                  v, dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 0, "fma": 1}
+    assert la.local_flash_attention.backward_launches_by_route == {
+        "tensor_core": 0, "fma": 1}
+    rtol = {torch.float32: 2e-5, torch.float16: 2e-3,
+            torch.bfloat16: 1e-2}[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol,
+                               atol=2e-5 if dtype == torch.float32 else 1e-3)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        assert g.dtype == dtype, name
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * top, msg=name)
+
+
+# the narrow bf16 config puts kernel 6's D-192 tensor-core route inside a
+# model prefill (nemotron's smoke config has D 16, on the FMA route)
+_D192 = ("nemotron-4-340b", dict(d_model=384, n_heads=2, n_kv_heads=1,
+                                  param_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b", "qwen2.5-32b",
+                                  "nemotron-4-340b", "d192"])
 def test_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
-    cfg = tcfgs.get_smoke_config(arch)
+    if arch == "d192":
+        cfg = dataclasses.replace(tcfgs.get_smoke_config(_D192[0]),
+                                  **_D192[1])
+        assert la.route(cfg.activation_dtype, cfg.head_dim_) == "tensor_core"
+    else:
+        cfg = tcfgs.get_smoke_config(arch)
     params = init_params(cfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(42).integers(
         0, cfg.vocab_size, (2, 77)))

@@ -54,7 +54,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.config import torch_dtype
 from repro_torch.serving import Request, ServingEngine
 
-ARCHS = ["stablelm-1.6b", "qwen2-72b"]
+ARCHS = ["stablelm-1.6b", "qwen2-72b", "qwen2.5-32b", "nemotron-4-340b"]
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
 
@@ -114,6 +114,27 @@ def test_param_counts_equal_reference(arch):
         jcounts(jcfgs.get_config(arch))
     assert param_counts(tcfgs.get_smoke_config(arch)) == \
         jcounts(jcfgs.get_smoke_config(arch))
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("stablelm-1.6b", 1.6e9), ("qwen2-72b", 72.7e9), ("qwen2.5-32b", 32.8e9),
+    ("nemotron-4-340b", 341e9)])
+def test_full_param_counts_match_published(arch, want):
+    """The published sizes, within the reference's 5 %
+    (``tests/test_models.py``)."""
+    total, _ = param_counts(tcfgs.get_config(arch))
+    assert abs(total - want) / want < 0.05, (arch, total, want)
+
+
+def test_relu2_tree_converts_without_a_gate():
+    """nemotron's squared-ReLU MLP has no ``w_gate``: the reference's tree
+    converts, and the port's template has the same keys."""
+    (_, jp), (tcfg, tp) = _pair("nemotron-4-340b")
+    mlp = tp["stack"]["0_attn"]["mlp"]
+    assert "w_gate" not in mlp and set(mlp) == set(
+        jp["stack"]["0_attn"]["mlp"])
+    assert set(init_params(tcfg, device="cpu")["stack"]["0_attn"]["mlp"]) \
+        == set(mlp)
 
 
 def test_stablelm_full_param_count_exact():
