@@ -53,7 +53,19 @@ and read just after:
   frames, every prefill's attention on kernel 6's tensor-core route (D
   128 with GQA 5, D 192 with GQA 12), tokens against an offline greedy
   loop; kernel 6 at each model's prefill shape against its plain
-  version, forward and backward, and at D 256.
+  version, forward and backward, and at D 256;
+* the recurrent families: recurrentgemma-9b at its published width and
+  depth (38 layers, 20.8 GB of bf16 weights) serving 8 prompts of
+  512-4096 tokens (four past its 2048 window) with max_len 4608, every
+  prefill's local attention on kernel 6's tensor-core route at D 256,
+  tokens against an offline greedy loop, and kernel 6 at (16 / 1, 4096,
+  256) window 2048 beside SDPA with the same band mask; xlstm-125m at
+  full width and depth taking 20 AdamW steps of 8 x 128 tokens through
+  ``examples/train_lm.py``'s twin, its loss falling, and 2 steps under
+  each remat switch equal to "full"; one Adafactor step and one int8
+  error-feedback round at a qwen2.5-32b layer's shapes, card against
+  CPU; kernel 6 past D 256 (257, 320, 512) forward and backward against
+  its plain version.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -191,7 +203,8 @@ def card_line() -> str:
 TC_KERNELS = ("attention_tc_kernel", "attention_bwd_kv_tc_kernel",
               "attention_bwd_q_tc_kernel")
 TC_HEAD_DIMS = (64, 128, 192, 256)
-# kernel 6's FMA kernels (each at 3 dtypes and 7 head-dim buckets)
+# kernel 6's FMA kernels (each at 3 dtypes and 7 head-dim buckets, and
+# the wide kernels past 256)
 FMA_KERNELS = ("attention_kernel", "attention_bwd_kv_kernel",
                "attention_bwd_q_kernel")
 # kernel 6's kernels as the profiler names them, both routes
@@ -362,6 +375,21 @@ def device_ms(fn, calls: int = 20) -> tuple[float | None, dict]:
     set the event-timed wall."""
     total, by_name, _ = device_profile(fn, calls)
     return total, by_name
+
+
+def sdpa_backend(fn) -> tuple[str, list[str]]:
+    """Which ``scaled_dot_product_attention`` backend a call of ``fn``
+    ran, from the kernel names the profiler saw (cudnn's fused kernels
+    carry "flash" in their names too, so it is looked for first): cudnn,
+    flash, efficient (the CUTLASS memory-efficient kernel) or math (plain
+    GEMMs and a softmax); and the names themselves."""
+    _, by_name = device_ms(fn, calls=5)
+    names = " ".join(by_name).lower()
+    for key, name in (("cudnn", "cudnn"), ("flash", "flash"),
+                      ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return name, sorted(by_name)
+    return ("math" if names else "not seen"), sorted(by_name)
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -830,15 +858,21 @@ class CheckedLM:
 
 
 def lanes(cache: dict, n: int) -> dict:
-    """A 1-lane decode cache repeated onto n lanes (``pos`` has the lane
-    first; stablelm's layers are all stacked, lane second)."""
-    return {"pos": cache["pos"].repeat(n),
-            "stack": {key: {k: t.repeat_interleave(n, dim=1)
-                            for k, t in layer.items()}
-                      for key, layer in cache["stack"].items()}}
+    """A 1-lane decode cache repeated onto n lanes (``pos`` and a prefix
+    or tail layer's leaves have the lane first, a stacked layer's the
+    lane second)."""
+    out = {"pos": cache["pos"].repeat(n)}
+    for section in ("prefix", "stack", "tail"):
+        dim = 1 if section == "stack" else 0
+        if section in cache:
+            out[section] = {key: {k: t.repeat_interleave(n, dim=dim)
+                                  for k, t in layer.items()}
+                            for key, layer in cache[section].items()}
+    return out
 
 
-def offline_greedy(model, params, prompt, new, n_lanes, dev) -> list[int]:
+def offline_greedy(model, params, prompt, new, n_lanes, dev,
+                   max_len: int = MAX_LEN) -> list[int]:
     """One prompt's prefill followed by a greedy-decode loop, outside the
     engine.  The prefilled cache is repeated onto ``n_lanes`` identical
     lanes so that every product has the engine's shapes: cuBLAS picks its
@@ -846,7 +880,7 @@ def offline_greedy(model, params, prompt, new, n_lanes, dev) -> list[int]:
     differently."""
     cache, logits = model.prefill(
         params, {"tokens": torch.tensor([prompt], device=dev)},
-        max_len=MAX_LEN)
+        max_len=max_len)
     cache = lanes(cache, n_lanes)
     toks = [int(torch.argmax(logits[0]))]
     for _ in range(new - 1):
@@ -912,7 +946,7 @@ def check_attention(la, dev, lens) -> float:
         if dtype == torch.bfloat16 and g == 1 and window == 0 and d == 64:
             err_bf16 = max(err_bf16, err)
     # a misaligned operand of the tensor-core route is copied once and
-    # launched there; a head dim past 256 raises
+    # launched there
     buf = torch.from_numpy(rng.standard_normal(24 * 517 * 192 + 1).astype(
         np.float32)).to(device=dev, dtype=torch.bfloat16)
     q = buf[1:].view(24, 517, 192)
@@ -928,28 +962,24 @@ def check_attention(la, dev, lens) -> float:
           f"misaligned D-192 operand: realigned "
           f"{la.local_flash_attention.realigned}, routes "
           f"{la.local_flash_attention.launches_by_route}")
-    try:
-        la.local_flash_attention(*attn_inputs(rng, 4, 64, 264, 1,
-                                              torch.bfloat16, dev))
-        check(False, "head dim 264 did not raise")
-    except ValueError as e:
-        check("ROADMAP" in str(e), f"head dim 264 raised {e}")
     print(f"  attention kernel vs plain: {len(cases)} shapes ok (bf16 "
           f"causal at L = {sorted(lens)}, max |err| {err_bf16:.3e}, at rtol "
           "1e-2 / atol 1e-3; f32, GQA and windowed at 2e-5; bf16 at D 128, "
           "192 and 256 and bf16 GQA at 1e-2 / 1e-3; the FMA route at D 48, "
           "80, 192 and 256 in f32 at 2e-5 and float16 at 2e-3 / 1e-3); a "
           "misaligned D-192 operand realigned once on the tensor-core "
-          "route; D 264 raises")
+          "route (D past 256: phase 12d)")
     return err_bf16
 
 
-def serve_requests(rt, od, la, dev, cfg) -> tuple:
-    """``cfg`` at random weights from SEED serving PROMPT_LENS's 8
-    requests through ``ServingEngine`` (SLOTS slots of MAX_LEN) with
-    AUX_FRAMES fft frames on its ``OffloadScheduler``, every kernel's
-    count set to 0 just before and read just after; then its checks:
-    one tensor-core launch of kernel 6 per layer and prefill, the aux
+def serve_requests(rt, od, la, dev, cfg, prompt_lens=PROMPT_LENS,
+                   max_len: int = MAX_LEN) -> tuple:
+    """``cfg`` at random weights from SEED serving 8 requests of
+    ``prompt_lens`` tokens through ``ServingEngine`` (SLOTS slots of
+    ``max_len``) with AUX_FRAMES fft frames on its ``OffloadScheduler``,
+    every kernel's count set to 0 just before and read just after; then
+    its checks: one tensor-core launch of kernel 6 per attention layer
+    and prefill, the aux
     frames through the DFT kernels' tensor-core route and within 2e-4*max
     + one ADC step of the host, finite logits, and the tokens of
     OFFLINE_RIDS equal to an offline greedy loop.  Returns (engine,
@@ -968,7 +998,7 @@ def serve_requests(rt, od, la, dev, cfg) -> tuple:
                          dev)
     ex = rt.OffloadExecutor(rt.BATCHED_4F, device="cuda")
     sched = rt.OffloadScheduler(ex)
-    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN,
+    engine = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=max_len,
                            offload=sched)
     engine.model = CheckedLM(engine.model, dev)
     torch.cuda.synchronize()
@@ -988,7 +1018,7 @@ def serve_requests(rt, od, la, dev, cfg) -> tuple:
     rng = np.random.default_rng(SEED + 4)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=MAX_NEW)
-            for i, n in enumerate(PROMPT_LENS)]
+            for i, n in enumerate(prompt_lens)]
     frames = [rng_frames(rng, (SIDE, SIDE), dev) for _ in range(AUX_FRAMES)]
     torch.cuda.synchronize()
 
@@ -1030,11 +1060,12 @@ def serve_requests(rt, od, la, dev, cfg) -> tuple:
     print(f"  served {len(reqs)} requests in {steps} steps, {wall_s:.3f} s; "
           f"launches {launches}; peak memory {peak_gb:.2f} GB")
 
-    check(launches["local_flash_attention"] == cfg.n_layers * len(reqs),
+    n_attn = cfg.layer_kinds().count("attn")
+    check(launches["local_flash_attention"] == n_attn * len(reqs),
           f"attention kernel launched {launches['local_flash_attention']} "
-          f"times for {len(reqs)} prefills of {cfg.n_layers} layers")
+          f"times for {len(reqs)} prefills of {n_attn} attention layers")
     check(launches["local_flash_attention_by_route"] ==
-          {"tensor_core": cfg.n_layers * len(reqs), "fma": 0},
+          {"tensor_core": n_attn * len(reqs), "fma": 0},
           "serving's attention did not all take the tensor-core route: "
           f"{launches['local_flash_attention_by_route']}")
     for name in ("dft_stage1_batched", "dft_stage2_batched"):
@@ -1075,11 +1106,11 @@ def serve_requests(rt, od, la, dev, cfg) -> tuple:
     for rid in OFFLINE_RIDS:
         req = reqs[rid]
         want = offline_greedy(model, engine.params, req.prompt, MAX_NEW,
-                              SLOTS, dev)
+                              SLOTS, dev, max_len)
         check(req.out_tokens == want, f"request {rid}: engine tokens "
               f"{req.out_tokens} != offline greedy {want}")
     single = offline_greedy(model, engine.params, reqs[OFFLINE_RIDS[0]].prompt,
-                            MAX_NEW, 1, dev)
+                            MAX_NEW, 1, dev, max_len)
     print(f"  engine tokens == offline prefill + greedy decode for requests "
           f"{list(OFFLINE_RIDS)}; at 1 lane the offline tokens "
           f"{'also agree' if single == reqs[OFFLINE_RIDS[0]].out_tokens else 'differ'}")
@@ -1090,8 +1121,8 @@ def serve_requests(rt, od, la, dev, cfg) -> tuple:
     dec_tokens = sum(n for _, n in decode_steps)
     step_ms = [t * 1e3 for t, _ in decode_steps]
     out = {"arch": arch, "n_layers": cfg.n_layers, "slots": SLOTS,
-           "max_len": MAX_LEN, "max_new_tokens": MAX_NEW,
-           "prompt_lens": list(PROMPT_LENS), "steps": steps,
+           "max_len": max_len, "max_new_tokens": MAX_NEW,
+           "prompt_lens": list(prompt_lens), "steps": steps,
            "wall_s": wall_s, "launches": launches,
            "aux_batches": aux_batches,
            "ttft_ms": ttfts, "ttft_ms_median": statistics.median(ttfts),
@@ -1224,8 +1255,14 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
     lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                                  enable_gqa=True)
     t = [median_ms(kern), median_ms(plain), median_ms(plain), median_ms(kern)]
-    if window and window < l:   # SDPA's causal mask has no window
-        lib = None
+    if window and window < l:
+        # SDPA's causal mask has no window: the band as a boolean mask, on
+        # KV heads expanded to the query heads (made before timing)
+        band = la._mask(l, l, True, window, dev)
+        kx, vx = (x.repeat_interleave(g, dim=0).unsqueeze(0)
+                  for x in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(q4, kx, vx,
+                                                     attn_mask=band)
     vis = sum(min(i + 1, window) if window else i + 1 for i in range(l))
     flops = 4 * vis * d * h                 # QK^T and PV over visible pairs
     nbytes = 2 * l * d * (2 * h + 2 * hkv)  # q, out and k, v in bf16
@@ -1234,9 +1271,11 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
            "window": window, "kernel_route": la.route(torch.bfloat16, d),
            "max_abs_err": err, "ms": statistics.mean((t[0], t[3])),
            "plain_ms": statistics.mean((t[1], t[2])),
-           "library_ms": None if lib is None else median_ms(lib),
+           "library_ms": median_ms(lib),
+           "library_mask": "band" if window and window < l else "causal",
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": nbytes}
+    row["library_backend"], row["library_kernels"] = sdpa_backend(lib)
     if backward:
         dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
             np.float32)).to(device=dev, dtype=torch.bfloat16)
@@ -1279,12 +1318,14 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         row["backward"] = {
             "max_abs_err": max(errs), "ms": statistics.mean((tb[0], tb[3])),
             "plain_ms": statistics.mean((tb[1], tb[2])),
-            "library_ms": None if lib is None else median_ms(lib_b),
+            "library_ms": (None if window and window < l
+                           else median_ms(lib_b)),
             "bound_ms": bb_ms, "bound_by": bb_by}
     print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}, D {d}) bf16 "
           f"causal{f' window {window}' if window else ''}: forward "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
-          f"{row['library_ms']}, bound {b_ms:.4f} ({b_by}); max |err| "
+          f"{row['library_ms']:.4f} ({row['library_backend']}, "
+          f"{row['library_mask']} mask), bound {b_ms:.4f} ({b_by}); max |err| "
           f"{err:.3e}" + ("" if not backward else
                           f"; backward {row['backward']['ms']:.4f} ms, plain "
                           f"{row['backward']['plain_ms']:.4f}, SDPA "
@@ -1624,6 +1665,322 @@ def phase_dense_serving(rt, od, la, dev, card: str) -> dict:
               f"{run['weight_gb']:.2f} GB")
         out[arch] = run
     return out
+
+
+# --- phase 12: the recurrent families -------------------------------------------
+
+# recurrentgemma-9b as published: (layers, d_model, heads, KV heads, head
+# dim, d_ff, vocab, window, lru_width)
+RG_ARCH = "recurrentgemma-9b"
+RG_WIDTHS = (38, 4096, 16, 1, 256, 12288, 256000, 2048, 4096)
+# 8 prompts of 512-4096 tokens, four past the 2048 window; none a whole
+# number of 64-key tiles but 512 and 4096
+RG_PROMPT_LENS = (512, 2500, 1031, 4096, 777, 3001, 2049, 1500)
+RG_MAX_LEN = 4608
+RG_TIMED_L = 4096
+# xlstm-125m as published: (layers, d_model, heads, vocab); its training
+XL_ARCH = "xlstm-125m"
+XL_WIDTHS = (12, 768, 4, 50304)
+XL_STEPS, XL_BATCH, XL_SEQ = 20, 8, 128
+XL_REMAT = (("full", {}), ("dots", {"REPRO_REMAT_POLICY": "dots"}),
+            ("group2", {"REPRO_REMAT_GROUP": "2"}))
+XL_CKPT = Path(__file__).resolve().parent / "build" / "chip_smoke_train_lm"
+# Adafactor and error feedback at a full-width qwen2.5-32b layer's shapes
+OPT_SHAPES = {"w_in": (5120, 27648), "ln": (5120,)}
+# kernel 6 past D 256 (the FMA route's wide kernels)
+WIDE_DIMS = (257, 320, 512)
+
+
+def phase_recurrent_serving(rt, od, la, dev, card: str) -> dict:
+    """12a: recurrentgemma-9b at its published width and depth serving 8
+    prompts of 512-4096 tokens (four past its 2048 window) with
+    max_len 4608; kernel 6 at (16 / 1, 4096, 256) window 2048."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(RG_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.local_window,
+           cfg.lru_width) == RG_WIDTHS,
+          f"{RG_ARCH} is not at its published width and depth")
+    check(la.route(cfg.activation_dtype, cfg.head_dim_) == "tensor_core",
+          f"{RG_ARCH}'s attention (D {cfg.head_dim_}) is not on kernel 6's "
+          "tensor-core route")
+    check(sum(n > cfg.local_window for n in RG_PROMPT_LENS) >= 3,
+          "fewer than three prompts past the window")
+    _, _, run = serve_requests(rt, od, la, dev, cfg, RG_PROMPT_LENS,
+                               RG_MAX_LEN)
+    ttft = run["ttft_ms"]
+    run["ttft_ms_median_by_round"] = [statistics.median(ttft[:SLOTS]),
+                                      statistics.median(ttft[SLOTS:])]
+    run["kernel6"] = attention_case(la, dev, cfg.n_heads, cfg.n_kv_heads,
+                                    RG_TIMED_L, cfg.head_dim_,
+                                    window=cfg.local_window)
+    print(f"  [{card}] {RG_ARCH}: TTFT median {run['ttft_ms_median']:.1f} ms "
+          f"(first round {run['ttft_ms_median_by_round'][0]:.1f}, second "
+          f"{run['ttft_ms_median_by_round'][1]:.1f}), decode "
+          f"{run['decode_tokens_per_s']:.1f} tok/s (median step "
+          f"{run['decode_step_ms_median']:.3f} ms), peak memory "
+          f"{run['peak_memory_gb']:.2f} GB, weights {run['weight_gb']:.2f} "
+          f"GB; kernel 6 by route "
+          f"{run['launches']['local_flash_attention_by_route']}")
+    return run
+
+
+def remat_agreement(model, params, task, dev) -> dict:
+    """Two AdamW steps from ``params`` under each remat setting of
+    XL_REMAT (the environment switches set around them): the losses and
+    every gradient leaf of both steps within 1e-6 relative of "full"'s
+    (|diff| <= 1e-6 * max|full| per leaf)."""
+    import os
+    from repro_torch.models.params import leaves
+    from repro_torch.optim import adamw, apply_updates
+    from repro_torch.train import loss_and_grads
+
+    opt = adamw(1e-3)
+    runs = {}
+    for name, env in XL_REMAT:
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            p, st, steps = params, opt.init(params), []
+            for i in range(2):
+                loss, _, grads = loss_and_grads(model, p,
+                                                task.batch(XL_STEPS + i, dev))
+                steps.append((float(loss), grads))
+                upd, st, _ = opt.update(grads, st, p, i)
+                p = apply_updates(p, upd)
+            runs[name] = steps
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    worst = {}
+    for name, steps in runs.items():
+        if name == "full":
+            continue
+        rel = 0.0
+        for (l0, g0), (l1, g1) in zip(runs["full"], steps):
+            rel = max(rel, abs(l1 - l0) / abs(l0))
+            for (_, a), (_, b) in zip(leaves(g0), leaves(g1)):
+                top = float(a.abs().max())
+                d = float((b - a).abs().max())
+                rel = max(rel, d / top if top else d)
+        check(rel <= 1e-6, f"remat {name}: losses or gradients differ from "
+              f"full by {rel:.3e} relative (> 1e-6)")
+        worst[name] = rel
+    losses = {name: [l for l, _ in steps] for name, steps in runs.items()}
+    print(f"  remat settings over 2 steps: losses {losses}; worst relative "
+          f"difference from full {worst} (<= 1e-6)")
+    return {"losses": losses, "max_rel_diff": worst}
+
+
+def phase_recurrent_training(dev, card: str) -> dict:
+    """12b: xlstm-125m at full width and depth, 20 AdamW steps of 8 x 128
+    tokens through ``examples/train_lm.py``'s twin (checkpoints under
+    build/); losses falling and finite, every gradient leaf finite, the
+    remat settings agreeing."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.examples import train_lm
+    from repro_torch.models import LM, param_counts
+    from repro_torch.models.params import leaves
+    from repro_torch.train import loss_and_grads
+
+    cfg = configs.get_config(XL_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.vocab_size) ==
+          XL_WIDTHS, f"{XL_ARCH} is not at its published width and depth")
+    n_params = param_counts(cfg)[0]
+    tokens = XL_BATCH * XL_SEQ
+    shutil.rmtree(XL_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    starts: list[float] = []
+    t0 = time.perf_counter()
+    (params, _), losses, task = train_lm.train(
+        steps=XL_STEPS, batch=XL_BATCH, seq=XL_SEQ, ckpt_dir=str(XL_CKPT),
+        device=dev, log_every=1,
+        fault_hook=lambda step: starts.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
+    check(len(losses) == XL_STEPS and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> "
+          f"{losses[-1]}")
+    check(len(walls) == XL_STEPS, f"{len(walls)} step marks")
+    written = sorted(p.name for p in XL_CKPT.iterdir()) \
+        if XL_CKPT.exists() else []
+    model = LM(cfg)
+    loss, _, grads = loss_and_grads(model, params, task.batch(XL_STEPS, dev))
+    check(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for _, g in leaves(grads)),
+          "a gradient leaf is not finite")
+    del grads
+    remat = remat_agreement(model, params, task, dev)
+    step_s = statistics.median(walls[1:])
+    out = {"arch": XL_ARCH, "params": n_params, "batch": XL_BATCH,
+           "seq": XL_SEQ, "steps": XL_STEPS, "losses": losses,
+           "step_wall_s": walls, "step_wall_s_median": step_s,
+           "tokens_per_s": tokens / step_s, "peak_memory_gb": peak_gb,
+           "held_before_gb": held_gb, "wall_s": t_end - t0,
+           "checkpoints": written, "remat": remat}
+    print(f"  [{card}] {XL_ARCH}: {n_params:,} parameters, {XL_STEPS} steps "
+          f"of {tokens} tokens in {t_end - t0:.2f} s (init and checkpoints "
+          f"{written} included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"step wall median of the last {XL_STEPS - 1} {step_s:.4f} s, "
+          f"{out['tokens_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} "
+          f"GB ({held_gb:.2f} GB held before); every gradient leaf finite")
+    return out
+
+
+def phase_optimizers(dev, card: str) -> dict:
+    """12c: one Adafactor step on a factored (5120, 27648) matrix and an
+    unfactored (5120,) vector, and one ``ef_compress`` / ``ef_decompress``
+    round on the matrix, each on the card and on the CPU from the same
+    inputs.  Adafactor's update and state within rtol 1e-5 / atol
+    1e-6 * max of the CPU's (reductions in another order); the int8 codes
+    and scales equal, the residual and the decompressed gradient within
+    1e-6 * the scale."""
+    from repro_torch.optim import (adafactor, ef_compress, ef_decompress,
+                                   ef_init)
+
+    rng = np.random.default_rng(SEED + 12)
+    host = {k: {"p": torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)), "g": torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32) * 1e-2)} for k, sh in OPT_SHAPES.items()}
+    res = {}
+    for where in ("cpu", dev):
+        params = {k: v["p"].to(where) for k, v in host.items()}
+        grads = {k: v["g"].to(where) for k, v in host.items()}
+        opt = adafactor(1e-2)
+        state = opt.init(params)
+        upd, state, _ = opt.update(grads, state, params, 0)
+        q, scale, resid = ef_compress({"w": grads["w_in"]},
+                                      ef_init({"w": grads["w_in"]}))
+        back = ef_decompress(q, scale)
+        torch.cuda.synchronize()
+        res[str(where)] = {"upd": upd, "state": state, "q": q["w"],
+                           "scale": scale["w"], "res": resid["w"],
+                           "back": back["w"]}
+    cpu, card_ = res["cpu"], res[str(dev)]
+    check(set(cpu["state"]["v"]["w_in"]) == {"vr", "vc"}
+          and set(cpu["state"]["v"]["ln"]) == {"v"},
+          "Adafactor did not factor the matrix alone")
+    errs = {}
+    pairs = [("update " + k, card_["upd"][k], cpu["upd"][k])
+             for k in OPT_SHAPES]
+    pairs += [(f"state {k}/{n}", card_["state"]["v"][k][n], t)
+              for k in OPT_SHAPES for n, t in cpu["state"]["v"][k].items()]
+    for name, got, want in pairs:
+        got = got.cpu()
+        top = float(want.abs().max())
+        errs[name] = float((got - want).abs().max())
+        check(max_violation(got, want, 1e-5, 1e-6 * top) <= 0.0,
+              f"Adafactor {name}: card vs CPU max |err| {errs[name]:.3e}")
+    mism = int((card_["q"].cpu() != cpu["q"]).sum())
+    check(card_["q"].dtype == torch.int8 and mism == 0
+          and float(card_["scale"]) == float(cpu["scale"]),
+          f"int8 codes differ at {mism} elements, or the scale "
+          f"({float(card_['scale'])} vs {float(cpu['scale'])})")
+    sc = float(cpu["scale"])
+    for name in ("res", "back"):
+        e = float((card_[name].cpu() - cpu[name]).abs().max())
+        errs["compression " + name] = e
+        check(e <= 1e-6 * sc, f"compression {name}: max |err| {e:.3e} > "
+              f"1e-6 * scale {sc:.3e}")
+    print(f"  [{card}] Adafactor on (5120, 27648) + (5120,) and an int8 "
+          f"error-feedback round on the matrix: card == CPU (max |err| "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; int8 codes and "
+          f"scale equal)")
+    return {"max_abs_err": errs, "int8_mismatches": mism, "scale": sc}
+
+
+def phase_wide_head_dims(la, dev, card: str) -> dict:
+    """12d: kernel 6 at D 257, 320 and 512 (the FMA route's wide kernels),
+    f32 and bf16, causal and windowed, forward and backward against the
+    plain version (f32: 2e-5 forward, 1e-4 * max backward; bf16: rtol
+    1e-2 / atol 1e-3 forward, 2e-2 * max backward), each forward timed
+    beside the plain version, SDPA with the same mask (on KV heads
+    expanded to the query heads) and its bound: the visible pairs'
+    products at the fp32 rate for f32 inputs, the bf16 rate for bf16."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(SEED + 13)
+    bh, l, g = 8, 1024, 2
+    rows = []
+    for d in WIDE_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in (0, 300):
+                q, k, v = attn_inputs(rng, bh, l, d, g, dtype, dev)
+                dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+                    np.float32)).to(device=dev, dtype=dtype)
+                kw = dict(causal=True, window=window, kv_groups=g)
+                la.reset_launches()
+                got = attn_grads(lambda *t: la.local_flash_attention(
+                    *t, **kw), q, k, v, dout)
+                want = attn_grads(lambda *t: la.local_flash_attention_plain(
+                    *t, **kw), q, k, v, dout)
+                torch.cuda.synchronize()
+                routes = (dict(la.local_flash_attention.launches_by_route),
+                          dict(la.local_flash_attention
+                               .backward_launches_by_route))
+                check(routes == ({"tensor_core": 0, "fma": 1},) * 2,
+                      f"D {d} {dtype}: routes {routes}")
+                f32 = dtype == torch.float32
+                rtol, atol = (2e-5, 2e-5) if f32 else (1e-2, 1e-3)
+                err = float((got[0].float() - want[0].float()).abs().max())
+                check(max_violation(got[0].float(), want[0].float(), rtol,
+                                    atol) <= 0.0,
+                      f"D {d} {dtype} window {window}: forward max |err| "
+                      f"{err:.3e}")
+                tol = 1e-4 if f32 else 2e-2
+                berr = 0.0
+                for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+                    e = float((a.float() - b.float()).abs().max())
+                    top = float(b.float().abs().max())
+                    check(e <= tol * top, f"D {d} {dtype} window {window}: "
+                          f"{name} max |err| {e:.3e} > {tol} * {top:.3e}")
+                    berr = max(berr, e)
+                kern = lambda: la.local_flash_attention(q, k, v, **kw)
+                plain = lambda: la.local_flash_attention_plain(q, k, v, **kw)
+                band = la._mask(l, l, True, window, dev)
+                q4, kx, vx = (x.unsqueeze(0) for x in (
+                    q, k.repeat_interleave(g, dim=0),
+                    v.repeat_interleave(g, dim=0)))
+                lib = lambda: F.scaled_dot_product_attention(
+                    q4, kx, vx, attn_mask=band if window else None,
+                    is_causal=not window)
+                t = [median_ms(kern, runs=5), median_ms(plain, runs=5),
+                     median_ms(lib, runs=5)]
+                vis = sum(min(i + 1, window) if window else i + 1
+                          for i in range(l))
+                flops = 4 * vis * d * bh
+                nbytes = q.element_size() * l * d * (2 * bh + 2 * bh // g)
+                peak = PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS
+                t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
+                backend, names = sdpa_backend(lib)
+                rows.append({"d": d, "dtype": str(dtype).split(".")[-1],
+                             "window": window, "shape": [bh, g, l, d],
+                             "route": la.route(dtype, d),
+                             "max_abs_err": err, "backward_max_abs_err": berr,
+                             "ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                             "library_backend": backend,
+                             "library_kernels": names,
+                             "bound_ms": max(t_ops, t_bytes),
+                             "bound_by": ("operations" if t_ops >= t_bytes
+                                          else "bytes")})
+                print(f"  [{card}] kernel 6 at ({bh} / {bh // g}, {l}, {d}) "
+                      f"{rows[-1]['dtype']} causal window {window}: route "
+                      f"{rows[-1]['route']}, forward {t[0]:.4f} ms, plain "
+                      f"{t[1]:.4f} ms, SDPA {t[2]:.4f} ms ({backend}), bound "
+                      f"{rows[-1]['bound_ms']:.4f} ms "
+                      f"({rows[-1]['bound_by']}); max |err| {err:.3e} "
+                      f"forward, {berr:.3e} backward")
+    return {"cases": rows}
 
 
 # --- phase 7: the converter boundary -------------------------------------------
@@ -2585,11 +2942,12 @@ def main() -> int:
                              FMA_KERNELS)
     spills = [r for r in fma_build if r["spill_bytes"]]
     print(f"  ptxas: kernel 6's FMA route, {len(fma_build)} instantiations "
-          f"(3 kernels x 3 dtypes x 7 head-dim buckets), registers "
+          f"(3 kernels x 3 dtypes x 7 head-dim buckets and the wide "
+          f"kernels past 256), registers "
           f"{min(r['registers'] for r in fma_build)}-"
           f"{max(r['registers'] for r in fma_build)}, spilling: "
           f"{[(r['entry'], r['spill_bytes']) for r in spills]}")
-    check(len(fma_build) == 3 * 3 * 7,
+    check(len(fma_build) == 3 * 3 * 8,
           f"kernel 6's FMA kernels are missing: {len(fma_build)} built")
     dft_build = ptxas_report(build.build_log("optical_dft"), DFT_TC_KERNELS)
     for r in dft_build:
@@ -2681,6 +3039,29 @@ def main() -> int:
                          "bound_by", "library_ms", "shape", "dtype",
                          "kernel_route", "backward")},
                      "path": f"phase 11 serving {arch}"})
+    print("phase 12: the recurrent families")
+    print("phase 12a: recurrentgemma-9b serving at full width")
+    rg = phase_recurrent_serving(rt, od, la, dev, card)
+    for row in rows[:2]:
+        row["launches_by_path"]["recurrent_serving"] = rg["launches"][
+            row["name"]]
+    k6 = rg["kernel6"]
+    rows.append({"name": "local_flash_attention_d256_window2048",
+                 "route": "cuda", "source": ATTN_SOURCE,
+                 "replaces": REPLACES["local_flash_attention"],
+                 "launches": rg["launches"]["local_flash_attention"],
+                 **{key: k6[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "library_backend",
+                     "library_mask", "library_kernels", "shape", "dtype",
+                     "window", "kernel_route")},
+                 "path": f"phase 12a serving {RG_ARCH}"})
+    print("phase 12b: xlstm-125m training at full width")
+    xl = phase_recurrent_training(dev, card)
+    print("phase 12c: Adafactor and int8 error feedback")
+    optim = phase_optimizers(dev, card)
+    print("phase 12d: kernel 6 past head dim 256")
+    attn_row["wide_head_dims"] = phase_wide_head_dims(la, dev, card)
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
@@ -2688,6 +3069,8 @@ def main() -> int:
     print(json.dumps({"casestudy": casestudy}))
     print(json.dumps({"runtime_bench": bench}, default=str))
     print(json.dumps({"dense_serving": dense}))
+    print(json.dumps({"recurrent": {"serving": rg, "training": xl,
+                                    "optimizers": optim}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,8 @@ ARCHS: dict[str, str] = {
 
 # architectures whose configs and model code the port has
 PORTED: tuple[str, ...] = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b",
-                           "nemotron-4-340b")
+                           "nemotron-4-340b", "recurrentgemma-9b",
+                           "xlstm-125m")
 
 
 def _module(arch: str):

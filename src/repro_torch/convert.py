@@ -18,6 +18,9 @@ the reference:
                                 (``{"m", "v"}`` trees of numpy arrays)
                                 into the port's, so training resumes
                                 where the reference left it.
+  :func:`adafactor_state_from_numpy` does the same for the reference's
+                                Adafactor state (``{"v": tree of
+                                {"vr", "vc"} | {"v"}}``).
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ from repro_torch.core.accelerator import (OpticalFourierAcceleratorSpec,
                                           OpticalMVMAcceleratorSpec)
 from repro_torch.core.conversion import ConverterSpec
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.params import model_templates
+from repro_torch.models.params import ParamSpec, map_tree, model_templates
 
 __all__ = ["spec_from_fields", "tensor_from_numpy", "lm_params_from_numpy",
-           "adamw_state_from_numpy"]
+           "adamw_state_from_numpy", "adafactor_state_from_numpy"]
 
 _SPECS = (ConverterSpec, OpticalFourierAcceleratorSpec,
           OpticalMVMAcceleratorSpec)
@@ -84,11 +87,11 @@ def _tensor(a, device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _from_template(tree: Mapping[str, Any], cfg: ModelConfig, device,
-                   dtype_of) -> dict:
-    """``tree`` as tensors on ``device``, checked leaf by leaf against the
-    port's parameter templates for ``cfg``; ``dtype_of(spec)`` gives each
-    leaf's dtype.  Raises ``ValueError`` naming the first leaf that
-    differs in keys or shape."""
+                   dtype_of, template=None) -> dict:
+    """``tree`` as tensors on ``device``, checked leaf by leaf against
+    ``template`` (the port's parameter templates for ``cfg`` when None);
+    ``dtype_of(spec)`` gives each leaf's dtype.  Raises ``ValueError``
+    naming the first leaf that differs in keys or shape."""
 
     def walk(spec_node, node, path):
         if isinstance(spec_node, dict):
@@ -104,7 +107,8 @@ def _from_template(tree: Mapping[str, Any], cfg: ModelConfig, device,
                              f"got {shape}")
         return _tensor(node, device, dtype_of(spec_node))
 
-    return walk(model_templates(cfg), tree, "")
+    return walk(model_templates(cfg) if template is None else template,
+                tree, "")
 
 
 def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
@@ -133,3 +137,30 @@ def adamw_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,
     return {k: _from_template(state[k], cfg, device,
                               lambda spec: torch.float32)
             for k in ("m", "v")}
+
+
+def adafactor_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,
+                               device: str | torch.device = "cuda", *,
+                               min_dim_size_to_factor: int = 128) -> dict:
+    """The port's Adafactor state from the reference's ``adafactor(...)``
+    ``init`` / ``update`` state ``{"v": tree}`` as numpy arrays: float32
+    on ``device``.  Each parameter's entry must be ``{"vr", "vc"}`` (its
+    row and column means) where both of its last two dims are at least
+    ``min_dim_size_to_factor``, else ``{"v"}`` of its own shape, as the
+    optimizer built with the same setting keeps them; raises
+    ``ValueError`` naming the first entry that differs."""
+    if not isinstance(state, Mapping) or set(state) != {"v"}:
+        got = sorted(state) if isinstance(state, Mapping) else state
+        raise ValueError(f"Adafactor state: expected keys ['v'], got {got}")
+    m = min_dim_size_to_factor
+
+    def entry(spec: ParamSpec) -> dict:
+        sh = spec.shape
+        if len(sh) >= 2 and sh[-1] >= m and sh[-2] >= m:
+            return {"vr": ParamSpec(sh[:-1]),
+                    "vc": ParamSpec(sh[:-2] + sh[-1:])}
+        return {"v": ParamSpec(sh)}
+
+    template = map_tree(entry, model_templates(cfg))
+    return {"v": _from_template(state["v"], cfg, device,
+                                lambda spec: torch.float32, template)}

@@ -59,8 +59,8 @@
 //   and dS split hi/lo as in the forward.  Above D 128 its accumulators
 //   (dK and dV, 2 x 64 x D fp32 a CTA) would not fit 128 threads'
 //   registers, so eight warps split the columns (tcb_splits).
-// * The FMA route (float32 and float16 at every head dim from 1 to 256,
-//   bf16 at the rest): every product is an fp32 FMA on the CUDA cores
+// * The FMA route (float32 and float16 at every head dim, bf16 at the
+//   rest): every product is an fp32 FMA on the CUDA cores
 //   (67 TFLOP/s peak), so that it meets the reference's f32 bound
 //   (rtol/atol 2e-5).  The kernels are built for head-dim buckets DP of
 //   8, 16, 32, 64, 128, 192 and 256 and take the head dim d at run time:
@@ -77,7 +77,16 @@
 //   that loop takes the place of the TPU's sequential kv grid axis and
 //   its VMEM scratch (acc, m, l).  Row max and row sum are reduced across
 //   the four lanes with shuffles; P goes through shared memory to the
-//   P.V product, read only by its own warp.
+//   P.V product, read only by its own warp.  Past D 256 (the WIDE
+//   kernels, at bucket 256) a grid z index picks one output chunk of 256
+//   columns: each key tile sums S (and, backward, dP) over the head dim's
+//   256-column chunks in order, staging each chunk's operands through
+//   the same shared tiles, then stages the chunk's V (forward), Q and dO
+//   (dK/dV) or K (dQ) columns for its own accumulator.  So every output
+//   chunk recomputes S: ceil(D / 256) times the score products, for tiles
+//   and registers no larger than at D 256 (a whole fp32 row of O or dQ in
+//   registers would not fit past 256 columns), and the same order of sums
+//   in every chunk, so each chunk sees the same P.
 //
 // Both routes skip tiles that are fully masked for every row of the
 // block (above the causal diagonal, or older than the window): their
@@ -180,7 +189,7 @@ constexpr size_t smem_bytes() {
 // share one query row.  DP is the head dim's bucket, d the head dim: the
 // tiles are zero past column d, which adds nothing to any dot product,
 // and only columns below d are stored.
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE>
 __global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -205,16 +214,20 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = threadIdx.x / LANES;   // query row within the tile
   const int sub = threadIdx.x % LANES;   // lane within the row's four
   const int qi = q0 + row;               // absolute query index
+  const int c_out = WIDE ? blockIdx.z * DP : 0;   // first output column
   const T* q_plane = q + static_cast<size_t>(bh) * lq * d;
   const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * d;
 
   // The Q tile; rows past lq read 0 and are never stored.  Up to DP 128
-  // each lane then keeps its row in registers.
-  for (int e = threadIdx.x; e < R * DP; e += NT) {
-    const int r = e / DP, c = e % DP;
-    qs[r][c] = load_padded(q_plane, q0, r, c, lq, d);
+  // each lane then keeps its row in registers.  A wide head dim stages
+  // its Q columns chunk by chunk inside the key loop instead.
+  if constexpr (!WIDE) {
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      qs[r][c] = load_padded(q_plane, q0, r, c, lq, d);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   float qr[QREG ? DP : 1];
   if constexpr (QREG) {
 #pragma unroll
@@ -238,34 +251,62 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const unsigned full = 0xffffffffu;
   for (int k0 = k_begin; k0 < k_end; k0 += R) {
-    for (int e = threadIdx.x; e < R * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
-      vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
-    }
-    __syncthreads();
-
     // S = scale * q . k for keys j = sub + LANES * jj, masked to -1e30;
     // each dot sums over c in order, from registers or from shared memory.
     float s[KPL];
-    if constexpr (QREG) {
-#pragma unroll
-      for (int jj = 0; jj < KPL; ++jj) {
-        const int j = sub + LANES * jj;
-        float dot = 0.0f;
-#pragma unroll
-        for (int c = 0; c < DP; ++c) dot = fmaf(qr[c], ks[j][c], dot);
-        s[jj] = dot;
-      }
-    } else {
+    if constexpr (WIDE) {
+      // d > DP: S sums over the head dim's chunks of DP columns in order,
+      // each chunk's Q and K columns staged through shared memory; then
+      // V's columns of this block's output chunk.
 #pragma unroll
       for (int jj = 0; jj < KPL; ++jj) s[jj] = 0.0f;
+      for (int c0 = 0; c0 < d; c0 += DP) {
+        for (int e = threadIdx.x; e < R * DP; e += NT) {
+          const int r = e / DP, c = e % DP;
+          qs[r][c] = load_padded(q_plane, q0, r, c0 + c, lq, d);
+          ks[r][c] = load_padded(k + kv_base, k0, r, c0 + c, lk, d);
+        }
+        __syncthreads();
 #pragma unroll 4
-      for (int c = 0; c < DP; ++c) {
-        const float qc = qs[row][c];
+        for (int c = 0; c < DP; ++c) {
+          const float qc = qs[row][c];
 #pragma unroll
-        for (int jj = 0; jj < KPL; ++jj)
-          s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
+          for (int jj = 0; jj < KPL; ++jj)
+            s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
+        }
+        __syncthreads();   // the next chunk overwrites Q and K
+      }
+      for (int e = threadIdx.x; e < R * DP; e += NT) {
+        const int r = e / DP, c = e % DP;
+        vs[r][c] = load_padded(v + kv_base, k0, r, c_out + c, lk, d);
+      }
+      __syncthreads();
+    } else {
+      for (int e = threadIdx.x; e < R * DP; e += NT) {
+        const int r = e / DP, c = e % DP;
+        ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
+        vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
+      }
+      __syncthreads();
+      if constexpr (QREG) {
+#pragma unroll
+        for (int jj = 0; jj < KPL; ++jj) {
+          const int j = sub + LANES * jj;
+          float dot = 0.0f;
+#pragma unroll
+          for (int c = 0; c < DP; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+          s[jj] = dot;
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < KPL; ++jj) s[jj] = 0.0f;
+#pragma unroll 4
+        for (int c = 0; c < DP; ++c) {
+          const float qc = qs[row][c];
+#pragma unroll
+          for (int jj = 0; jj < KPL; ++jj)
+            s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
+        }
       }
     }
     unsigned valid = 0u;   // bit jj: key sub + LANES * jj is visible
@@ -312,13 +353,13 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qi < lq) {
     const float inv = 1.0f / fmaxf(l, 1e-20f);
     T* o = out + static_cast<size_t>(bh) * lq * d +
-           static_cast<size_t>(qi) * d;
+           static_cast<size_t>(qi) * d + c_out;
 #pragma unroll
     for (int cc = 0; cc < DP / LANES; ++cc) {
       const int c = sub + LANES * cc;
-      if (c < d) store_f(o + c, acc[cc] * inv);
+      if (c_out + c < d) store_f(o + c, acc[cc] * inv);
     }
-    if (lse != nullptr && sub == 0)
+    if (lse != nullptr && sub == 0 && c_out == 0)
       lse[static_cast<size_t>(bh) * lq + qi] = m + logf(fmaxf(l, 1e-20f));
   }
 }
@@ -355,7 +396,7 @@ constexpr size_t bwd_kv_smem_bytes() {
 // One block per (KV head g, R-key tile).  Four lanes share one key row:
 // each computes s and dP for R / 4 of a step's R queries and keeps DP / 4
 // columns of the row's dK and dV accumulators.
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE>
 __global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -382,12 +423,15 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = threadIdx.x / LANES;   // key row within the tile
   const int sub = threadIdx.x % LANES;
   const int kj = k0 + row;               // absolute key index
+  const int c_out = WIDE ? blockIdx.z * DP : 0;   // first dK/dV column
   const size_t kv_base = static_cast<size_t>(g) * lk * d;
 
-  for (int e = threadIdx.x; e < R * DP; e += NT) {
-    const int r = e / DP, c = e % DP;
-    ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
-    vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
+  if constexpr (!WIDE) {
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
+      vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
+    }
   }
 
   float dk_acc[DP / LANES], dv_acc[DP / LANES];
@@ -405,30 +449,47 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t q_base = static_cast<size_t>(bh) * lq * d;
     const size_t r_base = static_cast<size_t>(bh) * lq;
     for (int q0 = q_begin; q0 < q_end; q0 += R) {
-      __syncthreads();   // the last tile's readers are done (and K, V in)
-      for (int e = threadIdx.x; e < R * DP; e += NT) {
-        const int r = e / DP, c = e % DP;
-        qs[r][c] = load_padded(q + q_base, q0, r, c, lq, d);
-        dos[r][c] = load_padded(dout + q_base, q0, r, c, lq, d);
-      }
-      if (threadIdx.x < R) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < lq ? lse[r_base + qi] : 0.0f;
-        delta_s[threadIdx.x] = qi < lq ? delta[r_base + qi] : 0.0f;
-      }
-      __syncthreads();
-
-      // s = q . k and dP = dO . v for queries i = sub + LANES * ii.
+      // s = q . k and dP = dO . v for queries i = sub + LANES * ii: over
+      // the tiles' DP columns, or, for a wide head dim, over its chunks of
+      // DP columns in order, each staged with its K, V, Q and dO columns;
+      // then the Q and dO columns of this block's dK/dV chunk.
       float s[PER_LANE], dp[PER_LANE];
 #pragma unroll
       for (int ii = 0; ii < PER_LANE; ++ii) s[ii] = dp[ii] = 0.0f;
-      for (int c = 0; c < DP; ++c) {
-        const float kc = ks[row][c], vc = vs[row][c];
-#pragma unroll
-        for (int ii = 0; ii < PER_LANE; ++ii) {
-          s[ii] = fmaf(kc, qs[sub + LANES * ii][c], s[ii]);
-          dp[ii] = fmaf(vc, dos[sub + LANES * ii][c], dp[ii]);
+      for (int c0 = 0; c0 < (WIDE ? d : 1); c0 += DP) {
+        __syncthreads();   // the last tile's readers are done (and K, V in)
+        for (int e = threadIdx.x; e < R * DP; e += NT) {
+          const int r = e / DP, c = e % DP;
+          if constexpr (WIDE) {
+            ks[r][c] = load_padded(k + kv_base, k0, r, c0 + c, lk, d);
+            vs[r][c] = load_padded(v + kv_base, k0, r, c0 + c, lk, d);
+          }
+          qs[r][c] = load_padded(q + q_base, q0, r, c0 + c, lq, d);
+          dos[r][c] = load_padded(dout + q_base, q0, r, c0 + c, lq, d);
         }
+        if (c0 == 0 && threadIdx.x < R) {
+          const int qi = q0 + threadIdx.x;
+          lse_s[threadIdx.x] = qi < lq ? lse[r_base + qi] : 0.0f;
+          delta_s[threadIdx.x] = qi < lq ? delta[r_base + qi] : 0.0f;
+        }
+        __syncthreads();
+        for (int c = 0; c < DP; ++c) {
+          const float kc = ks[row][c], vc = vs[row][c];
+#pragma unroll
+          for (int ii = 0; ii < PER_LANE; ++ii) {
+            s[ii] = fmaf(kc, qs[sub + LANES * ii][c], s[ii]);
+            dp[ii] = fmaf(vc, dos[sub + LANES * ii][c], dp[ii]);
+          }
+        }
+      }
+      if constexpr (WIDE) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < R * DP; e += NT) {
+          const int r = e / DP, c = e % DP;
+          qs[r][c] = load_padded(q + q_base, q0, r, c_out + c, lq, d);
+          dos[r][c] = load_padded(dout + q_base, q0, r, c_out + c, lq, d);
+        }
+        __syncthreads();
       }
 #pragma unroll
       for (int ii = 0; ii < PER_LANE; ++ii) {
@@ -456,11 +517,11 @@ attention_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (kj < lk) {
-    const size_t off = kv_base + static_cast<size_t>(kj) * d;
+    const size_t off = kv_base + static_cast<size_t>(kj) * d + c_out;
 #pragma unroll
     for (int cc = 0; cc < DP / LANES; ++cc) {
       const int c = sub + LANES * cc;
-      if (c >= d) continue;
+      if (c_out + c >= d) continue;
       store_f(dk + off + c, dk_acc[cc] * scale);
       store_f(dv + off + c, dv_acc[cc]);
     }
@@ -478,7 +539,7 @@ constexpr size_t bwd_q_smem_bytes() {
 // One block per (batch*head, R-query tile), as the forward.  Four lanes
 // share one query row: each computes s and dP for R / 4 of a tile's R keys
 // and keeps DP / 4 columns of the row's dQ accumulator.
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE>
 __global__ void __launch_bounds__(fma_rows<DP>() * LANES)
 attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -501,13 +562,16 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = threadIdx.x / LANES;
   const int sub = threadIdx.x % LANES;
   const int qi = q0 + row;
+  const int c_out = WIDE ? blockIdx.z * DP : 0;   // first dQ column
   const size_t q_base = static_cast<size_t>(bh) * lq * d;
   const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * d;
 
-  for (int e = threadIdx.x; e < R * DP; e += NT) {
-    const int r = e / DP, c = e % DP;
-    qs[r][c] = load_padded(q + q_base, q0, r, c, lq, d);
-    dos[r][c] = load_padded(dout + q_base, q0, r, c, lq, d);
+  if constexpr (!WIDE) {
+    for (int e = threadIdx.x; e < R * DP; e += NT) {
+      const int r = e / DP, c = e % DP;
+      qs[r][c] = load_padded(q + q_base, q0, r, c, lq, d);
+      dos[r][c] = load_padded(dout + q_base, q0, r, c, lq, d);
+    }
   }
   const size_t r_off = static_cast<size_t>(bh) * lq + qi;
   const float row_lse = qi < lq ? lse[r_off] : 0.0f;
@@ -526,25 +590,41 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   k_begin = (k_begin / R) * R;
 
   for (int k0 = k_begin; k0 < k_end; k0 += R) {
-    __syncthreads();   // the last tile's readers are done (and Q, dO in)
-    for (int e = threadIdx.x; e < R * DP; e += NT) {
-      const int r = e / DP, c = e % DP;
-      ks[r][c] = load_padded(k + kv_base, k0, r, c, lk, d);
-      vs[r][c] = load_padded(v + kv_base, k0, r, c, lk, d);
-    }
-    __syncthreads();
-
-    // s = q . k and dP = dO . v for keys j = sub + LANES * jj.
+    // s = q . k and dP = dO . v for keys j = sub + LANES * jj: over the
+    // tiles' DP columns, or, for a wide head dim, over its chunks of DP
+    // columns in order, each staged with its Q, dO, K and V columns; then
+    // the K columns of this block's dQ chunk.
     float s[PER_LANE], dp[PER_LANE];
 #pragma unroll
     for (int jj = 0; jj < PER_LANE; ++jj) s[jj] = dp[jj] = 0.0f;
-    for (int c = 0; c < DP; ++c) {
-      const float qc = qs[row][c], dc = dos[row][c];
-#pragma unroll
-      for (int jj = 0; jj < PER_LANE; ++jj) {
-        s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
-        dp[jj] = fmaf(dc, vs[sub + LANES * jj][c], dp[jj]);
+    for (int c0 = 0; c0 < (WIDE ? d : 1); c0 += DP) {
+      __syncthreads();   // the last tile's readers are done (and Q, dO in)
+      for (int e = threadIdx.x; e < R * DP; e += NT) {
+        const int r = e / DP, c = e % DP;
+        if constexpr (WIDE) {
+          qs[r][c] = load_padded(q + q_base, q0, r, c0 + c, lq, d);
+          dos[r][c] = load_padded(dout + q_base, q0, r, c0 + c, lq, d);
+        }
+        ks[r][c] = load_padded(k + kv_base, k0, r, c0 + c, lk, d);
+        vs[r][c] = load_padded(v + kv_base, k0, r, c0 + c, lk, d);
       }
+      __syncthreads();
+      for (int c = 0; c < DP; ++c) {
+        const float qc = qs[row][c], dc = dos[row][c];
+#pragma unroll
+        for (int jj = 0; jj < PER_LANE; ++jj) {
+          s[jj] = fmaf(qc, ks[sub + LANES * jj][c], s[jj]);
+          dp[jj] = fmaf(dc, vs[sub + LANES * jj][c], dp[jj]);
+        }
+      }
+    }
+    if constexpr (WIDE) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * DP; e += NT) {
+        const int r = e / DP, c = e % DP;
+        ks[r][c] = load_padded(k + kv_base, k0, r, c_out + c, lk, d);
+      }
+      __syncthreads();
     }
 #pragma unroll
     for (int jj = 0; jj < PER_LANE; ++jj) {
@@ -568,11 +648,11 @@ attention_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qi < lq) {
-    T* o = dq + q_base + static_cast<size_t>(qi) * d;
+    T* o = dq + q_base + static_cast<size_t>(qi) * d + c_out;
 #pragma unroll
     for (int cc = 0; cc < DP / LANES; ++cc) {
       const int c = sub + LANES * cc;
-      if (c < d) store_f(o + c, dq_acc[cc] * scale);
+      if (c_out + c < d) store_f(o + c, dq_acc[cc] * scale);
     }
   }
 }
@@ -1384,16 +1464,24 @@ struct Problem {
   int causal, window;
 };
 
-// The FMA kernels at head-dim bucket DP (d <= DP).
-template <typename T, int DP>
+// The output chunks of DP columns a wide head dim (d > DP) splits into,
+// one grid z index each; 1 otherwise.
+template <int DP, bool WIDE>
+unsigned out_chunks(int d) {
+  return WIDE ? static_cast<unsigned>((d + DP - 1) / DP) : 1u;
+}
+
+// The FMA kernels at head-dim bucket DP (d <= DP), or, WIDE, at DP 256
+// for any d > 256.
+template <typename T, int DP, bool WIDE>
 int launch_forward(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Problem& p, cudaStream_t stream) {
   constexpr int R = fma_rows<DP>();
   const size_t smem = smem_bytes<DP>();
-  cudaError_t err = opt_in_smem<attention_kernel<T, DP>>(smem);
+  cudaError_t err = opt_in_smem<attention_kernel<T, DP, WIDE>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.lq + R - 1) / R, p.bh);
-  attention_kernel<T, DP><<<grid, R * LANES, smem, stream>>>(
+  const dim3 grid((p.lq + R - 1) / R, p.bh, out_chunks<DP, WIDE>(p.d));
+  attention_kernel<T, DP, WIDE><<<grid, R * LANES, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), p.lq, p.lk, p.d, p.kv_groups, p.scale,
@@ -1412,7 +1500,7 @@ cudaError_t launch_delta(const void* out, const void* dout, void* delta,
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool WIDE>
 int launch_backward(const void* q, const void* k, const void* v,
                     const void* out, const void* dout, const void* lse,
                     void* delta, void* dq, void* dk, void* dv,
@@ -1422,11 +1510,13 @@ int launch_backward(const void* q, const void* k, const void* v,
       launch_delta<T>(out, dout, delta, p.bh * p.lq, p.d, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  const unsigned chunks = out_chunks<DP, WIDE>(p.d);
   const size_t kv_smem = bwd_kv_smem_bytes<DP>();
-  err = opt_in_smem<attention_bwd_kv_kernel<T, DP>>(kv_smem);
+  err = opt_in_smem<attention_bwd_kv_kernel<T, DP, WIDE>>(kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid((p.lk + R - 1) / R, p.bh / p.kv_groups);
-  attention_bwd_kv_kernel<T, DP><<<kv_grid, R * LANES, kv_smem, stream>>>(
+  const dim3 kv_grid((p.lk + R - 1) / R, p.bh / p.kv_groups, chunks);
+  attention_bwd_kv_kernel<T, DP, WIDE><<<kv_grid, R * LANES, kv_smem,
+                                         stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1436,10 +1526,11 @@ int launch_backward(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t q_smem = bwd_q_smem_bytes<DP>();
-  err = opt_in_smem<attention_bwd_q_kernel<T, DP>>(q_smem);
+  err = opt_in_smem<attention_bwd_q_kernel<T, DP, WIDE>>(q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid((p.lq + R - 1) / R, p.bh);
-  attention_bwd_q_kernel<T, DP><<<q_grid, R * LANES, q_smem, stream>>>(
+  const dim3 q_grid((p.lq + R - 1) / R, p.bh, chunks);
+  attention_bwd_q_kernel<T, DP, WIDE><<<q_grid, R * LANES, q_smem,
+                                        stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1536,9 +1627,9 @@ struct Forward {
   void *out, *lse;
   Problem p;
   cudaStream_t stream;
-  template <typename T, int DP>
+  template <typename T, int DP, bool WIDE = false>
   int fma() const {
-    return launch_forward<T, DP>(q, k, v, out, lse, p, stream);
+    return launch_forward<T, DP, WIDE>(q, k, v, out, lse, p, stream);
   }
   template <int D>
   int tensor_core() const {
@@ -1551,10 +1642,10 @@ struct Backward {
   void *delta, *dq, *dk, *dv;
   Problem p;
   cudaStream_t stream;
-  template <typename T, int DP>
+  template <typename T, int DP, bool WIDE = false>
   int fma() const {
-    return launch_backward<T, DP>(q, k, v, out, dout, lse, delta, dq, dk,
-                                  dv, p, stream);
+    return launch_backward<T, DP, WIDE>(q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv, p, stream);
   }
   template <int D>
   int tensor_core() const {
@@ -1565,12 +1656,12 @@ struct Backward {
 
 constexpr int kRouteFma = 0;
 constexpr int kRouteTensorCore = 1;
-constexpr int kMaxHeadDim = 256;
 
 // The head dims of the tensor-core route (bf16 only).
 bool tc_head_dim(int d) { return d == 64 || d == 128 || d == 192 || d == 256; }
 
-// The FMA route's kernels for element type T at the smallest bucket DP >= d.
+// The FMA route's kernels for element type T at the smallest bucket DP >= d,
+// and past 256 the wide kernels (chunks of 256 columns).
 template <typename T, typename Fn>
 int fma_bucket(int d, const Fn& fn) {
   if (d <= 8) return fn.template fma<T, 8>();
@@ -1579,14 +1670,15 @@ int fma_bucket(int d, const Fn& fn) {
   if (d <= 64) return fn.template fma<T, 64>();
   if (d <= 128) return fn.template fma<T, 128>();
   if (d <= 192) return fn.template fma<T, 192>();
-  return fn.template fma<T, 256>();
+  if (d <= 256) return fn.template fma<T, 256>();
+  return fn.template fma<T, 256, true>();
 }
 
 // Calls the route's kernels for the runtime dtype code and head dim: the
 // tensor-core route takes bf16 at D 64, 128, 192 and 256; the FMA route
-// float32 and float16 at every D from 1 to 256 and bf16 at every other D
-// up to 256.  cudaErrorInvalidValue for anything else, so a route never
-// takes a case that is the other's.
+// float32 and float16 at every D from 1 up and bf16 at every other D.
+// cudaErrorInvalidValue for anything else, so a route never takes a case
+// that is the other's.
 template <typename Fn>
 int dispatch(int route, int dtype, int d, const Fn& fn) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
@@ -1600,7 +1692,7 @@ int dispatch(int route, int dtype, int d, const Fn& fn) {
       default: return invalid;
     }
   }
-  if (route != kRouteFma || d < 1 || d > kMaxHeadDim) return invalid;
+  if (route != kRouteFma || d < 1) return invalid;
   switch (dtype) {
     case 0: return fma_bucket<float>(d, fn);
     case 1:
@@ -1620,7 +1712,7 @@ bool valid_problem(const Problem& p) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out alike);
-// d from 1 to 256; route: 0 = FMA, 1 = tensor cores, as ``dispatch`` takes
+// d from 1 up; route: 0 = FMA, 1 = tensor cores, as ``dispatch`` takes
 // them.  lse, (bh, lq) float32, may be null: it is then not
 // written.  Returns cudaErrorInvalidValue for anything else.
 int local_attention_forward(const void* q, const void* k, const void* v,

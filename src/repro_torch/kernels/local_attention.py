@@ -15,18 +15,20 @@ skips tiles that are fully masked, which the reference runs; skipping is
 exact.  Ragged lengths are masked inside the kernel, so any Lq and Lk
 work (the reference's ``pick_block`` falls back to one whole-axis block).
 
-It takes what the reference's kernel takes up to a head dim of 256:
-any D from 1 to 256, in float32, bfloat16 or float16 (computed in fp32,
-stored in q's dtype).  D above 256 raises (no config of the reference
-reaches it; ``ROADMAP.md`` keeps it open), and so does Dqk != Dv, which
-the reference's kernel does not take either.  It has two routes, chosen
+It takes what the reference's kernel takes: any head dim D from 1 up,
+in float32, bfloat16 or float16 (computed in fp32, stored in q's dtype).
+Dqk != Dv raises, as the reference's kernel does not take it either.
+Past D 256 the FMA kernels split D into chunks of 256 columns: the
+scores sum over the chunks, and each output chunk is one CTA's, which
+recomputes them (forward and backward alike).  It has two routes, chosen
 by :func:`route` from the dtype and the head dim alone, never by a
 failure: ``"tensor_core"`` for bfloat16 at head dims 64, 128, 192 and 256
 (every attention of the serving and training paths: ``wgmma`` with
 TMA-fed K/V tiles forward, ``mma.sync`` backward) and ``"fma"`` for every
 other case (fp32 FMA, which the reference's f32 bound of 2e-5 needs; a D
 that is not a power of two runs in the next bucket of 8, 16, 32, 64,
-128, 192 or 256 columns with the padding masked).  TMA needs 16-byte
+128, 192 or 256 columns with the padding masked, and a D past 256 in
+chunks of 256).  TMA needs 16-byte
 aligned base addresses: an operand of the tensor-core route that is not
 aligned is copied to a fresh tensor and the same kernel runs on the copy,
 counted in ``local_flash_attention.realigned``.  The source note says
@@ -61,10 +63,9 @@ import torch
 from repro_torch.kernels.common import charged
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
-           "reset_launches", "route", "HEAD_DIMS", "ROUTES"]
+           "reset_launches", "route", "ROUTES"]
 
 _NEG = -1.0e30
-HEAD_DIMS = range(1, 257)         # head dims the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_GRID_Y = 65535               # CUDA's limit on the (batch*head) axis
 ROUTES = ("tensor_core", "fma")
@@ -163,10 +164,6 @@ def _on_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("local_flash_attention: the CUDA kernel takes "
                          "contiguous operands")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"local_flash_attention: the CUDA kernel takes "
-                         f"head dims 1 to {HEAD_DIMS[-1]}, got {q.shape[-1]} "
-                         "(larger head dims are an open item of ROADMAP.md)")
     return False
 
 
@@ -310,8 +307,9 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"local_flash_attention: q {tuple(q.shape)} does "
                          f"not match k {tuple(k.shape)} at kv_groups "
                          f"{kv_groups}")
-    if lk == 0:
-        raise ValueError("local_flash_attention: no keys (Lk = 0)")
+    if lk == 0 or d == 0:
+        raise ValueError("local_flash_attention: no keys (Lk = 0) or no "
+                         "head dim (D = 0)")
     if window < 0:
         raise ValueError("local_flash_attention: window must be >= 0")
     if scale is None:

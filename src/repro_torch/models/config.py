@@ -5,7 +5,7 @@ Families: dense decoder LMs (GQA), MoE (shared+routed top-k), MLA+MoE
 (sLSTM/mLSTM), encoder-decoder (Seamless), and VLM/audio-frontend stubs.
 The dataclasses are the reference's, field for field, so a config built
 for either package describes the same model; the port's model code runs
-the dense ``attn`` family so far (``ROADMAP.md`` lists the rest).
+the dense and recurrent families so far (``ROADMAP.md`` lists the rest).
 
 Layer stacking: each layer has a *kind* (``attn``, ``moe``, ``rglru``,
 ``mlstm``, ``slstm``), laid out as ``prefix + repeated pattern

@@ -7,7 +7,6 @@ a model is loaded for serving (``repro_torch.models.params.
 compute_params``), after which ``.to`` returns the tensor itself and
 copies nothing; training keeps the float32 master weights and casts them
 inside the graph on every call, so that the gradients land on them.
-``causal_conv1d`` waits for the recurrent slice.
 """
 
 from __future__ import annotations
@@ -18,8 +17,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["rms_norm", "rope", "mlp_apply", "embed_tokens",
-           "chunked_ce_loss"]
+__all__ = ["rms_norm", "rope", "mlp_apply", "causal_conv1d",
+           "embed_tokens", "chunked_ce_loss"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -70,6 +69,28 @@ def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:  # swiglu
         h = F.silu(up) * (x @ p["w_gate"].to(x.dtype))
     return h @ p["w_out"].to(x.dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal temporal conv. x: (B,S,C); w: (K,C); b: (C,).
+
+    A sum of K shifted elementwise products, as the reference computes
+    it.  ``state`` is the last K-1 inputs of the previous segment,
+    (B, K-1, C) (zeros when None); returns (out, the new state), so that
+    a prefill hands decode a warm buffer.
+    """
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)                 # (B, S+K-1, C)
+    s = x.shape[1]
+    out = b.to(x.dtype)
+    for j in range(k):
+        out = out + xp[:, j:j + s, :] * w[j].to(x.dtype)
+    return out, xp[:, xp.shape[1] - (k - 1):, :]
 
 
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,

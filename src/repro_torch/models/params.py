@@ -7,10 +7,10 @@ From the same template tree come (a) real initialized tensors
 (:func:`init_params`, from an explicit ``torch.Generator``), (b) exact
 parameter counts (:func:`param_counts`), and (c) the shapes
 ``repro_torch.convert.lm_params_from_numpy`` checks a carried-over tree
-against.  The port has the dense attention block (GQA + dense MLP); MoE,
-MLA, recurrent, encoder-decoder and frontend templates raise
-``NotImplementedError`` until their slices land (``ROADMAP.md``).
-Sharding specs wait for the distributed port.
+against.  The port has the dense attention block (GQA + dense MLP) and
+the recurrent blocks (RG-LRU, mLSTM, sLSTM); MoE, MLA, encoder-decoder
+and frontend configs raise ``NotImplementedError`` until their slices
+land (``ROADMAP.md``).  Sharding specs wait for the distributed port.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ __all__ = ["ParamSpec", "model_templates", "init_params", "param_counts",
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
-    init: str = "fan_in"      # fan_in | normal02 | zeros | ones
+    init: str = "fan_in"      # fan_in | normal02 | zeros | ones | lru_lambda
     dtype: str | None = None  # override config.param_dtype
 
 
@@ -61,8 +61,6 @@ def _unported(cfg: ModelConfig) -> str | None:
         return "encoder-decoder"
     if cfg.frontend is not None:
         return f"the {cfg.frontend} frontend"
-    if any(kind != "attn" for kind in cfg.layer_kinds()):
-        return "recurrent blocks"
     return None
 
 
@@ -106,11 +104,79 @@ def _attn_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return t
 
 
-def block_templates(cfg: ModelConfig) -> dict[str, Any]:
-    """One dense attention block (``check_ported`` rules out the rest)."""
+def _rglru_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     d = cfg.d_model
-    return {"ln1": _norm(d), "attn": _attn_templates(cfg),
-            "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+    w = cfg.lru_width or d
+    return {
+        "w_y": ParamSpec((d, w)),
+        "w_x": ParamSpec((d, w)),
+        "conv_w": ParamSpec((cfg.conv1d_width, w), "normal02"),
+        "conv_b": ParamSpec((w,), "zeros"),
+        "w_a": ParamSpec((w, w)),
+        "b_a": ParamSpec((w,), "zeros"),
+        "w_i": ParamSpec((w, w)),
+        "b_i": ParamSpec((w,), "zeros"),
+        "lam": ParamSpec((w,), "lru_lambda"),
+        "w_ro": ParamSpec((w, d)),
+    }
+
+
+def _mlstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    """xLSTM mLSTM block: pf=2 up-projection, conv, matrix-memory cell."""
+    d = cfg.d_model
+    di = 2 * d
+    h = cfg.n_heads
+    return {
+        "w_up": ParamSpec((d, di)),
+        "w_gate_up": ParamSpec((d, di)),
+        "conv_w": ParamSpec((cfg.conv1d_width, di), "normal02"),
+        "conv_b": ParamSpec((di,), "zeros"),
+        "w_q": ParamSpec((di, di)),
+        "w_k": ParamSpec((di, di)),
+        "w_v": ParamSpec((di, di)),
+        "w_if": ParamSpec((di, h), "normal02"),
+        "b_if": ParamSpec((h,), "zeros"),
+        "w_ff": ParamSpec((di, h), "normal02"),
+        "b_ff": ParamSpec((h,), "zeros"),
+        "skip_scale": ParamSpec((di,), "ones"),
+        "w_down": ParamSpec((di, d)),
+    }
+
+
+def _slstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    """xLSTM sLSTM block: scalar memory, block-diagonal recurrence, pf-4/3
+    FFN."""
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    f = ((4 * d // 3) + 127) // 128 * 128
+    t: dict[str, ParamSpec] = {}
+    for g in ("i", "f", "z", "o"):
+        t[f"w_{g}"] = ParamSpec((d, d))
+        t[f"r_{g}"] = ParamSpec((h, hd, hd))
+        t[f"b_{g}"] = ParamSpec((d,), "zeros")
+    t["ffn_in"] = ParamSpec((d, f))
+    t["ffn_gate"] = ParamSpec((d, f))
+    t["ffn_out"] = ParamSpec((f, d))
+    return t
+
+
+def block_templates(cfg: ModelConfig, kind: str) -> dict[str, Any]:
+    """One block of ``kind``: dense attention, RG-LRU, mLSTM or sLSTM
+    (``check_ported`` rules out the rest)."""
+    d = cfg.d_model
+    if kind == "attn":
+        return {"ln1": _norm(d), "attn": _attn_templates(cfg),
+                "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+    if kind == "rglru":
+        return {"ln1": _norm(d), "rglru": _rglru_templates(cfg),
+                "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+    if kind == "mlstm":
+        return {"ln1": _norm(d), "mlstm": _mlstm_templates(cfg)}
+    if kind == "slstm":
+        return {"ln1": _norm(d), "slstm": _slstm_templates(cfg),
+                "ln2": _norm(d)}
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _stack(tree: dict, n: int) -> dict:
@@ -130,14 +196,14 @@ def model_templates(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         t["head"] = ParamSpec((vp, d), "normal02")
     if plan.prefix:
-        t["prefix"] = {f"{i}_{k}": block_templates(cfg)
+        t["prefix"] = {f"{i}_{k}": block_templates(cfg, k)
                        for i, k in enumerate(plan.prefix)}
     if plan.n_super:
-        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg)
+        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg, k)
                              for i, k in enumerate(plan.super_block)},
                             plan.n_super)
     if plan.tail:
-        t["tail"] = {f"{i}_{k}": block_templates(cfg)
+        t["tail"] = {f"{i}_{k}": block_templates(cfg, k)
                      for i, k in enumerate(plan.tail)}
     return t
 
@@ -158,6 +224,11 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "lru_lambda":
+        # a = exp(-8 * softplus(lam)) in [0.9, 0.999] at init (Griffin A.2)
+        u = torch.empty(spec.shape, dtype=torch.float32, device=device)
+        u.uniform_(0.9 ** 2, 0.999 ** 2, generator=generator)
+        return torch.log(torch.expm1(-torch.log(u) / (2.0 * 8.0))).to(dtype)
     if spec.init == "normal02":
         std = 0.02
     else:  # fan_in: std = 1/sqrt(fan_in), fan_in = second-to-last dim
@@ -191,9 +262,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 # weights the reference casts to the activation dtype on every use
-# (``w.astype(x.dtype)``); norm scales it reads in float32
-_MATMUL_KEYS = frozenset({"w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
-                          "w_in", "w_gate", "w_out", "embed", "head"})
+# (``w.astype(x.dtype)``): the attention and MLP weights, and every
+# recurrent weight but RG-LRU's ``lam``; norm scales and ``lam`` it reads
+# in float32
+_MATMUL_KEYS = frozenset({
+    "w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
+    "w_in", "w_gate", "w_out", "embed", "head",
+    # RG-LRU
+    "w_y", "w_x", "conv_w", "conv_b", "w_a", "b_a", "w_i", "b_i", "w_ro",
+    # mLSTM
+    "w_up", "w_gate_up", "w_if", "b_if", "w_ff", "b_ff", "skip_scale",
+    "w_down",
+    # sLSTM
+    "w_f", "w_z", "r_i", "r_f", "r_z", "r_o", "b_f", "b_z", "b_o",
+    "ffn_in", "ffn_gate", "ffn_out"})
 
 
 def compute_params(cfg: ModelConfig, params: dict) -> dict:

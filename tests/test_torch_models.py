@@ -54,7 +54,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.config import torch_dtype
 from repro_torch.serving import Request, ServingEngine
 
-ARCHS = ["stablelm-1.6b", "qwen2-72b", "qwen2.5-32b", "nemotron-4-340b"]
+ARCHS = ["stablelm-1.6b", "qwen2-72b", "qwen2.5-32b", "nemotron-4-340b",
+         "recurrentgemma-9b", "xlstm-125m"]
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=5e-2, atol=5e-2)
 
@@ -99,8 +100,8 @@ def test_configs_match_reference_field_for_field():
         is torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "xlstm-125m",
-                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen2-moe-a2.7b",
+                                  "seamless-m4t-large-v2", "llava-next-34b"])
 def test_unported_arch_raises_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tcfgs.get_config(arch)
@@ -294,9 +295,13 @@ def test_unported_entry_points_raise():
     moe = MoEConfig(n_routed=4, top_k=2, d_expert=32)
     with pytest.raises(NotImplementedError, match="MoE"):
         LM(dataclasses.replace(cfg, moe=moe))
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        init_params(dataclasses.replace(cfg, pattern=("rglru", "attn")),
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        init_params(dataclasses.replace(cfg, encoder_layers=2),
                     device="cpu")
+    with pytest.raises(NotImplementedError, match="frontend"):
+        LM(dataclasses.replace(cfg, frontend="vision"))
+    # the recurrent kinds are ported: a hybrid of them builds
+    LM(dataclasses.replace(cfg, pattern=("rglru", "attn")))
 
 
 # --- serving -----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The planner table's twin (``repro_torch.casestudy.planner_table``)
-against the reference's ``benchmarks/planner_table.py``, for the four
-dense architectures the port runs.
+against the reference's ``benchmarks/planner_table.py``, for the six
+architectures the port runs (four dense, two recurrent).
 
 * Fed the reference's FLOP counts, with the port's host peak set to the
   reference's (197e12, a TPU v5e's bf16 rate), every row is the
@@ -25,7 +25,8 @@ from repro.configs import shapes as jshapes
 from repro_torch import configs as tcfgs
 from repro_torch.casestudy import planner_table as tplanner
 
-ARCHS = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b", "nemotron-4-340b")
+ARCHS = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b", "nemotron-4-340b",
+         "recurrentgemma-9b", "xlstm-125m")
 FLAGS = ("mvm_worthwhile", "mvm_conversion_bound", "fourier_worthwhile")
 
 
