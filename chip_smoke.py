@@ -43,8 +43,8 @@ and read just after:
   inputs; Table 1 beside the paper's, Fig. 8's software FFT, and
   ``flops_by_category`` of an LM loss on the card (its attention through
   kernel 6) against the same count on ``meta``; the planner table's rows
-  for the four ported dense architectures, priced at the H100's bf16
-  peak.  It launches no hand-written kernel, and checks that;
+  for every ported architecture (dense, recurrent and MoE), priced at the
+  H100's bf16 peak.  It launches no hand-written kernel, and checks that;
 * the runtime bench at the reference's sizes and both examples' mains;
 * dense serving at full width: qwen2.5-32b at its full width and depth
   (64 layers, 65.5 GB of bf16 weights) and nemotron-4-340b at its full
@@ -65,7 +65,18 @@ and read just after:
   each remat switch equal to "full"; one Adafactor step and one int8
   error-feedback round at a qwen2.5-32b layer's shapes, card against
   CPU; kernel 6 past D 256 (257, 320, 512) forward and backward against
-  its plain version.
+  its plain version;
+* MoE serving at full width: qwen2-moe-a2.7b at its published width and
+  depth (24 layers, 60 routed experts top-4 and 4 shared, 28.6 GB of
+  bf16 weights) and deepseek-v3-671b at its full width with its depth
+  cut to 5 of 61 layers (its 3 dense layers and 2 MoE ones of 256
+  experts top-8, MLA; 53.3 GB), one at a time, each serving the serving
+  path's 8 requests with aux fft frames, every prefill's attention on
+  kernel 6's tensor-core route (D 128; MLA at D 192 with V padded from
+  128), tokens against an offline greedy loop, the share of routed slots
+  each prefill drops for capacity; kernel 6 at each model's prefill
+  shape against its plain version, forward and backward, and V narrower
+  than q and k in f32 and bf16.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -1224,18 +1235,22 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
-                   window: int = 0, backward: bool = False) -> dict:
-    """Kernel 6 at one (1, h, l, d) bf16 causal attention on hkv KV heads:
-    held to its plain version (forward at rtol 1e-2 / atol 1e-3, the
-    backward within 2e-2 * max|plain| and bit-equal on a repeat), then
+                   dv: int | None = None, window: int = 0,
+                   backward: bool = False) -> dict:
+    """Kernel 6 at one (1, h, l, d) bf16 causal attention on hkv KV heads
+    (V of ``dv`` columns, d when None; the wrapper pads V to d on the
+    card): held to its plain version (forward at rtol 1e-2 / atol 1e-3,
+    the backward within 2e-2 * max|plain| and bit-equal on a repeat), then
     timed beside the plain version and one
     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
     call (the library yardstick; the port never calls it), with the bound
-    from this shape's visible pairs."""
+    from this shape's visible pairs and its true V width."""
     import torch.nn.functional as F
     rng = np.random.default_rng(SEED + 10 + d)
     g = h // hkv
     q, k, v = attn_inputs(rng, h, l, d, g, torch.bfloat16, dev)
+    dv = d if dv is None else dv
+    v = v[..., :dv].contiguous()
     kw = dict(causal=True, window=window, kv_groups=g)
     la.reset_launches()
     got = la.local_flash_attention(q, k, v, **kw)
@@ -1243,9 +1258,9 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     check(la.local_flash_attention.launches_by_route ==
-          {"tensor_core": 1, "fma": 0}
+          {"tensor_core": 1, "fma": 0} and got.shape == want.shape
           and max_violation(got.float(), want.float(), 1e-2, 1e-3) <= 0.0,
-          f"attention ({h}/{hkv}, {l}, {d}) bf16: route "
+          f"attention ({h}/{hkv}, {l}, {d}, Dv {dv}) bf16: route "
           f"{la.local_flash_attention.launches_by_route}, max |err| "
           f"{err:.3e} outside rtol 1e-2 / atol 1e-3")
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
@@ -1264,10 +1279,11 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         lib = lambda: F.scaled_dot_product_attention(q4, kx, vx,
                                                      attn_mask=band)
     vis = sum(min(i + 1, window) if window else i + 1 for i in range(l))
-    flops = 4 * vis * d * h                 # QK^T and PV over visible pairs
-    nbytes = 2 * l * d * (2 * h + 2 * hkv)  # q, out and k, v in bf16
+    flops = 2 * vis * h * (d + dv)          # QK^T and PV over visible pairs
+    nbytes = 2 * l * (h + hkv) * (d + dv)   # q, out and k, v in bf16
     b_ms, b_by = bound(flops, nbytes)
-    row = {"shape": [h, hkv, l, d], "dtype": "bfloat16", "causal": True,
+    row = {"shape": [h, hkv, l, d], "dv": dv, "dtype": "bfloat16",
+           "causal": True,
            "window": window, "kernel_route": la.route(torch.bfloat16, d),
            "max_abs_err": err, "ms": statistics.mean((t[0], t[3])),
            "plain_ms": statistics.mean((t[1], t[2])),
@@ -1275,14 +1291,24 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
            "library_mask": "band" if window and window < l else "causal",
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": nbytes}
+    if dv != d:   # the work the kernel does on V padded to d columns
+        row["padded_bound_ms"] = bound(4 * vis * h * d,
+                                       4 * l * (h + hkv) * d)[0]
     row["library_backend"], row["library_kernels"] = sdpa_backend(lib)
     if backward:
-        dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        dout = torch.from_numpy(rng.standard_normal(want.shape).astype(
             np.float32)).to(device=dev, dtype=torch.bfloat16)
-        out, lse = la._forward(q, k, v, scale, window, True, g,
-                               with_lse=True)
-        grads = la._backward(q, k, v, out, lse, dout, scale, window, True, g)
-        again = la._backward(q, k, v, out, lse, dout, scale, window, True, g)
+        if dv == d:
+            out, lse = la._forward(q, k, v, scale, window, True, g,
+                                   with_lse=True)
+            kern_b = lambda: la._backward(q, k, v, out, lse, dout, scale,
+                                          window, True, g)
+        else:   # through the wrapper, which pads V and slices the output
+            qk, kk, vk = (x.detach().requires_grad_() for x in (q, k, v))
+            k_out = la.local_flash_attention(qk, kk, vk, **kw)
+            kern_b = lambda: torch.autograd.grad(k_out, (qk, kk, vk), dout,
+                                                 retain_graph=True)
+        grads, again = kern_b(), kern_b()
         plain_g = attn_grads(lambda *a: la.local_flash_attention_plain(
             *a, **kw), q, k, v, dout)[1:]
         torch.cuda.synchronize()
@@ -1302,8 +1328,6 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         l_out = F.scaled_dot_product_attention(q4g, k4g, v4g,
                                                is_causal=True,
                                                enable_gqa=True)
-        kern_b = lambda: la._backward(q, k, v, out, lse, dout, scale, window,
-                                      True, g)
         plain_b = lambda: torch.autograd.grad(p_out, (qp, kp, vp), dout,
                                               retain_graph=True)
         lib_b = lambda: torch.autograd.grad(l_out, (q4g, k4g, v4g),
@@ -1311,21 +1335,24 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
                                             retain_graph=True)
         tb = [median_ms(kern_b), median_ms(plain_b), median_ms(plain_b),
               median_ms(kern_b)]
-        # 2.5x the forward's products; q, k, v, out, dout and lse read,
-        # dq, dk, dv written
-        bb_ms, bb_by = bound(5 * flops / 2, nbytes + 2 * l * d * (
-            2 * h + 2 * hkv) + 4 * h * l)
+        # S recomputed and dQ, dK (at d), dV and dP (at dv); q, k, v,
+        # out, dout and lse read, dq, dk, dv written
+        bb_ms, bb_by = bound(2 * vis * h * (3 * d + 2 * dv), 2 * nbytes
+                             + 4 * h * l)
         row["backward"] = {
             "max_abs_err": max(errs), "ms": statistics.mean((tb[0], tb[3])),
             "plain_ms": statistics.mean((tb[1], tb[2])),
             "library_ms": (None if window and window < l
                            else median_ms(lib_b)),
             "bound_ms": bb_ms, "bound_by": bb_by}
-    print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}, D {d}) bf16 "
+    print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}, D {d}"
+          f"{f', Dv {dv}' if dv != d else ''}) bf16 "
           f"causal{f' window {window}' if window else ''}: forward "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
           f"{row['library_ms']:.4f} ({row['library_backend']}, "
-          f"{row['library_mask']} mask), bound {b_ms:.4f} ({b_by}); max |err| "
+          f"{row['library_mask']} mask), bound {b_ms:.4f} ({b_by})"
+          + (f", padded {row['padded_bound_ms']:.4f}" if dv != d else "")
+          + f"; max |err| "
           f"{err:.3e}" + ("" if not backward else
                           f"; backward {row['backward']['ms']:.4f} ms, plain "
                           f"{row['backward']['plain_ms']:.4f}, SDPA "
@@ -1981,6 +2008,198 @@ def phase_wide_head_dims(la, dev, card: str) -> dict:
                       f"({rows[-1]['bound_by']}); max |err| {err:.3e} "
                       f"forward, {berr:.3e} backward")
     return {"cases": rows}
+
+
+# --- phase 13: MoE serving at full width -------------------------------------
+
+# (arch, the layers kept, None for all): deepseek-v3-671b's 61 layers would
+# be 1.34 TB of bf16; 5 layers (its 3 dense ones and 2 MoE ones, stacked)
+# and the untied embed and head are 53.3 GB
+MOE_SERVING = (("qwen2-moe-a2.7b", None), ("deepseek-v3-671b", 5))
+# as published: (layers, d_model, heads, KV heads, vocab, dense d_ff,
+# dense prefix, routed experts, top-k, expert width, shared experts)
+MOE_WIDTHS = {"qwen2-moe-a2.7b": (24, 2048, 16, 16, 151936, 5632, 0, 60, 4,
+                                  1408, 4),
+              "deepseek-v3-671b": (61, 7168, 128, 128, 129280, 18432, 3, 256,
+                                   8, 2048, 1)}
+# deepseek-v3-671b's MLA as published: (q rank, kv rank, qk nope, qk rope,
+# v head dim)
+MLA_WIDTHS = (1536, 512, 128, 64, 128)
+# kernel 6's Dv < D path beside its plain version, forward and backward:
+# (heads, KV heads, L, D, Dv, dtype, causal); the MLA prefill shape and
+# the smoke MLA's head dims on the FMA route in f32, and the tensor-core
+# route at D 192 with GQA
+DV_CASES = ((128, 128, 1024, 192, 128, torch.float32, True),
+            (16, 4, 517, 192, 128, torch.bfloat16, True),
+            (8, 8, 333, 12, 8, torch.float32, True),
+            (8, 2, 300, 64, 40, torch.float32, False))
+
+
+def drop_shares(moe, model, params, prompts, dev,
+                max_len: int) -> tuple[list, list]:
+    """The share of routed slots each prefill of ``prompts`` drops for
+    capacity, over its MoE layers, and layer by layer: an expert's slots
+    past ``capacity`` in a row are dropped, so a layer drops sum(max(count
+    - C, 0)) of its S*k slots.  Read from the router's choices on a
+    prefill run after the counted one (its launches are not counted)."""
+    router, shares, by_layer = moe._router, [], []
+
+    def recording(cfg, p, x):
+        top, idx, aux = router(cfg, p, x)
+        e = cfg.moe.n_routed
+        counts = (idx.reshape(idx.shape[0], -1, 1)
+                  == torch.arange(e, device=idx.device)).sum(1)   # (B, E)
+        cap = moe.capacity(cfg, x.shape[1])
+        seen.append((torch.clamp(counts - cap, min=0).sum(), idx.numel()))
+        return top, idx, aux
+
+    moe._router = recording
+    try:
+        for prompt in prompts:
+            seen = []
+            model.prefill(params, {"tokens": torch.tensor([prompt],
+                                                          device=dev)},
+                          max_len=max_len)
+            shares.append(sum(int(d) for d, _ in seen)
+                          / sum(n for _, n in seen))
+            by_layer.append([int(d) / n for d, n in seen])
+    finally:
+        moe._router = router
+    return shares, by_layer
+
+
+def check_attention_dv(la, dev) -> float:
+    """Kernel 6 with V narrower than q and k (``DV_CASES``) against its
+    plain version on the card, through the wrapper (which pads V to D and
+    slices the output back): the forward at 2e-5 in f32 and rtol 1e-2 /
+    atol 1e-3 in bf16, the gradients within 1e-4 (f32) and 2e-2 (bf16) of
+    max|plain|, each launch on its route, and dV of the caller's Dv
+    columns.  Returns the max forward |err| in f32."""
+    rng = np.random.default_rng(SEED + 11)
+    err_f32 = 0.0
+    for h, hkv, l, d, dv, dtype, causal in DV_CASES:
+        g = h // hkv
+        q, k, v = attn_inputs(rng, h, l, d, g, dtype, dev)
+        v = v[..., :dv].contiguous()
+        dout = torch.from_numpy(rng.standard_normal((h, l, dv)).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+        kw = dict(causal=causal, kv_groups=g)
+        la.reset_launches()
+        got = attn_grads(lambda *t: la.local_flash_attention(*t, **kw),
+                         q, k, v, dout)
+        want = attn_grads(lambda *t: la.local_flash_attention_plain(
+            *t, **kw), q, k, v, dout)
+        torch.cuda.synchronize()
+        path = la.route(dtype, d)
+        check(la.local_flash_attention.launches_by_route[path] == 1
+              and la.local_flash_attention.backward_launches_by_route[path]
+              == 1, f"attention Dv {dv} < D {d} {dtype}: not launched on "
+              f"{path}: {la.local_flash_attention.launches_by_route}")
+        check(got[0].shape == (h, l, dv) and got[3].shape == v.shape,
+              f"attention Dv {dv} < D {d}: out {tuple(got[0].shape)}, dv "
+              f"{tuple(got[3].shape)}")
+        f32 = dtype == torch.float32
+        rtol, atol = (2e-5, 2e-5) if f32 else (1e-2, 1e-3)
+        err = float((got[0].float() - want[0].float()).abs().max())
+        check(max_violation(got[0].float(), want[0].float(), rtol, atol)
+              <= 0.0, f"attention ({h}/{hkv}, {l}, {d}, Dv {dv}) {dtype}: "
+              f"forward max |err| {err:.3e} outside rtol {rtol} / atol "
+              f"{atol}")
+        tol = 1e-4 if f32 else 2e-2
+        for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            e = float((a.float() - b.float()).abs().max())
+            top = float(b.float().abs().max())
+            check(e <= tol * top, f"attention backward {name} ({h}/{hkv}, "
+                  f"{l}, {d}, Dv {dv}) {dtype}: max |err| {e:.3e} > {tol} "
+                  f"* {top:.3e}")
+        if f32:
+            err_f32 = max(err_f32, err)
+    print(f"  kernel 6 at Dv < D: {len(DV_CASES)} cases ok (f32 on the FMA "
+          "route at 2e-5 forward and 1e-4 * max|plain| backward, max "
+          f"forward |err| {err_f32:.3e}; bf16 at D 192 / Dv 128 with GQA on "
+          "the tensor-core route at 1e-2 / 1e-3 and 2e-2 * max|plain|); "
+          "out and dV have the caller's Dv columns")
+    return err_f32
+
+
+def phase_moe_serving(rt, od, la, dev, card: str) -> dict:
+    """qwen2-moe-a2.7b at full width and depth and deepseek-v3-671b at
+    full width on 5 of its 61 layers, each serving phase 5's traffic,
+    every prefill's attention on kernel 6's tensor-core route (MLA at D
+    192 with V padded from 128); the capacity drops of each prefill; kernel
+    6 at each model's prefill shape against its plain version."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe, param_counts
+
+    out = {}
+    for arch, layers in MOE_SERVING:
+        cfg = configs.get_config(arch)
+        m = cfg.moe
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.vocab_size, cfg.d_ff, cfg.dense_prefix, m.n_routed,
+               m.top_k, m.d_expert, m.n_shared) == MOE_WIDTHS[arch],
+              f"{arch} is not at its published width and depth")
+        if cfg.mla is not None:
+            a = cfg.mla
+            check((a.q_lora_rank, a.kv_lora_rank, a.qk_nope_head_dim,
+                   a.qk_rope_head_dim, a.v_head_dim) == MLA_WIDTHS,
+                  f"{arch}'s MLA is not at its published width")
+            d, dv = a.qk_head_dim, a.v_head_dim
+        else:
+            check(cfg.head_dim_ == 128 and cfg.attn_bias,
+                  f"{arch}'s attention is not MHA at D 128 with bias")
+            d = dv = cfg.head_dim_
+        full_params = param_counts(cfg)[0]
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+            print(f"  {arch}: depth cut to {layers} of "
+                  f"{MOE_WIDTHS[arch][0]} layers at full width "
+                  f"({cfg.dense_prefix} dense, {layers - cfg.dense_prefix} "
+                  f"MoE; {param_counts(cfg)[0]:,} of {full_params:,} "
+                  "parameters)")
+        check(la.route(cfg.activation_dtype, d) == "tensor_core",
+              f"{arch}'s attention (D {d}) is not on kernel 6's tensor-core "
+              "route")
+        engine, reqs, run = serve_requests(rt, od, la, dev, cfg)
+        ttft = run["ttft_ms"]
+        caps = {n: moe.capacity(cfg, n) for n in PROMPT_LENS}
+        run.update(
+            full_params=full_params, depth_cut=layers,
+            active_params=param_counts(cfg)[1],
+            ttft_ms_median_by_round=[statistics.median(ttft[:SLOTS]),
+                                     statistics.median(ttft[SLOTS:])],
+            # decode reads every weight once a step (every expert: the
+            # dispatch runs all E experts at C slots)
+            decode_bytes_bound_ms=run["weight_gb"] * 1e9 / PEAK_BYTES_S
+            * 1e3,
+            capacity=caps)
+        run["drop_share"], run["drop_share_by_layer"] = drop_shares(
+            moe, engine.model.model, engine.params,
+            [r.prompt for r in reqs], dev, MAX_LEN)
+        del engine
+        longest = PROMPT_LENS.index(max(PROMPT_LENS))
+        print(f"  capacity per expert and row at {max(PROMPT_LENS)} tokens "
+              f"{caps[max(PROMPT_LENS)]}; share of routed slots dropped "
+              "per prefill (prompt length: share): " + ", ".join(
+                  f"{n}: {sh:.4f}" for n, sh in zip(PROMPT_LENS,
+                                                   run["drop_share"]))
+              + f"; by MoE layer at {max(PROMPT_LENS)} tokens: "
+              + ", ".join(f"{sh:.4f}" for sh in
+                          run["drop_share_by_layer"][longest]))
+        run["kernel6"] = attention_case(la, dev, cfg.n_heads, cfg.n_kv_heads,
+                                        PREFILL_L, d, dv=dv, backward=True)
+        print(f"  [{card}] {arch}: TTFT median {run['ttft_ms_median']:.1f} "
+              f"ms (first round {run['ttft_ms_median_by_round'][0]:.1f}, "
+              f"second {run['ttft_ms_median_by_round'][1]:.1f}), decode "
+              f"{run['decode_tokens_per_s']:.1f} tok/s (median step "
+              f"{run['decode_step_ms_median']:.3f} ms, bytes bound "
+              f"{run['decode_bytes_bound_ms']:.3f} ms), peak memory "
+              f"{run['peak_memory_gb']:.2f} GB, weights "
+              f"{run['weight_gb']:.2f} GB")
+        out[arch] = run
+    out["dv_check_max_abs_err_f32"] = check_attention_dv(la, dev)
+    return out
 
 
 # --- phase 7: the converter boundary -------------------------------------------
@@ -3062,6 +3281,26 @@ def main() -> int:
     optim = phase_optimizers(dev, card)
     print("phase 12d: kernel 6 past head dim 256")
     attn_row["wide_head_dims"] = phase_wide_head_dims(la, dev, card)
+    print("phase 13: MoE serving at full width")
+    moe_runs = phase_moe_serving(rt, od, la, dev, card)
+    for row in rows[:2]:
+        row["launches_by_path"]["moe_serving"] = sum(
+            moe_runs[arch]["launches"][row["name"]]
+            for arch, _ in MOE_SERVING)
+    for arch, name in (("qwen2-moe-a2.7b", "local_flash_attention_d128_mha16"),
+                       ("deepseek-v3-671b",
+                        "local_flash_attention_mla_d192_dv128")):
+        k6 = moe_runs[arch]["kernel6"]
+        rows.append({"name": name, "route": "cuda", "source": ATTN_SOURCE,
+                     "replaces": REPLACES["local_flash_attention"],
+                     "launches": moe_runs[arch]["launches"][
+                         "local_flash_attention"],
+                     **{key: k6[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "library_backend",
+                         "shape", "dv", "dtype", "kernel_route",
+                         "backward")},
+                     "path": f"phase 13 serving {arch}"})
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
@@ -3071,6 +3310,7 @@ def main() -> int:
     print(json.dumps({"dense_serving": dense}))
     print(json.dumps({"recurrent": {"serving": rg, "training": xl,
                                     "optimizers": optim}}))
+    print(json.dumps({"moe_serving": moe_runs}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """The paper's decision rule applied to the LM architectures the port runs.
 
 The twin of the reference's ``benchmarks/planner_table.py``.  For each
-architecture of ``configs.PORTED`` (the four dense ones and the two
-recurrent ones; the other four come with the MoE, MLA, enc-dec and
-vision slices, ROADMAP.md queue 1 items g and h):
+architecture of ``configs.PORTED`` (the four dense ones, the two
+recurrent ones and the two MoE ones; the other two come with the enc-dec
+and vision slices, ROADMAP.md queue 1 item h):
 
   1. count the FLOPs of one smoke-config ``LM.loss`` at 2 x 32 tokens,
      by category {matmul, conv, fft, other}, with

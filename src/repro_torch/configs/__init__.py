@@ -36,6 +36,7 @@ ARCHS: dict[str, str] = {
 # architectures whose configs and model code the port has
 PORTED: tuple[str, ...] = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b",
                            "nemotron-4-340b", "recurrentgemma-9b",
+                           "qwen2-moe-a2.7b", "deepseek-v3-671b",
                            "xlstm-125m")
 
 

@@ -17,7 +17,13 @@ work (the reference's ``pick_block`` falls back to one whole-axis block).
 
 It takes what the reference's kernel takes: any head dim D from 1 up,
 in float32, bfloat16 or float16 (computed in fp32, stored in q's dtype).
-Dqk != Dv raises, as the reference's kernel does not take it either.
+V may have fewer columns than q and k (Dv < D: MLA's 128 against 192),
+which the reference's kernel does not take: its plain version takes Dv
+as it is, and on the card the wrapper pads V with zero columns to D
+before the launch and slices the output back to Dv after it (P·[V | 0]
+= [P·V | 0] exactly), both as differentiable torch ops outside the
+kernel's ``autograd.Function``, so the backward's dV for the padded
+columns never reaches the caller.
 Past D 256 the FMA kernels split D into chunks of 256 columns: the
 scores sum over the chunks, and each output chunk is one CTA's, which
 recomputes them (forward and backward alike).  It has two routes, chosen
@@ -285,8 +291,11 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     Args:
       q: (BH, Lq, D) — batch*query-heads flattened.
-      k, v: (BHkv, Lk, D) with BHkv = BH // kv_groups (GQA: query head
+      k: (BHkv, Lk, D) with BHkv = BH // kv_groups (GQA: query head
         ``bh`` reads KV head ``bh // kv_groups``).
+      v: (BHkv, Lk, Dv) with 1 <= Dv <= D; the output is (BH, Lq, Dv)
+        (for Dv < D, on the card, a view of the padded launch's output).
+      scale: the softmax scale, D ** -0.5 when None.
       window: 0 = unlimited; w > 0 = each query attends to at most the
         ``w`` most recent keys.
       causal: lower-triangular masking (assumes aligned q/k positions).
@@ -297,12 +306,16 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     Gradients flow to q, k and v: through the CUDA backward on the card,
     through the plain version's autograd on the CPU.
     """
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
-        raise ValueError("local_flash_attention: expected q (BH, Lq, D) and "
-                         f"k, v (BHkv, Lk, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3 \
+            or v.shape[:2] != k.shape[:2] \
+            or not 1 <= v.shape[2] <= k.shape[2]:
+        raise ValueError("local_flash_attention: expected q (BH, Lq, D), "
+                         "k (BHkv, Lk, D) and v (BHkv, Lk, Dv <= D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     bh, lq, d = q.shape
     bhkv, lk, dk = k.shape
+    dv = v.shape[2]
     if kv_groups < 1 or bh != bhkv * kv_groups or dk != d:
         raise ValueError(f"local_flash_attention: q {tuple(q.shape)} does "
                          f"not match k {tuple(k.shape)} at kv_groups "
@@ -321,7 +334,18 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if bh > _MAX_GRID_Y:
         raise ValueError(f"local_flash_attention: BH {bh} exceeds "
                          f"{_MAX_GRID_Y}")
-    if route(q.dtype, d) == "tensor_core":
+    if dv < d:
+        # the kernel's V has q's D: zero columns in, their outputs out
+        v = torch.nn.functional.pad(v, (0, d - dv))
+        return _launch(q, k, v, scale, window, causal, kv_groups)[..., :dv]
+    return _launch(q, k, v, scale, window, causal, kv_groups)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            window: int, causal: bool, kv_groups: int) -> torch.Tensor:
+    """The kernel on CUDA operands of one head dim: under autograd when a
+    gradient is needed, else the forward alone."""
+    if route(q.dtype, q.shape[2]) == "tensor_core":
         q, k, v = (_aligned(t) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -43,19 +43,21 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> torch.Tensor:
     """(B, Hq, L, D) grouped-query flash attention over 4-D operands.
 
-    Flattens (batch, heads) onto the kernel's leading axis; KV heads are
-    shared across groups inside the kernel (no repeat).  Operands that are
-    not contiguous are made so first.
+    k is (B, Hkv, Lk, D) and v (B, Hkv, Lk, Dv) with Dv <= D (MLA); the
+    result is (B, Hq, L, Dv).  Flattens (batch, heads) onto the kernel's
+    leading axis; KV heads are shared across groups inside the kernel (no
+    repeat).  Operands that are not contiguous are made so first.
     """
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     if hq % hkv:
         raise ValueError(f"gqa_flash_attention: {hq} query heads do not "
                          f"group over {hkv} KV heads")
+    dv = v.shape[-1]
     out = local_flash_attention(
         q.reshape(b * hq, lq, d).contiguous(),
         k.reshape(b * hkv, lk, d).contiguous(),
-        v.reshape(b * hkv, lk, d).contiguous(),
+        v.reshape(b * hkv, lk, dv).contiguous(),
         window=window, causal=causal, kv_groups=hq // hkv,
     )
-    return out.reshape(b, hq, lq, d)
+    return out.reshape(b, hq, lq, dv)

@@ -5,9 +5,13 @@ The reference compiles the stack as ``prefix + lax.scan over super-blocks
 over the layer axis (one ``unbind`` of each stacked leaf per traversal,
 so that backward stacks the layers' gradients once).  Its sharding
 constraints are identity off a mesh and are left out.  The port runs the
-dense ``attn`` block kind and the recurrent kinds ``rglru``, ``mlstm``
-and ``slstm``: ``LM`` refuses MoE, MLA, encoder-decoder and frontend
-configs (``params.check_ported``).
+``attn`` block kind (GQA or MLA attention, a dense MLP or a mixture of
+experts) and the recurrent kinds ``rglru``, ``mlstm`` and ``slstm``:
+``LM`` refuses encoder-decoder and frontend configs
+(``params.check_ported``).  A MoE config's attention blocks take the
+experts except in the ``prefix`` section (DeepSeek-V3's ``dense_prefix``
+layers), as in the reference, and their load-balance losses add up to
+the loss's ``aux``.
 
 Entry points:
   ``loss``         — training forward: every stacked block under
@@ -17,7 +21,8 @@ Entry points:
                      layer's attention goes through the flash-attention
                      kernel and its CUDA backward
   ``prefill``      — full-sequence forward that also builds the decode
-                     cache (k/v for attention, the recurrent states);
+                     cache (k/v for GQA, the latent for MLA, the
+                     recurrent states);
                      every layer's attention goes through the
                      flash-attention kernel
   ``decode_step``  — one new token against the cache (updated in place)
@@ -27,7 +32,8 @@ reference reads it when it traces:
   ``REPRO_REMAT_POLICY=full`` (default) recomputes every stacked block in
   backward; ``=dots`` saves the outputs of matmuls with no batch dims
   (``aten.mm`` / ``aten.addmm``, the reference's
-  ``dots_with_no_batch_dims_saveable``) and recomputes the rest.
+  ``dots_with_no_batch_dims_saveable``) and recomputes the rest (the
+  experts' products are batched over experts, so they are recomputed).
   ``REPRO_REMAT_GROUP=g`` (> 1, with g dividing the super-block count)
   adds a second level: each group of g super-blocks is checkpointed
   whole, so the forward keeps only the groups' inputs and the backward
@@ -53,6 +59,7 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
                                        mlp_apply, rms_norm)
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.params import check_ported, map_tree
 
 __all__ = ["LM"]
@@ -73,25 +80,36 @@ def _kind(key: str) -> str:
 # --------------------------------------------------------------------------- #
 
 
-def _block_rest(cfg: ModelConfig, kind: str, p: dict,
-                x: torch.Tensor) -> torch.Tensor:
-    """A block's second residual half, after its mixer: the MLP (attn,
-    rglru), sLSTM's gated FFN, or nothing (mLSTM)."""
+def _block_rest(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
+                dense: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A block's second residual half, after its mixer: the MLP or the
+    experts (attn; the experts unless ``dense``), the MLP (rglru), sLSTM's
+    gated FFN, or nothing (mLSTM).  Returns (x, the experts' load-balance
+    loss or None)."""
     if kind == "mlstm":
-        return x
+        return x, None
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "slstm":
-        return x + rec.slstm_ffn(p["slstm"], h2)
-    return x + mlp_apply(cfg, p["mlp"], h2)
+        return x + rec.slstm_ffn(p["slstm"], h2), None
+    if kind == "attn" and cfg.moe is not None and not dense:
+        y, aux = moe_apply(cfg, p["mlp"], h2)
+        return x + y, aux
+    return x + mlp_apply(cfg, p["mlp"], h2), None
 
 
 def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
-                pos0: int, build_cache: bool):
+                pos0: int, dense: bool, build_cache: bool):
     """One block of ``kind`` over the whole sequence.  Returns
-    (x, cache_or_None)."""
+    (x, aux_loss or None, cache_or_None)."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
-    if kind == "attn":
+    if kind == "attn" and cfg.mla is not None:
+        y = attn.mla_full(cfg, p["attn"], h_in, pos0=pos0,
+                          return_cache=build_cache)
+        if build_cache:
+            y, latent = y
+            cache = {"latent": latent}
+    elif kind == "attn":
         y = attn.gqa_full(cfg, p["attn"], h_in, pos0=pos0,
                           window=cfg.local_window, return_cache=build_cache)
         if build_cache:
@@ -104,27 +122,32 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
             y, cache = y
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return _block_rest(cfg, kind, p, x + y), cache
+    x, aux = _block_rest(cfg, kind, p, x + y, dense=dense)
+    return x, aux, cache
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                  cache: dict, pos: torch.Tensor):
+                  cache: dict, pos: torch.Tensor, *, dense: bool):
     """One block, one token.  Returns (x, cache): an attention block's
     cache updated in place, a recurrent block's new state (the caller
     writes it back)."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
+    if kind == "attn" and cfg.mla is not None:
+        y, cache = attn.mla_decode(cfg, p["attn"], h_in, cache, pos)
+    elif kind == "attn":
         y, cache = attn.gqa_decode(cfg, p["attn"], h_in, cache, pos,
                                    window=cfg.local_window)
     elif kind in RECURRENT_KINDS:
         y, cache = getattr(rec, f"{kind}_decode")(cfg, p[kind], h_in, cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return _block_rest(cfg, kind, p, x + y), cache
+    return _block_rest(cfg, kind, p, x + y, dense=dense)[0], cache
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                       device: torch.device) -> dict:
+    if kind == "attn" and cfg.mla is not None:
+        return attn.init_mla_cache(cfg, batch, max_len, device=device)
     if kind == "attn":
         return attn.init_gqa_cache(cfg, batch, max_len, cfg.local_window,
                                    device=device)
@@ -135,12 +158,16 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def _cache_from_prefill(cfg: ModelConfig, kind: str, built: dict, batch: int,
                         seq: int, max_len: int, device: torch.device) -> dict:
-    """A prefill-built layer cache as a decode cache: an attention layer's
-    (k, v) of ``seq`` positions in a cache of ``max_len`` (a ring of the
-    last ``window`` positions when windowed); a recurrent layer's state
-    carries over unchanged."""
+    """A prefill-built layer cache as a decode cache: an MLA layer's latent
+    of ``seq`` positions, or a GQA layer's (k, v), in a cache of
+    ``max_len`` (a ring of the last ``window`` positions when windowed); a
+    recurrent layer's state carries over unchanged."""
     if kind != "attn":
         return built
+    if cfg.mla is not None:
+        cache = attn.init_mla_cache(cfg, batch, max_len, device=device)
+        cache["latent"][:, :seq] = built["latent"]
+        return cache
     cache = attn.init_gqa_cache(cfg, batch, max_len, cfg.local_window,
                                 device=device)
     size = cache["k"].shape[2]
@@ -216,19 +243,24 @@ class LM:
                 for key in _ordered(params[section]):
                     yield section, key, None, params[section][key]
 
-    def _remat_super(self, sp: dict, x: torch.Tensor,
-                     context_fn=None) -> torch.Tensor:
+    def _remat_super(self, sp: dict, x: torch.Tensor, aux: torch.Tensor,
+                     context_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
         """One super-block, each block under ``torch.utils.checkpoint``
-        (``context_fn`` picks what a block keeps)."""
+        (``context_fn`` picks what a block keeps).  Returns (x, aux plus
+        the blocks' load-balance losses)."""
         kw = {} if context_fn is None else {"context_fn": context_fn}
         for key in _ordered(sp):
             # bind the block now: the recompute runs after the loop moved on
-            x, _ = checkpoint(functools.partial(
+            x, a, _ = checkpoint(functools.partial(
                 _block_full, self.cfg, _kind(key), sp[key], pos0=0,
-                build_cache=False), x, use_reentrant=False, **kw)
-        return x
+                dense=False, build_cache=False), x, use_reentrant=False,
+                **kw)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
-    def _remat_stack(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def _remat_stack(self, params: dict, x: torch.Tensor,
+                     aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The stacked section under the remat switches, read as the
         reference reads them."""
         group = int(os.environ.get("REPRO_REMAT_GROUP", "1"))
@@ -238,51 +270,57 @@ class LM:
                       else None)
         supers = self._super_blocks(params)
         if group > 1 and len(supers) % group == 0:
-            def run_group(xx, members):
+            def run_group(xx, aa, members):
                 for sp in members:
-                    xx = self._remat_super(sp, xx, context_fn)
-                return xx
+                    xx, aa = self._remat_super(sp, xx, aa, context_fn)
+                return xx, aa
 
             for g0 in range(0, len(supers), group):
-                x = checkpoint(run_group, x, supers[g0:g0 + group],
-                               use_reentrant=False)
-            return x
+                x, aux = checkpoint(run_group, x, aux,
+                                    supers[g0:g0 + group],
+                                    use_reentrant=False)
+            return x, aux
         for sp in supers:
-            x = self._remat_super(sp, x, context_fn)
-        return x
+            x, aux = self._remat_super(sp, x, aux, context_fn)
+        return x, aux
 
     def _forward(self, params: dict, x: torch.Tensor, *,
                  build_cache: bool = False, remat: bool = False):
-        """Shared full-sequence traversal.  Returns (x, caches): caches in
-        the reference's layout, stacked layers on a leading axis.  With
-        ``remat`` (and no cache to build) the stacked blocks run under
-        ``torch.utils.checkpoint`` (backward recomputes them), as the
-        reference checkpoints its scan body."""
+        """Shared full-sequence traversal.  Returns (x, aux, caches): aux
+        the sum of the MoE blocks' load-balance losses (float32, 0 without
+        experts), caches in the reference's layout, stacked layers on a
+        leading axis.  With ``remat`` (and no cache to build) the stacked
+        blocks run under ``torch.utils.checkpoint`` (backward recomputes
+        them), as the reference checkpoints its scan body."""
         cfg = self.cfg
         caches: dict[str, Any] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for section in ("prefix", "stack", "tail"):
             if section not in params:
                 continue
             if section == "stack" and remat and not build_cache:
-                x = self._remat_stack(params, x)
-            elif section == "stack":
-                built: dict[str, list] = {}
-                for sp in self._super_blocks(params):
-                    for key in _ordered(sp):
-                        x, c = _block_full(cfg, _kind(key), sp[key], x,
-                                           pos0=0, build_cache=build_cache)
-                        built.setdefault(key, []).append(c)
-                if build_cache:
-                    caches["stack"] = {k: _stacked(v)
-                                       for k, v in built.items()}
+                x, aux = self._remat_stack(params, x, aux)
+                continue
+            if section == "stack":
+                blocks = [(key, sp[key]) for sp in self._super_blocks(params)
+                          for key in _ordered(sp)]
             else:
-                for key in _ordered(params[section]):
-                    x, c = _block_full(cfg, _kind(key), params[section][key],
-                                       x, pos0=0, build_cache=build_cache)
-                    if build_cache:
-                        caches.setdefault(section, {})[key] = c
+                blocks = [(key, params[section][key])
+                          for key in _ordered(params[section])]
+            built: dict[str, list] = {}
+            for key, lp in blocks:
+                x, a, c = _block_full(cfg, _kind(key), lp, x, pos0=0,
+                                      dense=section == "prefix",
+                                      build_cache=build_cache)
+                if a is not None:
+                    aux = aux + a
+                built.setdefault(key, []).append(c)
+            if build_cache:
+                caches[section] = {
+                    k: _stacked(v) if section == "stack" else v[0]
+                    for k, v in built.items()}
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return x, caches
+        return x, aux, caches
 
     def _head(self, params: dict) -> torch.Tensor:
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
@@ -291,8 +329,8 @@ class LM:
     def loss(self, params: dict, batch: dict, *, remat: bool = True):
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
         "labels"}, labels -1 ignored).  Returns (ce + aux, {"ce_sum",
-        "n_tokens", "aux_loss"}); aux is 0 for the dense and recurrent
-        models.
+        "n_tokens", "aux_loss"}): aux the MoE blocks' load-balance losses
+        summed, 0 for the dense and recurrent models.
 
         ``params`` are the float32 master weights, not ``compute_params``:
         each call casts them to the activation dtype inside the graph, so
@@ -301,10 +339,9 @@ class LM:
         ``REPRO_REMAT_GROUP`` switches (module docstring)."""
         cfg = self.cfg
         x = self._inputs(params, batch)
-        x, _ = self._forward(params, x, remat=remat)
+        x, aux, _ = self._forward(params, x, remat=remat)
         ce, metrics = chunked_ce_loss(cfg, self._head(params), x,
                                       batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         metrics["aux_loss"] = aux
         return ce + aux, metrics
 
@@ -313,7 +350,7 @@ class LM:
         cfg = self.cfg
         x = self._inputs(params, batch)
         b, s, _ = x.shape
-        x, built = self._forward(params, x, build_cache=True)
+        x, _, built = self._forward(params, x, build_cache=True)
         cache = self._caches_to_decode(built, b, s, max_len, x.device)
         cache["pos"] = torch.full((b,), s, dtype=torch.int64,
                                   device=x.device)   # per-lane positions
@@ -374,7 +411,8 @@ class LM:
         for section, key, i, lp in self._sections(params):
             lc = cache[section][key] if i is None \
                 else _layer(cache[section][key], i)
-            x, new = _block_decode(cfg, _kind(key), lp, x, lc, pos)
+            x, new = _block_decode(cfg, _kind(key), lp, x, lc, pos,
+                                   dense=section == "prefix")
             if new is not lc:
                 for name, t in new.items():
                     lc[name].copy_(t)

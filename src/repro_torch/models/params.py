@@ -7,10 +7,11 @@ From the same template tree come (a) real initialized tensors
 (:func:`init_params`, from an explicit ``torch.Generator``), (b) exact
 parameter counts (:func:`param_counts`), and (c) the shapes
 ``repro_torch.convert.lm_params_from_numpy`` checks a carried-over tree
-against.  The port has the dense attention block (GQA + dense MLP) and
-the recurrent blocks (RG-LRU, mLSTM, sLSTM); MoE, MLA, encoder-decoder
-and frontend configs raise ``NotImplementedError`` until their slices
-land (``ROADMAP.md``).  Sharding specs wait for the distributed port.
+against.  The port has the attention block (GQA or DeepSeek-V3's MLA,
+with a dense MLP or a mixture of experts) and the recurrent blocks
+(RG-LRU, mLSTM, sLSTM); encoder-decoder and frontend configs raise
+``NotImplementedError`` until their slices land (``ROADMAP.md``).
+Sharding specs wait for the distributed port.
 """
 
 from __future__ import annotations
@@ -53,10 +54,6 @@ def leaves(tree: Any, path: tuple[str, ...] = ()):
 
 
 def _unported(cfg: ModelConfig) -> str | None:
-    if cfg.moe is not None:
-        return "MoE"
-    if cfg.mla is not None:
-        return "MLA"
     if cfg.is_encdec:
         return "encoder-decoder"
     if cfg.frontend is not None:
@@ -79,8 +76,26 @@ def _norm(d: int) -> ParamSpec:
     return ParamSpec((d,), "ones")
 
 
-def _mlp_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def _mlp_templates(cfg: ModelConfig, dense: bool) -> dict[str, ParamSpec]:
+    """The dense MLP, or (a MoE config's block that is not ``dense``) the
+    router, the routed experts stacked on a leading expert axis and the
+    shared experts as one MLP of their summed width."""
+    d = cfg.d_model
+    if cfg.moe is not None and not dense:
+        m = cfg.moe
+        fe, fs = m.d_expert, (m.d_shared or m.d_expert) * max(m.n_shared, 1)
+        t = {
+            "router": ParamSpec((d, m.n_routed), "normal02"),
+            "we_in": ParamSpec((m.n_routed, d, fe)),
+            "we_gate": ParamSpec((m.n_routed, d, fe)),
+            "we_out": ParamSpec((m.n_routed, fe, d)),
+        }
+        if m.n_shared:
+            t.update({"ws_in": ParamSpec((d, fs)),
+                      "ws_gate": ParamSpec((d, fs)),
+                      "ws_out": ParamSpec((fs, d))})
+        return t
+    f = cfg.d_ff
     t = {"w_in": ParamSpec((d, f)), "w_out": ParamSpec((f, d))}
     if cfg.mlp_kind in ("swiglu", "geglu"):
         t["w_gate"] = ParamSpec((d, f))
@@ -89,6 +104,18 @@ def _mlp_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
 
 def _attn_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "w_dq": ParamSpec((d, m.q_lora_rank)),
+            "q_norm": _norm(m.q_lora_rank),
+            "w_uq": ParamSpec((m.q_lora_rank, h * m.qk_head_dim)),
+            "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+            "kv_norm": _norm(m.kv_lora_rank),
+            "w_uk": ParamSpec((m.kv_lora_rank, h * m.qk_nope_head_dim)),
+            "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim)),
+            "w_o": ParamSpec((h * m.v_head_dim, d)),
+        }
     t = {
         "w_q": ParamSpec((d, h * hd)),
         "w_k": ParamSpec((d, hk * hd)),
@@ -161,16 +188,19 @@ def _slstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return t
 
 
-def block_templates(cfg: ModelConfig, kind: str) -> dict[str, Any]:
-    """One block of ``kind``: dense attention, RG-LRU, mLSTM or sLSTM
-    (``check_ported`` rules out the rest)."""
+def block_templates(cfg: ModelConfig, kind: str,
+                    dense: bool) -> dict[str, Any]:
+    """One block of ``kind``: attention, RG-LRU, mLSTM or sLSTM
+    (``check_ported`` rules out the rest).  An attention block of a MoE
+    config takes the experts unless ``dense`` (the ``prefix`` section:
+    DeepSeek-V3's first ``dense_prefix`` layers)."""
     d = cfg.d_model
     if kind == "attn":
         return {"ln1": _norm(d), "attn": _attn_templates(cfg),
-                "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+                "ln2": _norm(d), "mlp": _mlp_templates(cfg, dense)}
     if kind == "rglru":
         return {"ln1": _norm(d), "rglru": _rglru_templates(cfg),
-                "ln2": _norm(d), "mlp": _mlp_templates(cfg)}
+                "ln2": _norm(d), "mlp": _mlp_templates(cfg, True)}
     if kind == "mlstm":
         return {"ln1": _norm(d), "mlstm": _mlstm_templates(cfg)}
     if kind == "slstm":
@@ -196,14 +226,14 @@ def model_templates(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         t["head"] = ParamSpec((vp, d), "normal02")
     if plan.prefix:
-        t["prefix"] = {f"{i}_{k}": block_templates(cfg, k)
+        t["prefix"] = {f"{i}_{k}": block_templates(cfg, k, dense=True)
                        for i, k in enumerate(plan.prefix)}
     if plan.n_super:
-        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg, k)
+        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg, k, dense=False)
                              for i, k in enumerate(plan.super_block)},
                             plan.n_super)
     if plan.tail:
-        t["tail"] = {f"{i}_{k}": block_templates(cfg, k)
+        t["tail"] = {f"{i}_{k}": block_templates(cfg, k, dense=False)
                      for i, k in enumerate(plan.tail)}
     return t
 
@@ -262,12 +292,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 # weights the reference casts to the activation dtype on every use
-# (``w.astype(x.dtype)``): the attention and MLP weights, and every
-# recurrent weight but RG-LRU's ``lam``; norm scales and ``lam`` it reads
-# in float32
+# (``w.astype(x.dtype)``): the attention, MLA, MLP and expert weights, the
+# router, and every recurrent weight but RG-LRU's ``lam``; norm scales
+# (MLA's ``q_norm`` and ``kv_norm`` among them) and ``lam`` it reads in
+# float32
 _MATMUL_KEYS = frozenset({
     "w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
     "w_in", "w_gate", "w_out", "embed", "head",
+    # MoE
+    "router", "we_in", "we_gate", "we_out", "ws_in", "ws_gate", "ws_out",
+    # MLA
+    "w_dq", "w_uq", "w_dkv", "w_uk", "w_uv",
     # RG-LRU
     "w_y", "w_x", "conv_w", "conv_b", "w_a", "b_a", "w_i", "b_i", "w_ro",
     # mLSTM
@@ -295,8 +330,16 @@ def compute_params(cfg: ModelConfig, params: dict) -> dict:
 
 
 def param_counts(cfg: ModelConfig) -> tuple[int, int]:
-    """(total, active-per-token) parameter counts from the template tree
-    (equal for the dense models the port runs)."""
-    total = sum(math.prod(spec.shape)
-                for _, spec in leaves(model_templates(cfg)))
-    return total, total
+    """(total, active-per-token) parameter counts from the template tree:
+    a token reads ``top_k`` of a MoE layer's ``n_routed`` experts, so each
+    routed-expert leaf counts ``n * (n_routed - top_k) // n_routed`` of its
+    n parameters as inactive (equal counts for the dense models)."""
+    total = inactive = 0
+    for path, spec in leaves(model_templates(cfg)):
+        n = math.prod(spec.shape)
+        total += n
+        if cfg.moe is not None and path[-1] in ("we_in", "we_gate",
+                                                "we_out"):
+            m = cfg.moe
+            inactive += n * (m.n_routed - m.top_k) // m.n_routed
+    return total, total - inactive

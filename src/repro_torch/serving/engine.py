@@ -105,8 +105,8 @@ class ServingEngine:
     def _splice_slot(self, slot: int, slot_cache: dict) -> None:
         """Copy a prefilled 1-lane cache into lane ``slot`` of the batch
         cache, leaf by leaf: ``pos`` is (lanes,); a prefix/tail layer's
-        leaves (k, v and slot_pos, or a recurrent layer's states) have
-        the lane first; a stacked layer's have the layer axis first and
+        leaves (k, v and slot_pos, an MLA layer's latent, or a recurrent
+        layer's states) have the lane first; a stacked layer's have the layer axis first and
         the lane second.  Every leaf of the lane is overwritten, so a
         lane freed by a finished request starts the next one from that
         request's own prefill, with none of the old state left."""

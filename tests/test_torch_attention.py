@@ -151,6 +151,44 @@ def test_sdpa_chunked_matches_reference(h, hkv, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+@pytest.mark.parametrize("h,hkv,d,dv", [(4, 4, 12, 8), (8, 2, 24, 16),
+                                        (4, 4, 192, 128)])
+def test_narrower_v_matches_reference_sdpa_chunked(h, hkv, d, dv):
+    """V narrower than q and k (MLA's 128 against 192): the port's 4-D
+    wrapper, as ``mla_full`` calls it (its default scale ``d ** -0.5`` is
+    MLA's ``qk_head_dim ** -0.5``), against the reference's chunked path
+    in float32, the output and the gradients of q, k and v
+    (``jax.vjp``)."""
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 40, h, d)).astype(np.float32)
+    k = rng.standard_normal((2, 40, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((2, 40, hkv, dv)).astype(np.float32)
+    dout = rng.standard_normal((2, 40, h, dv)).astype(np.float32)
+    want, vjp = jax.vjp(lambda *a: jattn._sdpa_chunked(
+        *a, causal=True, window=0, q_pos0=0, k_pos0=0, q_chunk=8,
+        softmax_scale=d ** -0.5), *(jnp.asarray(a) for a in (q, k, v)))
+    want_g = vjp(jnp.asarray(dout))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = tops.gqa_flash_attention(
+        *(t.transpose(1, 2) for t in ts)).transpose(1, 2)
+    assert got.shape == (2, 40, h, dv)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **F32)
+    got.backward(torch.from_numpy(dout))
+    for name, t, w in zip("qkv", ts, want_g):
+        w = np.asarray(w)
+        assert t.grad.shape == w.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=2e-5,
+                                   atol=2e-5 * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+def test_wrapper_rejects_v_wider_than_q():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 64, 64, 16, 2))
+    with pytest.raises(ValueError, match="Dv <= D"):
+        tla.local_flash_attention(q, k, torch.cat([v, v], dim=-1),
+                                  kv_groups=2)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 64, 64, 16, 2))
     tla.reset_launches()

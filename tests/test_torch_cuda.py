@@ -31,7 +31,9 @@ rounding of its 11-bit output).  A misaligned operand of the
 tensor-core route is copied once and counted in ``realigned``.
 An LM prefill on the card goes through it once per attention layer and
 matches the same model's prefill on the CPU at the bf16 decode bound of
-``tests/test_models.py`` (5e-2), the recurrent families included.
+``tests/test_models.py`` (5e-2), the recurrent families and the MoE ones
+(MLA's V narrower than q and k: padded on the card) included; the MoE
+layer's combine gives the same bits on every call.
 
 The attention backward is held to its plain version's autograd on the
 same inputs at 1e-4 * max|plain| in float32 (summation order only) and
@@ -603,7 +605,8 @@ _D192 = ("nemotron-4-340b", dict(d_model=384, n_heads=2, n_kv_heads=1,
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b", "qwen2.5-32b",
                                   "nemotron-4-340b", "d192",
-                                  "recurrentgemma-9b", "xlstm-125m"])
+                                  "recurrentgemma-9b", "xlstm-125m",
+                                  "qwen2-moe-a2.7b", "deepseek-v3-671b"])
 def test_lm_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     if arch == "d192":
         cfg = dataclasses.replace(tcfgs.get_smoke_config(_D192[0]),
@@ -830,6 +833,64 @@ def test_flash_attention_backward_is_deterministic(cuda_device, dtype, bh, l,
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("h,hkv,l,d,dv,dtype", [
+    (16, 16, 1024, 192, 128, torch.bfloat16),
+    (16, 4, 517, 192, 128, torch.bfloat16),
+    (8, 8, 1024, 192, 128, torch.float32),
+    (8, 2, 333, 12, 8, torch.float32),
+    (4, 4, 200, 64, 1, torch.float32)])
+def test_flash_attention_with_narrower_v_matches_plain(cuda_device, h, hkv,
+                                                       l, d, dv, dtype):
+    """V of Dv < D columns (MLA: 128 against 192): the wrapper pads V on
+    the card and slices the output, so out and dV have the caller's Dv
+    columns; forward and gradients within the kernel's bounds of the
+    plain version, which takes Dv as it is."""
+    q, k, v = _attn_inputs(47, h, l, l, d, h // hkv, dtype, cuda_device)
+    v = v[..., :dv].contiguous()
+    dout = torch.randn((h, l, dv), generator=torch.Generator(
+        device=cuda_device).manual_seed(5), device=cuda_device, dtype=dtype)
+    kw = dict(causal=True, kv_groups=h // hkv, scale=d ** -0.5)
+    la.reset_launches()
+    got = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                 dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t, **kw), q, k,
+                  v, dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route[la.route(dtype, d)] \
+        == 1
+    assert la.local_flash_attention.backward_launches == 1
+    assert got[0].shape == (h, l, dv) and got[3].shape == v.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=1e-2, atol=1e-3)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=tol * max(top, 1e-30), msg=name)
+
+
+def test_moe_combine_is_deterministic_on_the_card(cuda_device):
+    """Two calls of ``moe_apply`` on the same inputs give the same bits
+    (the combine gathers each token's k slots and adds them in expert
+    order; no atomics), in bf16 with many tokens per expert."""
+    from repro_torch.models.moe import moe_apply
+    cfg = tcfgs.get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(cfg, d_model=256, moe=dataclasses.replace(
+        cfg.moe, d_expert=64, d_shared=64))
+    params = compute_params(cfg, init_params(cfg, device=cuda_device))
+    p = {k: v[0] for k, v in params["stack"]["0_attn"]["mlp"].items()}
+    x = torch.randn((4, 1023, cfg.d_model), generator=torch.Generator(
+        device=cuda_device).manual_seed(6), device=cuda_device,
+        dtype=torch.bfloat16)
+    first, aux1 = moe_apply(cfg, p, x)
+    second, aux2 = moe_apply(cfg, p, x)
+    assert torch.equal(first, second) and torch.equal(aux1, aux2)
+    assert bool(torch.isfinite(first).all())
+
+
 def test_gqa_wrapper_gradient_reaches_q_k_v(cuda_device):
     q = torch.randn(2, 8, 333, 64, device=cuda_device, dtype=torch.bfloat16,
                     requires_grad=True)
@@ -861,7 +922,8 @@ def test_flash_attention_without_grad_writes_no_lse(cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "qwen2-72b",
-                                  "recurrentgemma-9b", "xlstm-125m"])
+                                  "recurrentgemma-9b", "xlstm-125m",
+                                  "qwen2-moe-a2.7b", "deepseek-v3-671b"])
 def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda_device, arch):
     """The training loss (bf16 activations, float32 master weights, every
     block rematerialized) on the card, through kernel 6's forward and
@@ -883,7 +945,10 @@ def test_lm_loss_and_grads_on_the_card_match_the_cpu(cuda_device, arch):
         {k: v.to(cuda_device) for k, v in batch.items()})
     torch.cuda.synchronize()
     n_attn = cfg.layer_kinds().count("attn")
-    assert la.local_flash_attention.launches == 2 * n_attn
+    plan = cfg.layer_plan()
+    # the stacked blocks are rematerialized: their forward runs twice
+    n_stacked = plan.n_super * plan.super_block.count("attn")
+    assert la.local_flash_attention.launches == n_attn + n_stacked
     assert la.local_flash_attention.backward_launches == n_attn
     torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
     gmax = max(float(w.abs().max()) for _, w in leaves(want_g))

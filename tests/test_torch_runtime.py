@@ -366,6 +366,7 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.runtime, repro_torch.convert\n"
             "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models.moe\n"
             "import repro_torch.serving, repro_torch.launch.serve\n"
             "import repro_torch.runtime.scheduler\n"
             "import repro_torch.optim, repro_torch.train, repro_torch.data\n"

@@ -24,6 +24,7 @@ import torch
 
 from repro import runtime as jrt
 from repro.core import accelerator as jacc
+from repro.runtime import executor as jexecutor
 from repro_torch import runtime as trt
 from repro_torch.core import accelerator as tacc
 from repro_torch.core import conversion as tconv
@@ -597,10 +598,15 @@ def test_manual_clock_flush_exports_like_the_reference(monkeypatch):
     packages' straggler watchdogs are held off: they score each shard by
     its host wall (``perf_counter``), not the ManualClock, so on a loaded
     test host one package alone could quarantine a device and move its
-    event stream."""
+    event stream.  For the same reason the reference's invocations retire
+    as already computed, as the port's CPU dispatch always does: a jax
+    result still in flight at retirement is charged a compute span of
+    host wall (``perf_counter``), which under load moved the reference's
+    ManualClock events by hundreds of microseconds."""
     for cls in (jrt.DispatchWatchdog, trt.DispatchWatchdog):
         monkeypatch.setattr(cls, "observe",
                             lambda self, key, dt_s, base_s=None: False)
+    monkeypatch.setattr(jexecutor, "_is_ready", lambda x: True)
     rng = np.random.default_rng(3)
     frames = [rng.random((16, 12), dtype=np.float32) for _ in range(8)]
     tspans = _sharded_spans(trt, LANED_4F,
