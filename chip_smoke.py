@@ -76,7 +76,22 @@ and read just after:
   128), tokens against an offline greedy loop, the share of routed slots
   each prefill drops for capacity; kernel 6 at each model's prefill
   shape against its plain version, forward and backward, and V narrower
-  than q and k in f32 and bf16.
+  than q and k in f32 and bf16;
+* the encoder-decoder and vision families at full width and depth:
+  seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 8.16 GB of
+  float32 weights) and llava-next-34b (60 layers, 68.9 GB of bf16), one
+  after the other, each answering 4 requests in one batch through
+  ``LM.prefill`` / ``LM.decode_step`` (seamless: 1024 encoder frames and
+  a 128-token prompt each; llava: 576 patches and 512 tokens each), 32
+  greedy tokens a request, every request's tokens against the request
+  alone on 4 identical lanes and prefilled at 1 lane (seamless's at
+  float32 activations); kernel 6 on the tensor-core route for the
+  non-causal encoder, the decoder's self-attention, cross-attention at
+  Lq 128 and, every decode step, at Lq 1 against the 1024 frames, and
+  llava's GQA 7 at D 128; one seamless ``LM.loss`` + backward at 2 x 512
+  tokens and 1024 frames with every gradient finite; kernel 6 at every
+  shape each run launched it (the run's launches counted per shape)
+  against its plain version, SDPA and its bound, the backward too.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -869,10 +884,12 @@ class CheckedLM:
 
 
 def lanes(cache: dict, n: int) -> dict:
-    """A 1-lane decode cache repeated onto n lanes (``pos`` and a prefix
-    or tail layer's leaves have the lane first, a stacked layer's the
-    lane second)."""
+    """A 1-lane decode cache repeated onto n lanes (``pos``, an
+    encoder-decoder's ``enc_out`` and a prefix or tail layer's leaves have
+    the lane first, a stacked layer's the lane second)."""
     out = {"pos": cache["pos"].repeat(n)}
+    if "enc_out" in cache:
+        out["enc_out"] = cache["enc_out"].repeat_interleave(n, dim=0)
     for section in ("prefix", "stack", "tail"):
         dim = 1 if section == "stack" else 0
         if section in cache:
@@ -883,15 +900,16 @@ def lanes(cache: dict, n: int) -> dict:
 
 
 def offline_greedy(model, params, prompt, new, n_lanes, dev,
-                   max_len: int = MAX_LEN) -> list[int]:
-    """One prompt's prefill followed by a greedy-decode loop, outside the
-    engine.  The prefilled cache is repeated onto ``n_lanes`` identical
-    lanes so that every product has the engine's shapes: cuBLAS picks its
-    kernel by shape, and a 1-row and a 4-row bf16 product may round
-    differently."""
+                   max_len: int = MAX_LEN, extra: dict | None = None,
+                   ) -> list[int]:
+    """One prompt's prefill (with ``extra``, its frames or patches at
+    batch 1) followed by a greedy-decode loop, outside the engine.  The
+    prefilled cache is repeated onto ``n_lanes`` identical lanes so that
+    every product has the engine's shapes: cuBLAS picks its kernel by
+    shape, and a 1-row and a 4-row bf16 product may round differently."""
     cache, logits = model.prefill(
-        params, {"tokens": torch.tensor([prompt], device=dev)},
-        max_len=max_len)
+        params, {"tokens": torch.tensor([prompt], device=dev),
+                 **(extra or {})}, max_len=max_len)
     cache = lanes(cache, n_lanes)
     toks = [int(torch.argmax(logits[0]))]
     for _ in range(new - 1):
@@ -903,11 +921,13 @@ def offline_greedy(model, params, prompt, new, n_lanes, dev,
     return toks
 
 
-def attn_inputs(rng, bh, l, d, groups, dtype, dev):
+def attn_inputs(rng, bh, l, d, groups, dtype, dev, lk=None):
+    """q (bh, l, d) and k, v (bh // groups, lk, d), lk l when None."""
+    lk = l if lk is None else lk
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(device=dev, dtype=dtype)
-        for shape in ((bh, l, d), (bh // groups, l, d),
-                      (bh // groups, l, d)))
+        for shape in ((bh, l, d), (bh // groups, lk, d),
+                      (bh // groups, lk, d)))
 
 
 def check_attention(la, dev, lens) -> float:
@@ -1235,23 +1255,28 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
+                   lk: int | None = None, causal: bool = True,
                    dv: int | None = None, window: int = 0,
                    backward: bool = False) -> dict:
-    """Kernel 6 at one (1, h, l, d) bf16 causal attention on hkv KV heads
-    (V of ``dv`` columns, d when None; the wrapper pads V to d on the
-    card): held to its plain version (forward at rtol 1e-2 / atol 1e-3,
-    the backward within 2e-2 * max|plain| and bit-equal on a repeat), then
-    timed beside the plain version and one
-    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
-    call (the library yardstick; the port never calls it), with the bound
-    from this shape's visible pairs and its true V width."""
+    """Kernel 6 at one (1, h, l, d) bf16 attention on hkv KV heads of
+    ``lk`` keys (l when None; Lq != Lk only without ``causal``, whose
+    masks assume aligned positions), V of ``dv`` columns (d when None; the
+    wrapper pads V to d on the card): held to its plain version (forward
+    at rtol 1e-2 / atol 1e-3, the backward within 2e-2 * max|plain| and
+    bit-equal on a repeat), then timed beside the plain version and one
+    ``scaled_dot_product_attention(..., is_causal=causal,
+    enable_gqa=True)`` call (the library yardstick; the port never calls
+    it), with the bound from this shape's visible pairs and its true V
+    width."""
     import torch.nn.functional as F
+    lk = l if lk is None else lk
+    check(lk == l or not causal, "a causal case needs Lq == Lk")
     rng = np.random.default_rng(SEED + 10 + d)
     g = h // hkv
-    q, k, v = attn_inputs(rng, h, l, d, g, torch.bfloat16, dev)
+    q, k, v = attn_inputs(rng, h, l, d, g, torch.bfloat16, dev, lk)
     dv = d if dv is None else dv
     v = v[..., :dv].contiguous()
-    kw = dict(causal=True, window=window, kv_groups=g)
+    kw = dict(causal=causal, window=window, kv_groups=g)
     la.reset_launches()
     got = la.local_flash_attention(q, k, v, **kw)
     want = la.local_flash_attention_plain(q, k, v, **kw)
@@ -1260,14 +1285,15 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
     check(la.local_flash_attention.launches_by_route ==
           {"tensor_core": 1, "fma": 0} and got.shape == want.shape
           and max_violation(got.float(), want.float(), 1e-2, 1e-3) <= 0.0,
-          f"attention ({h}/{hkv}, {l}, {d}, Dv {dv}) bf16: route "
+          f"attention ({h}/{hkv}, {l}, Lk {lk}, {d}, Dv {dv}) bf16: route "
           f"{la.local_flash_attention.launches_by_route}, max |err| "
           f"{err:.3e} outside rtol 1e-2 / atol 1e-3")
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
     scale = d ** -0.5
     kern = lambda: la.local_flash_attention(q, k, v, **kw)
     plain = lambda: la.local_flash_attention_plain(q, k, v, **kw)
-    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                 is_causal=causal,
                                                  enable_gqa=True)
     t = [median_ms(kern), median_ms(plain), median_ms(plain), median_ms(kern)]
     if window and window < l:
@@ -1278,31 +1304,33 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
                   for x in (k, v))
         lib = lambda: F.scaled_dot_product_attention(q4, kx, vx,
                                                      attn_mask=band)
-    vis = sum(min(i + 1, window) if window else i + 1 for i in range(l))
+    vis = (sum(min(i + 1, window) if window else i + 1 for i in range(l))
+           if causal else l * lk)
     flops = 2 * vis * h * (d + dv)          # QK^T and PV over visible pairs
-    nbytes = 2 * l * (h + hkv) * (d + dv)   # q, out and k, v in bf16
+    nbytes = 2 * (l * h + lk * hkv) * (d + dv)   # q, out and k, v in bf16
     b_ms, b_by = bound(flops, nbytes)
-    row = {"shape": [h, hkv, l, d], "dv": dv, "dtype": "bfloat16",
-           "causal": True,
+    row = {"shape": [h, hkv, l, d], "lk": lk, "dv": dv, "dtype": "bfloat16",
+           "causal": causal,
            "window": window, "kernel_route": la.route(torch.bfloat16, d),
            "max_abs_err": err, "ms": statistics.mean((t[0], t[3])),
            "plain_ms": statistics.mean((t[1], t[2])),
            "library_ms": median_ms(lib),
-           "library_mask": "band" if window and window < l else "causal",
+           "library_mask": ("band" if window and window < l
+                            else "causal" if causal else "no"),
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": nbytes}
     if dv != d:   # the work the kernel does on V padded to d columns
         row["padded_bound_ms"] = bound(4 * vis * h * d,
-                                       4 * l * (h + hkv) * d)[0]
+                                       4 * (l * h + lk * hkv) * d)[0]
     row["library_backend"], row["library_kernels"] = sdpa_backend(lib)
     if backward:
         dout = torch.from_numpy(rng.standard_normal(want.shape).astype(
             np.float32)).to(device=dev, dtype=torch.bfloat16)
         if dv == d:
-            out, lse = la._forward(q, k, v, scale, window, True, g,
+            out, lse = la._forward(q, k, v, scale, window, causal, g,
                                    with_lse=True)
             kern_b = lambda: la._backward(q, k, v, out, lse, dout, scale,
-                                          window, True, g)
+                                          window, causal, g)
         else:   # through the wrapper, which pads V and slices the output
             qk, kk, vk = (x.detach().requires_grad_() for x in (q, k, v))
             k_out = la.local_flash_attention(qk, kk, vk, **kw)
@@ -1326,7 +1354,7 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         q4g, k4g, v4g = (x.unsqueeze(0).detach().requires_grad_()
                          for x in (q, k, v))
         l_out = F.scaled_dot_product_attention(q4g, k4g, v4g,
-                                               is_causal=True,
+                                               is_causal=causal,
                                                enable_gqa=True)
         plain_b = lambda: torch.autograd.grad(p_out, (qp, kp, vp), dout,
                                               retain_graph=True)
@@ -1345,9 +1373,11 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
             "library_ms": (None if window and window < l
                            else median_ms(lib_b)),
             "bound_ms": bb_ms, "bound_by": bb_by}
-    print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}, D {d}"
+    print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}"
+          f"{f', Lk {lk}' if lk != l else ''}, D {d}"
           f"{f', Dv {dv}' if dv != d else ''}) bf16 "
-          f"causal{f' window {window}' if window else ''}: forward "
+          f"{'causal' if causal else 'non-causal'}"
+          f"{f' window {window}' if window else ''}: forward "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
           f"{row['library_ms']:.4f} ({row['library_backend']}, "
           f"{row['library_mask']} mask), bound {b_ms:.4f} ({b_by})"
@@ -2199,6 +2229,417 @@ def phase_moe_serving(rt, od, la, dev, card: str) -> dict:
               f"{run['weight_gb']:.2f} GB")
         out[arch] = run
     out["dv_check_max_abs_err_f32"] = check_attention_dv(la, dev)
+    return out
+
+
+# --- phase 14: the encoder-decoder and vision families ---------------------
+
+# as published: seamless-m4t-large-v2 (encoder layers, decoder layers,
+# d_model, heads, KV heads, head dim, d_ff, vocab) and llava-next-34b
+# (layers, d_model, heads, KV heads, head dim, d_ff, vocab, patches)
+ENCDEC_ARCH, VISION_ARCH = "seamless-m4t-large-v2", "llava-next-34b"
+ENCDEC_WIDTHS = (24, 24, 1024, 16, 16, 64, 8192, 256206)
+VISION_WIDTHS = (60, 7168, 56, 8, 128, 20480, 64000, 576)
+MM_LANES = 4             # requests in one batch, each on its own lane
+MM_NEW = 32              # greedy tokens per request
+# seamless: 1024 encoder frames and a 128-token prompt a request, max_len
+# 512; llava: 576 patches and 512 text tokens (1088 positions), max_len 2048
+ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN = 1024, 128, 512
+VISION_PROMPT, VISION_MAX_LEN = 512, 2048
+# seamless's gradient step: batch 2 of 512 tokens and 1024 frames
+ENCDEC_TRAIN = (2, 512, 1024)
+MM_PREFILL_REPEATS = 3   # prefills after the counted one: TTFT's "others"
+
+
+def mm_inputs(cfg, prompt_len: int, dev, seed: int) -> list[dict]:
+    """MM_LANES requests of ``prompt_len`` tokens from a seeded numpy
+    stream, each with its frames or patches (a normal draw at d_model),
+    one batch dict per request (batch 1)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(MM_LANES):
+        r = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, prompt_len))).to(dev)}
+        if cfg.is_encdec:
+            r["frames"] = torch.from_numpy(rng.standard_normal(
+                (1, ENCDEC_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+        if cfg.frontend == "vision":
+            r["patches"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.frontend_tokens, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        reqs.append(r)
+    return reqs
+
+
+def stack_batch(reqs: list[dict]) -> dict:
+    return {k: torch.cat([r[k] for r in reqs]) for k in reqs[0]}
+
+
+def greedy(model, params, batch, new: int, max_len: int) -> tuple:
+    """One prefill of ``batch`` and new - 1 greedy decode steps on all its
+    lanes.  Returns (tokens per lane, prefill ms, decode step ms)."""
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, batch, max_len=max_len)
+    toks = [torch.argmax(logits, dim=-1)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, toks[-1][:, None])
+        toks.append(torch.argmax(lg, dim=-1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.stack(toks, 1).tolist(), prefill_ms, step_ms
+
+
+def identical_lanes(model, params, req: dict, new: int,
+                    max_len: int) -> list[int]:
+    """One request alone, repeated onto MM_LANES identical lanes of one
+    prefill (every product at the batched run's shapes) and decoded
+    greedily: the tokens that every lane must give."""
+    same, _, _ = greedy(model, params,
+                        {k: v.repeat(MM_LANES, *[1] * (v.ndim - 1))
+                         for k, v in req.items()}, new, max_len)
+    check(all(t == same[0] for t in same),
+          f"identical lanes decoded {same}")
+    return same[0]
+
+
+def one_lane(model, params, req: dict, new: int, max_len: int) -> list[int]:
+    """One request prefilled at 1 lane, its cache (``enc_out`` too)
+    repeated onto MM_LANES lanes by ``lanes`` and decoded greedily
+    (``offline_greedy``, which passes the frames or patches on)."""
+    tokens = req["tokens"]
+    return offline_greedy(
+        model, params, tokens[0].tolist(), new, MM_LANES, tokens.device,
+        max_len, extra={k: v for k, v in req.items() if k != "tokens"})
+
+
+def encdec_one_lane_f32(dev, cfg, master, reqs: list[dict],
+                        max_len: int) -> dict:
+    """seamless's requests at float32 activations (its float32 masters as
+    they are): each prefilled at 1 lane and repeated onto MM_LANES lanes
+    by ``lanes`` must decode the tokens of the request on MM_LANES
+    identical lanes of one prefill.  At bf16 activations a 1-row and a
+    4-row prefill round differently and greedy decoding may part; at
+    float32 the same comparison holds token for token."""
+    import dataclasses
+    from repro_torch.models import LM, compute_params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = compute_params(cfg32, master)
+    model = CheckedLM(LM(cfg32), dev)
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):
+        same = identical_lanes(model, params, req, MM_NEW, max_len)
+        alone = one_lane(model, params, req, MM_NEW, max_len)
+        check(alone == same, f"{cfg.name} request {i} at float32: prefilled "
+              f"at 1 lane and repeated onto {MM_LANES} {alone} != on "
+              f"{MM_LANES} identical lanes {same}")
+    check(bool(model.finite), f"{cfg.name}: non-finite float32 logits")
+    wall_s = time.perf_counter() - t0
+    print(f"  {cfg.name} at float32 activations: each request prefilled at "
+          f"1 lane and repeated onto {MM_LANES} (enc_out too) decodes the "
+          f"tokens of the request on {MM_LANES} identical lanes "
+          f"({len(reqs)} requests, {wall_s:.2f} s)")
+    return {"requests": len(reqs), "new_tokens": MM_NEW, "wall_s": wall_s}
+
+
+def mm_decode_bytes(cfg, params, cache) -> float:
+    """Bytes a decode step must read at least: every decoder weight but
+    the embedding table (only the new tokens' rows), the KV caches (the
+    plain decode attention reads all of their slots), and per
+    cross-attention layer the encoder memory once, its K and V written
+    once and read once by the kernel."""
+    from repro_torch.models.params import leaves
+    weights = sum(t.numel() * t.element_size() for path, t in leaves(params)
+                  if path[0] not in ("embed", "encoder", "frontend"))
+    kv = sum(t.numel() * t.element_size() for path, t in leaves(
+        {k: v for k, v in cache.items() if k in ("prefix", "stack", "tail")})
+             if path[-1] in ("k", "v"))
+    cross = 0
+    if "enc_out" in cache:
+        e = cache["enc_out"]
+        kv_bytes = 2 * e.shape[0] * e.shape[1] * cfg.n_kv_heads \
+            * cfg.head_dim_ * e.element_size()
+        cross = cfg.n_layers * (e.numel() * e.element_size() + 2 * kv_bytes)
+    return float(weights + kv + cross)
+
+
+def serve_multimodal(la, dev, cfg, prompt_len: int, max_len: int,
+                     card: str) -> tuple[dict, dict, object]:
+    """``cfg`` at random weights from SEED answering MM_LANES requests in
+    one batch (``prompt_len`` tokens each, with frames or patches), MM_NEW
+    greedy tokens each, through ``LM.prefill`` / ``LM.decode_step`` with
+    every logit checked for finiteness; kernel 6's counts set to 0 just
+    before and read just after, in total, per route and per shape.  Then
+    every request's tokens against the same request alone on identical
+    lanes (``identical_lanes``) and prefilled at 1 lane (``one_lane``; for
+    seamless at float32, ``encdec_one_lane_f32``), and MM_PREFILL_REPEATS
+    more prefills for TTFT.  Returns (the run's numbers, the float32
+    params, the model)."""
+    from repro_torch.models import LM, compute_params, init_params
+    from repro_torch.models import param_counts
+    from repro_torch.models.params import leaves
+
+    arch = cfg.name
+    gc.collect()             # an earlier phase's models, cycles included
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    master = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    params = compute_params(cfg, master)
+    if cfg.param_dtype == "bfloat16":
+        master = None        # the compute tree is the same tensors
+    model = CheckedLM(LM(cfg), dev)
+    torch.cuda.synchronize()
+    weight_gb = sum(t.numel() * t.element_size()
+                    for _, t in leaves(params if master is None
+                                       else master)) / 1e9
+    compute_gb = sum(t.numel() * t.element_size()
+                     for _, t in leaves(params)) / 1e9
+    init_s = time.perf_counter() - t0
+    print(f"  {arch}: {param_counts(cfg)[0]:,} parameters ({weight_gb:.2f} "
+          f"GB of {cfg.param_dtype} weights, {compute_gb:.2f} GB as the "
+          f"forward reads them), init {init_s:.2f} s, {held_gb:.2f} GB held "
+          "before it")
+
+    reqs = mm_inputs(cfg, prompt_len, dev, SEED + 14)
+    batch = stack_batch(reqs)
+    la.reset_launches()
+    tokens, prefill_ms, step_ms = greedy(model, params, batch, MM_NEW,
+                                         max_len)
+    launches = {"local_flash_attention": la.local_flash_attention.launches,
+                "local_flash_attention_by_route":
+                    dict(la.local_flash_attention.launches_by_route),
+                "local_flash_attention_by_shape":
+                    dict(la.local_flash_attention.launches_by_shape)}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(bool(model.finite), f"{arch}: non-finite logits")
+    check(all(len(t) == MM_NEW for t in tokens),
+          f"{arch}: a request did not get {MM_NEW} tokens")
+
+    # the count at each shape is held by ``held_at_path``
+    check(launches["local_flash_attention_by_route"] ==
+          {"tensor_core": launches["local_flash_attention"], "fma": 0},
+          f"{arch}: kernel 6 launched {launches}, not all on the "
+          "tensor-core route")
+    print(f"  {arch}: {MM_LANES} requests in one batch, {MM_NEW} tokens "
+          f"each; kernel 6 launches {launches}; peak memory {peak_gb:.2f} GB")
+
+    # seamless's 1-lane comparison runs at float32 (encdec_one_lane_f32)
+    for i, req in enumerate(reqs):
+        same = identical_lanes(model, params, req, MM_NEW, max_len)
+        check(tokens[i] == same, f"{arch} request {i}: batched tokens "
+              f"{tokens[i]} != the request alone on {MM_LANES} lanes {same}")
+        if not cfg.is_encdec:
+            alone = one_lane(model, params, req, MM_NEW, max_len)
+            check(tokens[i] == alone, f"{arch} request {i}: batched tokens "
+                  f"{tokens[i]} != the request prefilled at 1 lane and "
+                  f"repeated onto {MM_LANES} {alone}")
+    check(bool(model.finite), f"{arch}: non-finite logits offline")
+    print(f"  {arch}: every request's tokens == the request prefilled alone "
+          f"on {MM_LANES} identical lanes + greedy decode"
+          + ("" if cfg.is_encdec else f", and == the request prefilled at 1 "
+             f"lane and repeated onto {MM_LANES}"))
+    one_lane_f32 = (encdec_one_lane_f32(dev, cfg, master, reqs, max_len)
+                    if cfg.is_encdec else None)
+
+    others = []
+    for _ in range(MM_PREFILL_REPEATS):
+        t0 = time.perf_counter()
+        cache, _ = model.prefill(params, batch, max_len=max_len)
+        torch.cuda.synchronize()
+        others.append((time.perf_counter() - t0) * 1e3)
+    step = statistics.median(step_ms)
+    nbytes = mm_decode_bytes(cfg, params, cache)
+    del cache
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "lanes": MM_LANES,
+           "prompt_len": prompt_len, "positions": batch["tokens"].shape[1]
+           + cfg.frontend_tokens, "max_len": max_len, "new_tokens": MM_NEW,
+           "launches": launches,
+           "ttft_ms_first": prefill_ms, "ttft_ms_others": others,
+           "ttft_ms_median_others": statistics.median(others),
+           "decode_step_ms": step_ms, "decode_step_ms_median": step,
+           "decode_tokens_per_s": MM_LANES * 1e3 / step,
+           "decode_bytes": nbytes,
+           "decode_bytes_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+           "weight_gb": weight_gb, "compute_weight_gb": compute_gb,
+           "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+           "init_s": init_s, "one_lane_f32": one_lane_f32, "card": card}
+    print(f"  [{card}] {arch}: TTFT (prefill wall of {MM_LANES} requests) "
+          f"first {prefill_ms:.1f} ms, median of {MM_PREFILL_REPEATS} more "
+          f"{out['ttft_ms_median_others']:.1f} ms; decode "
+          f"{out['decode_tokens_per_s']:.1f} tok/s (median step "
+          f"{step:.3f} ms over {len(step_ms)} steps, bytes bound "
+          f"{out['decode_bytes_bound_ms']:.3f} ms for {nbytes / 1e9:.3f} "
+          f"GB); weights {weight_gb:.2f} GB, peak {peak_gb:.2f} GB")
+    return out, master, model.model
+
+
+def encdec_grad_step(la, dev, model, master) -> dict:
+    """seamless's ``LM.loss`` + ``.backward()`` at ENCDEC_TRAIN (float32
+    masters, every encoder and decoder block rematerialized): the loss and
+    every gradient finite, kernel 6's backward launched once per encoder
+    layer, decoder self-attention and cross-attention, all on the
+    tensor-core route."""
+    from repro_torch.models.params import leaves, map_tree
+    b, s, f = ENCDEC_TRAIN
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1))).to(
+        dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (b, f, cfg.d_model)).astype(np.float32)).to(dev)}
+    params = map_tree(lambda t: t.requires_grad_(True), master)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wall_ms = []
+    for _ in range(2):       # the first step's wall, then a second one
+        for _, p in leaves(params):
+            p.grad = None
+        la.reset_launches()
+        t0 = time.perf_counter()
+        loss, metrics = model.loss(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd = dict(la.local_flash_attention.launches_by_route)
+    bwd = dict(la.local_flash_attention.backward_launches_by_route)
+    fwd_by_shape = dict(la.local_flash_attention.launches_by_shape)
+    bwd_by_shape = dict(la.local_flash_attention.backward_launches_by_shape)
+    n = cfg.encoder_layers + 2 * cfg.n_layers
+    finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                 for _, p in leaves(params))
+    check(bool(torch.isfinite(loss)) and finite,
+          f"{cfg.name}: non-finite loss {float(loss.detach())} or gradient")
+    # every block is rematerialized: its forward runs twice
+    check(bwd == {"tensor_core": n, "fma": 0}
+          and fwd == {"tensor_core": 2 * n, "fma": 0},
+          f"{cfg.name} gradient step: kernel 6 forward {fwd}, backward "
+          f"{bwd}, want {2 * n} and {n} on the tensor-core route")
+    check(fwd_by_shape == {k: 2 * c for k, c in bwd_by_shape.items()},
+          f"{cfg.name} gradient step: kernel 6 forward at {fwd_by_shape}, "
+          f"backward at {bwd_by_shape}: each shape's forward not twice its "
+          "backward")
+    out = {"batch": b, "tokens": s, "frames": f,
+           "loss": float(loss.detach()),
+           "n_tokens": float(metrics["n_tokens"]), "wall_ms": wall_ms,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "forward_by_shape": fwd_by_shape,
+           "backward_by_shape": bwd_by_shape,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    for _, p in leaves(params):
+        p.grad = None
+        p.requires_grad_(False)
+    print(f"  {cfg.name} loss + backward at batch {b} x {s} tokens, {f} "
+          f"frames: loss {out['loss']:.4f}, every gradient finite, "
+          f"{wall_ms[0]:.1f} ms (first step), {wall_ms[1]:.1f} ms (second), "
+          f"peak {out['peak_memory_gb']:.2f} GB; kernel 6 forward {fwd}, "
+          f"backward {bwd} (each step)")
+    return out
+
+
+def held_at_path(la, by_shape: dict, cases: dict, what: str) -> dict:
+    """``cases`` maps a row name to (kernel 6 held to its plain version at
+    one shape, ``attention_case``'s row; the launches the path should make
+    there).  Each row gets ``launches``, its shape's count in ``by_shape``,
+    which the path's run filled; the run must have launched kernel 6 at
+    these shapes and no other, each as many times as ``cases`` says."""
+    rows = {}
+    for name, (row, want) in cases.items():
+        h, hkv, l, d = row["shape"]
+        key = la.shape_key(h, hkv, l, row["lk"], d, row["causal"],
+                           row["window"])
+        rows[name] = {**row, "shape_key": key,
+                      "launches": by_shape.get(key, 0),
+                      "launches_want": want}
+    want = {r["shape_key"]: r["launches_want"] for r in rows.values()}
+    check(by_shape == want, f"{what}: kernel 6 launched at {by_shape}, "
+          f"want {want}")
+    return rows
+
+
+def phase_multimodal(la, dev, card: str) -> dict:
+    """seamless-m4t-large-v2 and llava-next-34b at full width and depth,
+    one after the other, each answering MM_LANES requests in one batch;
+    seamless's gradient step; kernel 6 at every shape each run launched
+    it, beside its plain version, SDPA and its bound (``attention_case``),
+    with the run's launches there."""
+    from repro_torch import configs
+
+    out = {}
+    cfg = configs.get_config(ENCDEC_ARCH)
+    check((cfg.encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim_, cfg.d_ff, cfg.vocab_size)
+          == ENCDEC_WIDTHS, f"{ENCDEC_ARCH} is not at its published width "
+          "and depth")
+    check(la.route(cfg.activation_dtype, cfg.head_dim_) == "tensor_core",
+          f"{ENCDEC_ARCH}'s attention is not on kernel 6's tensor cores")
+    run, master, model = serve_multimodal(la, dev, cfg, ENCDEC_PROMPT,
+                                          ENCDEC_MAX_LEN, card)
+    run["grad_step"] = encdec_grad_step(la, dev, model, master)
+    del master, model
+    # kernel 6 at the batch's (lanes x heads) rows, as ``attention_case``'s
+    # one sequence of that many heads: a prefill's encoder, decoder
+    # self-attention and cross-attention, every decode step's
+    # cross-attention at Lq 1; the gradient step's three backwards
+    h, d, n = cfg.n_heads, cfg.head_dim_, cfg.n_layers
+    bh = MM_LANES * h
+    b, s, f = ENCDEC_TRAIN
+    run["kernel6"] = held_at_path(
+        la, run["launches"]["local_flash_attention_by_shape"], {
+            "local_flash_attention_encoder_d64": (attention_case(
+                la, dev, bh, bh, ENCDEC_FRAMES, d, causal=False),
+                cfg.encoder_layers),
+            "local_flash_attention_decoder_self_d64": (attention_case(
+                la, dev, bh, bh, ENCDEC_PROMPT, d), n),
+            "local_flash_attention_cross_prefill_d64": (attention_case(
+                la, dev, bh, bh, ENCDEC_PROMPT, d, lk=ENCDEC_FRAMES,
+                causal=False), n),
+            "local_flash_attention_cross_decode_lq1_d64": (attention_case(
+                la, dev, bh, bh, 1, d, lk=ENCDEC_FRAMES, causal=False),
+                n * (MM_NEW - 1))},
+        f"{ENCDEC_ARCH} serving")
+    run["kernel6_backward"] = held_at_path(
+        la, run["grad_step"]["backward_by_shape"], {
+            "local_flash_attention_encoder_d64_backward": (attention_case(
+                la, dev, b * h, b * h, f, d, causal=False, backward=True),
+                cfg.encoder_layers),
+            "local_flash_attention_decoder_self_d64_backward": (
+                attention_case(la, dev, b * h, b * h, s, d, backward=True),
+                n),
+            "local_flash_attention_cross_d64_backward": (attention_case(
+                la, dev, b * h, b * h, s, d, lk=f, causal=False,
+                backward=True), n)},
+        f"{ENCDEC_ARCH} gradient step")
+    out[ENCDEC_ARCH] = run
+
+    cfg = configs.get_config(VISION_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.frontend_tokens)
+          == VISION_WIDTHS, f"{VISION_ARCH} is not at its published width "
+          "and depth")
+    check(la.route(cfg.activation_dtype, cfg.head_dim_) == "tensor_core",
+          f"{VISION_ARCH}'s attention is not on kernel 6's tensor cores")
+    # 68.9 GB of weights, a 2.0 GB cache and the prefill's activations on
+    # a 79.2 GiB card, all 60 layers: an out-of-memory error fails the phase
+    run, _, model = serve_multimodal(la, dev, cfg, VISION_PROMPT,
+                                     VISION_MAX_LEN, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run["kernel6"] = held_at_path(
+        la, run["launches"]["local_flash_attention_by_shape"], {
+            "local_flash_attention_d128_gqa7": (attention_case(
+                la, dev, MM_LANES * cfg.n_heads, MM_LANES * cfg.n_kv_heads,
+                VISION_PROMPT + cfg.frontend_tokens, cfg.head_dim_),
+                cfg.n_layers)},
+        f"{VISION_ARCH} serving")
+    out[VISION_ARCH] = run
     return out
 
 
@@ -3301,6 +3742,34 @@ def main() -> int:
                          "shape", "dv", "dtype", "kernel_route",
                          "backward")},
                      "path": f"phase 13 serving {arch}"})
+    print("phase 14: the encoder-decoder and vision families")
+    mm = phase_multimodal(la, dev, card)
+    for arch, section in ((ENCDEC_ARCH, "kernel6"),
+                          (ENCDEC_ARCH, "kernel6_backward"),
+                          (VISION_ARCH, "kernel6")):
+        backward = section == "kernel6_backward"
+        for name, k6 in mm[arch][section].items():
+            nums = k6["backward"] if backward else k6
+            row = {"name": name, "route": "cuda", "source": ATTN_SOURCE,
+                   "replaces": REPLACES["local_flash_attention_backward"
+                                        if backward
+                                        else "local_flash_attention"],
+                   "launches": k6["launches"],
+                   **{k: nums[k] for k in (
+                       "max_abs_err", "ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")},
+                   **{k: k6[k] for k in (
+                       "shape", "lk", "dtype", "causal", "kernel_route",
+                       "shape_key")},
+                   "path": f"phase 14 {arch} "
+                           f"{'gradient step' if backward else 'serving'}"}
+            if backward:
+                row["forward"] = {k: k6[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_backend")}
+            else:
+                row["library_backend"] = k6["library_backend"]
+            rows.append(row)
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
@@ -3311,6 +3780,7 @@ def main() -> int:
     print(json.dumps({"recurrent": {"serving": rg, "training": xl,
                                     "optimizers": optim}}))
     print(json.dumps({"moe_serving": moe_runs}))
+    print(json.dumps({"multimodal": mm}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """The paper's decision rule applied to the LM architectures the port runs.
 
 The twin of the reference's ``benchmarks/planner_table.py``.  For each
-architecture of ``configs.PORTED`` (the four dense ones, the two
-recurrent ones and the two MoE ones; the other two come with the enc-dec
-and vision slices, ROADMAP.md queue 1 item h):
+of the ten architectures (``configs.ARCHS``: dense, recurrent, MoE,
+encoder-decoder and vision):
 
-  1. count the FLOPs of one smoke-config ``LM.loss`` at 2 x 32 tokens,
-     by category {matmul, conv, fft, other}, with
+  1. count the FLOPs of one smoke-config ``LM.loss`` at 2 x 32 tokens
+     (plus 16 encoder frames for the encoder-decoder, and the frontend's
+     patches before the tokens for the vision model, as the reference
+     builds its batch), by category {matmul, conv, fft, other}, with
      ``core.profiler.flops_by_category`` on the ``meta`` device (shapes
      only: nothing is computed, and the counts are those of any device);
   2. turn each category's FLOPs into host seconds at ``HOST_PEAK``, the
@@ -52,8 +53,17 @@ def _arch_profile(arch: str) -> tuple[dict, int]:
         s.shape, dtype=torch_dtype(s.dtype or cfg.param_dtype),
         device="meta"), model_templates(cfg))
     tokens = torch.zeros((_BATCH, _SEQ), dtype=torch.long, device="meta")
+    batch = {"tokens": tokens, "labels": tokens}
+    if cfg.is_encdec:
+        batch["frames"] = torch.empty((_BATCH, _SEQ // 2, cfg.d_model),
+                                      dtype=cfg.activation_dtype,
+                                      device="meta")
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.empty(
+            (_BATCH, cfg.frontend_tokens, cfg.d_model),
+            dtype=cfg.activation_dtype, device="meta")
     cats = flops_by_category(lambda p, b: model.loss(p, b)[0], params,
-                             {"tokens": tokens, "labels": tokens})
+                             batch)
     return cats, _BATCH * _SEQ
 
 
@@ -85,5 +95,5 @@ def arch_row(arch: str, flops: dict, tokens: int) -> dict:
 
 
 def run() -> list[dict]:
-    """One row per ported architecture, in ``configs.PORTED``'s order."""
-    return [arch_row(arch, *_arch_profile(arch)) for arch in cfgs.PORTED]
+    """One row per architecture, in ``configs.ARCHS``' order."""
+    return [arch_row(arch, *_arch_profile(arch)) for arch in cfgs.ARCHS]

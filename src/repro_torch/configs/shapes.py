@@ -8,9 +8,9 @@ compresses the cache but attention is still O(L^2)); it runs for the
 hybrid (RG-LRU + local attention) and xLSTM families.  No assigned arch is
 encoder-only, so decode shapes run everywhere.
 
-A copy of the reference's ``configs/shapes.py`` (pure Python).  Its
-``input_specs``, which turns a (config, shape) cell into the step's input
-stand-ins, waits for the port's dry run (``ROADMAP.md``, queue 1 item h).
+A copy of the reference's ``configs/shapes.py`` (pure Python).
+``configs.input_specs`` turns a (config, shape) cell into the step's
+input stand-ins.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Used by every full-sequence attention of the LM stack
 (``models.attention.gqa_full``: each prefill, and each training step,
-forward and backward) and, in the reference, by the RecurrentGemma hybrid
-blocks' local attention.
+forward and backward; an encoder-decoder's encoder and cross-attention
+too, the latter also at one query in every decode step) and, in the
+reference, by the RecurrentGemma hybrid blocks' local attention.
 The kernel is hand-written CUDA for ``sm_90a``
 (``repro_torch/csrc/local_attention.cu``, built by
 :mod:`repro_torch.kernels.build` and called through ``ctypes``).  It
@@ -54,8 +55,10 @@ backward's plain version.  The wrapper takes it only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  It counts its
 forward launches in ``local_flash_attention.launches`` and its backward
 calls in ``local_flash_attention.backward_launches``, and both again per
-route in ``launches_by_route`` and ``backward_launches_by_route``; the
-operands it copied to align them in ``realigned``.
+route in ``launches_by_route`` and ``backward_launches_by_route`` and
+per shape in ``launches_by_shape`` and ``backward_launches_by_shape``
+(keyed by ``shape_key``); the operands it copied to align them in
+``realigned``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ import torch
 from repro_torch.kernels.common import charged
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
-           "reset_launches", "route", "ROUTES"]
+           "reset_launches", "route", "shape_key", "ROUTES"]
 
 _NEG = -1.0e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -190,6 +193,21 @@ def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
                            f"{code}: {msg}")
 
 
+def shape_key(bh: int, bh_kv: int, lq: int, lk: int, d: int, causal: bool,
+              window: int) -> str:
+    """The key of one launch shape in ``launches_by_shape``: q's and k's
+    leading (batch x heads) rows, query and key lengths, head dim, mask."""
+    return (f"{bh}/{bh_kv} Lq {lq} Lk {lk} D {d} "
+            f"{'causal' if causal else 'full'} window {window}")
+
+
+def _count(by_shape: dict, q: torch.Tensor, k: torch.Tensor, causal: bool,
+           window: int) -> None:
+    key = shape_key(q.shape[0], k.shape[0], q.shape[1], k.shape[1],
+                    q.shape[2], bool(causal), window)
+    by_shape[key] = by_shape.get(key, 0) + 1
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              scale: float, window: int, causal: bool, kv_groups: int,
              with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -212,6 +230,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(lib, code, "")
     local_flash_attention.launches += 1
     local_flash_attention.launches_by_route[path] += 1
+    _count(local_flash_attention.launches_by_shape, q, k, causal, window)
     return out, lse
 
 
@@ -243,6 +262,8 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(lib, code, " backward")
     local_flash_attention.backward_launches += 1
     local_flash_attention.backward_launches_by_route[path] += 1
+    _count(local_flash_attention.backward_launches_by_shape, q, k, causal,
+           window)
     return dq, dk, dv
 
 
@@ -357,13 +378,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 def reset_launches() -> None:
     """Set the kernel's forward and backward launch counters, the totals
-    and those per route, and the count of realigned operands to 0."""
+    and those per route and per shape, and the count of realigned operands
+    to 0."""
     local_flash_attention.launches = 0
     local_flash_attention.realigned = 0
     local_flash_attention.backward_launches = 0
     local_flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     local_flash_attention.backward_launches_by_route = dict.fromkeys(ROUTES,
                                                                      0)
+    local_flash_attention.launches_by_shape = {}
+    local_flash_attention.backward_launches_by_shape = {}
 
 
 reset_launches()

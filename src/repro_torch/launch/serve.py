@@ -28,7 +28,8 @@ __all__ = ["main"]
 
 def main(argv: list[str] | None = None) -> list[Request]:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b", choices=cfgs.PORTED)
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=cfgs.TOKEN_ARCHS)
     ap.add_argument("--full", action="store_true",
                     help="the full config, not the smoke config")
     ap.add_argument("--device", default="cuda")

@@ -98,7 +98,8 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 100,
 
 def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-1.6b", choices=cfgs.PORTED)
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=cfgs.TOKEN_ARCHS)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda")

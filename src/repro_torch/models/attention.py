@@ -10,8 +10,14 @@ q/k head dim of ``qk_head_dim`` (192 at full size) and a v head dim of
 ``v_head_dim`` (128): the kernel's wrapper takes Dv < D (on the card it
 pads V with zero columns and drops them from the output).
 ``_sdpa_chunked`` stays here as the plain version, in the reference's
-(B, S, H, hd) layout.  Decode (one query against the cache) has no kernel
-in the reference either and stays plain tensor code.
+(B, S, H, hd) layout.  An encoder-decoder's cross-attention
+(``gqa_full`` with ``cross_kv``: no RoPE, no mask, Lq != Lk) goes through
+the same kernel, non-causal, so its masks' assumption of aligned
+positions never applies.  Decode's self-attention (one query against the
+cache) has no kernel in the reference either and stays plain tensor
+code; decode's cross-attention (``gqa_decode_cross``) is ``gqa_full``, as
+in the reference, so it launches the kernel at Lq = 1 against the whole
+encoder memory and re-projects that memory's keys and values every step.
 
 Decode caches:
   GQA:  k/v (B, Hkv, S_max, hd), written at ``pos`` per step.  Windowed
@@ -35,8 +41,8 @@ from repro_torch.kernels.local_attention import local_flash_attention_plain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, rope
 
-__all__ = ["gqa_full", "gqa_decode", "init_gqa_cache", "mla_full",
-           "mla_decode", "init_mla_cache"]
+__all__ = ["gqa_full", "gqa_decode", "gqa_decode_cross", "init_gqa_cache",
+           "mla_full", "mla_decode", "init_mla_cache"]
 
 _NEG = -1.0e30
 
@@ -56,34 +62,43 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, s, -1).transpose(1, 2)
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+         kv_x: torch.Tensor | None = None):
+    """q from ``x``; k and v from ``kv_x`` (cross-attention's encoder
+    memory), or from ``x`` when None."""
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    kv_in = x if kv_x is None else kv_x
     q = x @ p["w_q"].to(x.dtype)
-    k = x @ p["w_k"].to(x.dtype)
-    v = x @ p["w_v"].to(x.dtype)
+    k = kv_in @ p["w_k"].to(x.dtype)
+    v = kv_in @ p["w_v"].to(x.dtype)
     if "b_q" in p:
         q = q + p["b_q"].to(x.dtype)
         k = k + p["b_k"].to(x.dtype)
         v = v + p["b_v"].to(x.dtype)
     q = q.reshape(*x.shape[:-1], h, hd)
-    k = k.reshape(*x.shape[:-1], hk, hd)
-    v = v.reshape(*x.shape[:-1], hk, hd)
+    k = k.reshape(*kv_in.shape[:-1], hk, hd)
+    v = v.reshape(*kv_in.shape[:-1], hk, hd)
     return q, k, v
 
 
 def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
              window: int = 0, causal: bool = True,
+             cross_kv: torch.Tensor | None = None, use_rope: bool = True,
              return_cache: bool = False):
-    """Full-sequence self-attention through the flash-attention kernel.
-    x: (B, S, D).  With ``return_cache`` also returns (k, v), each
-    (B, Hkv, S, hd), for the decode cache."""
-    q, k, v = _qkv(cfg, p, x)
-    qpos = pos0 + torch.arange(x.shape[1], device=x.device)
-    q = rope(q, qpos, theta=cfg.rope_theta, pct=cfg.rope_pct)
-    k = rope(k, qpos, theta=cfg.rope_theta, pct=cfg.rope_pct)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)        # (B,Hkv,S,hd)
-    out = ops.gqa_flash_attention(q.transpose(1, 2), kt, vt, window=window,
-                                  causal=causal)          # (B,H,S,hd)
+    """Full-sequence attention through the flash-attention kernel.
+    x: (B, S, D).  ``cross_kv`` (B, Sk, D), the encoder memory, makes it
+    cross-attention: keys and values from it, no RoPE, no causal mask and
+    no window.  With ``return_cache`` also returns (k, v), each
+    (B, Hkv, Sk, hd), for the decode cache."""
+    q, k, v = _qkv(cfg, p, x, cross_kv)
+    if use_rope and cross_kv is None:
+        qpos = pos0 + torch.arange(x.shape[1], device=x.device)
+        q = rope(q, qpos, theta=cfg.rope_theta, pct=cfg.rope_pct)
+        k = rope(k, qpos, theta=cfg.rope_theta, pct=cfg.rope_pct)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)        # (B,Hkv,Sk,hd)
+    out = ops.gqa_flash_attention(
+        q.transpose(1, 2), kt, vt, window=window if cross_kv is None else 0,
+        causal=causal and cross_kv is None)               # (B,H,S,hd)
     y = out.transpose(1, 2).reshape(*x.shape[:-1], -1) @ p["w_o"].to(x.dtype)
     if return_cache:
         return y, (kt, vt)
@@ -135,6 +150,16 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     out = torch.einsum("bkgqs,bksd->bkgqd", pw, cv.to(torch.float32))
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd).to(x.dtype)
     return out @ p["w_o"].to(x.dtype), cache
+
+
+def gqa_decode_cross(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    """Cross-attention during decode: x (B, 1, D) against the static
+    encoder memory ``enc_out`` (B, Sk, D), no cache update.  As in the
+    reference it is ``gqa_full``: the kernel at Lq = 1, with K and V
+    projected from ``enc_out`` again at every step."""
+    return gqa_full(cfg, p, x, cross_kv=enc_out, causal=False,
+                    use_rope=False)
 
 
 # --- MLA (DeepSeek-V3) ---------------------------------------------------

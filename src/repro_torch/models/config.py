@@ -136,6 +136,12 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def tokens_only(self) -> bool:
+        """The model takes token prompts alone: no encoder frames, no
+        vision patches."""
+        return not self.is_encdec and self.frontend is None
+
     def layer_kinds(self) -> tuple[str, ...]:
         kinds = ["attn"] * self.dense_prefix
         i = 0

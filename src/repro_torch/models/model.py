@@ -6,12 +6,20 @@ over the layer axis (one ``unbind`` of each stacked leaf per traversal,
 so that backward stacks the layers' gradients once).  Its sharding
 constraints are identity off a mesh and are left out.  The port runs the
 ``attn`` block kind (GQA or MLA attention, a dense MLP or a mixture of
-experts) and the recurrent kinds ``rglru``, ``mlstm`` and ``slstm``:
-``LM`` refuses encoder-decoder and frontend configs
-(``params.check_ported``).  A MoE config's attention blocks take the
-experts except in the ``prefix`` section (DeepSeek-V3's ``dense_prefix``
-layers), as in the reference, and their load-balance losses add up to
-the loss's ``aux``.
+experts) and the recurrent kinds ``rglru``, ``mlstm`` and ``slstm``.  A
+MoE config's attention blocks take the experts except in the ``prefix``
+section (DeepSeek-V3's ``dense_prefix`` layers), as in the reference,
+and their load-balance losses add up to the loss's ``aux``.
+
+Inputs, as the reference takes them: ``tokens`` always; an
+encoder-decoder config (seamless-m4t-large-v2) also ``frames`` (B, F, D),
+projected by ``frontend.adapter`` and encoded by ``encoder`` (dense
+attention blocks, non-causal, RoPE from position 0) into the memory every
+decoder block cross-attends to (``ln_x`` -> ``xattn`` after its
+self-attention); a vision config (llava-next-34b) ``patches`` (B, P, D),
+projected by the adapter and put before the token embeddings, with the
+labels padded by -1 over them.  ``prefill`` keeps the encoder memory in
+the cache (``enc_out``) and ``decode_step`` carries it.
 
 Entry points:
   ``loss``         — training forward: every stacked block under
@@ -22,10 +30,12 @@ Entry points:
                      kernel and its CUDA backward
   ``prefill``      — full-sequence forward that also builds the decode
                      cache (k/v for GQA, the latent for MLA, the
-                     recurrent states);
+                     recurrent states, the encoder memory);
                      every layer's attention goes through the
                      flash-attention kernel
-  ``decode_step``  — one new token against the cache (updated in place)
+  ``decode_step``  — one new token against the cache (updated in place);
+                     an encoder-decoder's cross-attention goes through
+                     the flash-attention kernel at one query
 
 Rematerialization, read from the environment on each forward, as the
 reference reads it when it traces:
@@ -40,7 +50,9 @@ reference reads it when it traces:
   recomputes one group at a time.
 The port checkpoints each block of a super-block on its own where the
 reference checkpoints the super-block whole: the same numbers, with one
-block's activations live in a recompute, not a super-block's.
+block's activations live in a recompute, not a super-block's.  Under
+``remat`` each encoder layer is checkpointed too (the reference
+checkpoints its encoder scan's body).
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
                                        mlp_apply, rms_norm)
 from repro_torch.models.moe import moe_apply
-from repro_torch.models.params import check_ported, map_tree
+from repro_torch.models.params import map_tree
 
 __all__ = ["LM"]
 
@@ -98,9 +110,11 @@ def _block_rest(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
 
 
 def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
-                pos0: int, dense: bool, build_cache: bool):
-    """One block of ``kind`` over the whole sequence.  Returns
-    (x, aux_loss or None, cache_or_None)."""
+                pos0: int, dense: bool, build_cache: bool,
+                enc_out: torch.Tensor | None = None, causal: bool = True):
+    """One block of ``kind`` over the whole sequence (an attention block
+    cross-attends to ``enc_out`` when it has ``xattn``; ``causal`` False
+    for the encoder's).  Returns (x, aux_loss or None, cache_or_None)."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if kind == "attn" and cfg.mla is not None:
@@ -111,7 +125,8 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
             cache = {"latent": latent}
     elif kind == "attn":
         y = attn.gqa_full(cfg, p["attn"], h_in, pos0=pos0,
-                          window=cfg.local_window, return_cache=build_cache)
+                          window=cfg.local_window, causal=causal,
+                          return_cache=build_cache)
         if build_cache:
             y, (k, v) = y
             cache = {"k": k, "v": v}
@@ -122,15 +137,22 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
             y, cache = y
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    x, aux = _block_rest(cfg, kind, p, x + y, dense=dense)
+    x = x + y
+    if enc_out is not None and "xattn" in p:
+        xh = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.gqa_full(cfg, p["xattn"], xh, cross_kv=enc_out,
+                              causal=False, use_rope=False)
+    x, aux = _block_rest(cfg, kind, p, x, dense=dense)
     return x, aux, cache
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                  cache: dict, pos: torch.Tensor, *, dense: bool):
-    """One block, one token.  Returns (x, cache): an attention block's
-    cache updated in place, a recurrent block's new state (the caller
-    writes it back)."""
+                  cache: dict, pos: torch.Tensor, *, dense: bool,
+                  enc_out: torch.Tensor | None = None):
+    """One block, one token (cross-attending to ``enc_out`` where the
+    block has ``xattn``).  Returns (x, cache): an attention block's cache
+    updated in place, a recurrent block's new state (the caller writes it
+    back)."""
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn" and cfg.mla is not None:
         y, cache = attn.mla_decode(cfg, p["attn"], h_in, cache, pos)
@@ -141,7 +163,11 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         y, cache = getattr(rec, f"{kind}_decode")(cfg, p[kind], h_in, cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return _block_rest(cfg, kind, p, x + y, dense=dense)[0], cache
+    x = x + y
+    if enc_out is not None and "xattn" in p:
+        xh = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + attn.gqa_decode_cross(cfg, p["xattn"], xh, enc_out)
+    return _block_rest(cfg, kind, p, x, dense=dense)[0], cache
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -214,12 +240,47 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 class LM:
     cfg: ModelConfig
 
-    def __post_init__(self) -> None:
-        check_ported(self.cfg)
+    # ----- input embedding / frontends ---------------------------------------
+    def _inputs(self, params: dict, batch: dict, *, remat: bool = False):
+        """Returns (x, labels or None, enc_out or None): the token
+        embeddings (after the projected patches of a vision config, whose
+        labels are padded with -1 over them) and an encoder-decoder
+        config's encoded frames."""
+        cfg = self.cfg
+        labels = batch.get("labels")
+        enc_out = None
+        if cfg.is_encdec:
+            frames = batch["frames"].to(cfg.activation_dtype)
+            frames = frames @ params["frontend"]["adapter"].to(frames.dtype)
+            enc_out = self._encode(params, frames, remat=remat)
+        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        if cfg.frontend == "vision":
+            patches = batch["patches"].to(cfg.activation_dtype)
+            patches = patches @ params["frontend"]["adapter"].to(
+                patches.dtype)
+            x = torch.cat([patches, x], dim=1)
+            if labels is not None:
+                pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
+                                 device=labels.device)
+                labels = torch.cat([pad, labels], dim=1)
+        return x, labels, enc_out
 
-    # ----- input embedding ---------------------------------------------------
-    def _inputs(self, params: dict, batch: dict) -> torch.Tensor:
-        return embed_tokens(self.cfg, params["embed"], batch["tokens"])
+    def _encode(self, params: dict, frames: torch.Tensor, *,
+                remat: bool = False) -> torch.Tensor:
+        """The encoder: its dense attention blocks, non-causal with RoPE
+        from position 0, then its final norm; with ``remat`` each layer
+        under ``torch.utils.checkpoint``."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        layers = map_tree(lambda t: t.unbind(0), enc["stack"]["0_attn"])
+        x = frames
+        for i in range(cfg.encoder_layers):
+            block = functools.partial(
+                _block_full, cfg, "attn", map_tree(lambda ts: ts[i], layers),
+                pos0=0, dense=True, build_cache=False, causal=False)
+            x = (checkpoint(block, x, use_reentrant=False) if remat
+                 else block(x))[0]
+        return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
     # ----- layer-stack traversal ----------------------------------------------
     def _super_blocks(self, params: dict) -> list[dict]:
@@ -244,7 +305,8 @@ class LM:
                     yield section, key, None, params[section][key]
 
     def _remat_super(self, sp: dict, x: torch.Tensor, aux: torch.Tensor,
-                     context_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
+                     context_fn=None, enc_out: torch.Tensor | None = None,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One super-block, each block under ``torch.utils.checkpoint``
         (``context_fn`` picks what a block keeps).  Returns (x, aux plus
         the blocks' load-balance losses)."""
@@ -253,14 +315,15 @@ class LM:
             # bind the block now: the recompute runs after the loop moved on
             x, a, _ = checkpoint(functools.partial(
                 _block_full, self.cfg, _kind(key), sp[key], pos0=0,
-                dense=False, build_cache=False), x, use_reentrant=False,
-                **kw)
+                dense=False, build_cache=False, enc_out=enc_out), x,
+                use_reentrant=False, **kw)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def _remat_stack(self, params: dict, x: torch.Tensor,
-                     aux: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _remat_stack(self, params: dict, x: torch.Tensor, aux: torch.Tensor,
+                     enc_out: torch.Tensor | None = None,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
         """The stacked section under the remat switches, read as the
         reference reads them."""
         group = int(os.environ.get("REPRO_REMAT_GROUP", "1"))
@@ -272,7 +335,8 @@ class LM:
         if group > 1 and len(supers) % group == 0:
             def run_group(xx, aa, members):
                 for sp in members:
-                    xx, aa = self._remat_super(sp, xx, aa, context_fn)
+                    xx, aa = self._remat_super(sp, xx, aa, context_fn,
+                                               enc_out)
                 return xx, aa
 
             for g0 in range(0, len(supers), group):
@@ -281,12 +345,14 @@ class LM:
                                     use_reentrant=False)
             return x, aux
         for sp in supers:
-            x, aux = self._remat_super(sp, x, aux, context_fn)
+            x, aux = self._remat_super(sp, x, aux, context_fn, enc_out)
         return x, aux
 
     def _forward(self, params: dict, x: torch.Tensor, *,
+                 enc_out: torch.Tensor | None = None,
                  build_cache: bool = False, remat: bool = False):
-        """Shared full-sequence traversal.  Returns (x, aux, caches): aux
+        """Shared full-sequence traversal (every block with an ``xattn``
+        cross-attends to ``enc_out``).  Returns (x, aux, caches): aux
         the sum of the MoE blocks' load-balance losses (float32, 0 without
         experts), caches in the reference's layout, stacked layers on a
         leading axis.  With ``remat`` (and no cache to build) the stacked
@@ -299,7 +365,7 @@ class LM:
             if section not in params:
                 continue
             if section == "stack" and remat and not build_cache:
-                x, aux = self._remat_stack(params, x, aux)
+                x, aux = self._remat_stack(params, x, aux, enc_out)
                 continue
             if section == "stack":
                 blocks = [(key, sp[key]) for sp in self._super_blocks(params)
@@ -311,7 +377,8 @@ class LM:
             for key, lp in blocks:
                 x, a, c = _block_full(cfg, _kind(key), lp, x, pos0=0,
                                       dense=section == "prefix",
-                                      build_cache=build_cache)
+                                      build_cache=build_cache,
+                                      enc_out=enc_out)
                 if a is not None:
                     aux = aux + a
                 built.setdefault(key, []).append(c)
@@ -328,9 +395,10 @@ class LM:
     # ----- public entry points ---------------------------------------------------
     def loss(self, params: dict, batch: dict, *, remat: bool = True):
         """Mean next-token cross-entropy of ``batch`` ({"tokens",
-        "labels"}, labels -1 ignored).  Returns (ce + aux, {"ce_sum",
-        "n_tokens", "aux_loss"}): aux the MoE blocks' load-balance losses
-        summed, 0 for the dense and recurrent models.
+        "labels"}, labels -1 ignored, plus "frames" or "patches" where the
+        config takes them).  Returns (ce + aux, {"ce_sum", "n_tokens",
+        "aux_loss"}): aux the MoE blocks' load-balance losses summed, 0 for
+        the other models.
 
         ``params`` are the float32 master weights, not ``compute_params``:
         each call casts them to the activation dtype inside the graph, so
@@ -338,22 +406,26 @@ class LM:
         the stacked blocks under the ``REPRO_REMAT_POLICY`` and
         ``REPRO_REMAT_GROUP`` switches (module docstring)."""
         cfg = self.cfg
-        x = self._inputs(params, batch)
-        x, aux, _ = self._forward(params, x, remat=remat)
-        ce, metrics = chunked_ce_loss(cfg, self._head(params), x,
-                                      batch["labels"])
+        x, labels, enc_out = self._inputs(params, batch, remat=remat)
+        x, aux, _ = self._forward(params, x, enc_out=enc_out, remat=remat)
+        ce, metrics = chunked_ce_loss(cfg, self._head(params), x, labels)
         metrics["aux_loss"] = aux
         return ce + aux, metrics
 
     def prefill(self, params: dict, batch: dict, *, max_len: int):
-        """Forward + cache build.  Returns (cache, last-position logits)."""
+        """Forward + cache build.  Returns (cache, last-position logits);
+        an encoder-decoder's cache keeps the encoder memory (``enc_out``)
+        for decode's cross-attention."""
         cfg = self.cfg
-        x = self._inputs(params, batch)
+        x, _, enc_out = self._inputs(params, batch)
         b, s, _ = x.shape
-        x, _, built = self._forward(params, x, build_cache=True)
+        x, _, built = self._forward(params, x, enc_out=enc_out,
+                                    build_cache=True)
         cache = self._caches_to_decode(built, b, s, max_len, x.device)
         cache["pos"] = torch.full((b,), s, dtype=torch.int64,
                                   device=x.device)   # per-lane positions
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
         logits = (x[:, -1, :] @ self._head(params).to(x.dtype).T).to(
             torch.float32)
         return cache, logits[:, : cfg.vocab_size]
@@ -404,15 +476,18 @@ class LM:
         """tokens: (B, 1).  Returns (logits (B, V), cache): the layer caches
         are updated in place and ``pos`` advances by one.  A recurrent
         layer's new state is copied into its cache tensors, which for a
-        stacked layer are views of the stacked state."""
+        stacked layer are views of the stacked state.  An encoder-decoder's
+        cache carries ``enc_out`` through unchanged."""
         cfg = self.cfg
         pos = cache["pos"]
+        enc_out = cache.get("enc_out")
         x = embed_tokens(cfg, params["embed"], tokens)
         for section, key, i, lp in self._sections(params):
             lc = cache[section][key] if i is None \
                 else _layer(cache[section][key], i)
             x, new = _block_decode(cfg, _kind(key), lp, x, lc, pos,
-                                   dense=section == "prefix")
+                                   dense=section == "prefix",
+                                   enc_out=enc_out)
             if new is not lc:
                 for name, t in new.items():
                     lc[name].copy_(t)

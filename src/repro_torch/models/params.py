@@ -7,10 +7,13 @@ From the same template tree come (a) real initialized tensors
 (:func:`init_params`, from an explicit ``torch.Generator``), (b) exact
 parameter counts (:func:`param_counts`), and (c) the shapes
 ``repro_torch.convert.lm_params_from_numpy`` checks a carried-over tree
-against.  The port has the attention block (GQA or DeepSeek-V3's MLA,
-with a dense MLP or a mixture of experts) and the recurrent blocks
-(RG-LRU, mLSTM, sLSTM); encoder-decoder and frontend configs raise
-``NotImplementedError`` until their slices land (``ROADMAP.md``).
+against.  The blocks are the reference's: attention (GQA or
+DeepSeek-V3's MLA, with a dense MLP or a mixture of experts; an
+encoder-decoder config's decoder blocks add ``ln_x`` and a GQA
+cross-attention ``xattn``), and the recurrent RG-LRU, mLSTM and sLSTM.
+An encoder-decoder config adds the ``encoder`` (a stack of dense
+attention blocks and its ``final_norm``), and a config with a frontend
+(audio frames or vision patches) its linear ``frontend.adapter``.
 Sharding specs wait for the distributed port.
 """
 
@@ -53,22 +56,6 @@ def leaves(tree: Any, path: tuple[str, ...] = ()):
         yield path, tree
 
 
-def _unported(cfg: ModelConfig) -> str | None:
-    if cfg.is_encdec:
-        return "encoder-decoder"
-    if cfg.frontend is not None:
-        return f"the {cfg.frontend} frontend"
-    return None
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run."""
-    what = _unported(cfg)
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet; see ROADMAP.md")
-
-
 # --- per-kind templates --------------------------------------------------------
 
 
@@ -102,9 +89,12 @@ def _mlp_templates(cfg: ModelConfig, dense: bool) -> dict[str, ParamSpec]:
     return t
 
 
-def _attn_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
+def _attn_templates(cfg: ModelConfig,
+                    cross: bool = False) -> dict[str, ParamSpec]:
+    """Self-attention (MLA where the config has it), or with ``cross``
+    the GQA projections of a cross-attention, which is never MLA."""
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    if cfg.mla is not None:
+    if cfg.mla is not None and not cross:
         m = cfg.mla
         return {
             "w_dq": ParamSpec((d, m.q_lora_rank)),
@@ -188,16 +178,21 @@ def _slstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return t
 
 
-def block_templates(cfg: ModelConfig, kind: str,
-                    dense: bool) -> dict[str, Any]:
-    """One block of ``kind``: attention, RG-LRU, mLSTM or sLSTM
-    (``check_ported`` rules out the rest).  An attention block of a MoE
-    config takes the experts unless ``dense`` (the ``prefix`` section:
-    DeepSeek-V3's first ``dense_prefix`` layers)."""
+def block_templates(cfg: ModelConfig, kind: str, dense: bool,
+                    cross_attn: bool = False) -> dict[str, Any]:
+    """One block of ``kind``: attention, RG-LRU, mLSTM or sLSTM.  An
+    attention block of a MoE config takes the experts unless ``dense``
+    (the ``prefix`` section: DeepSeek-V3's first ``dense_prefix`` layers);
+    with ``cross_attn`` (an encoder-decoder's decoder) it adds ``ln_x``
+    and the cross-attention ``xattn``."""
     d = cfg.d_model
     if kind == "attn":
-        return {"ln1": _norm(d), "attn": _attn_templates(cfg),
-                "ln2": _norm(d), "mlp": _mlp_templates(cfg, dense)}
+        t = {"ln1": _norm(d), "attn": _attn_templates(cfg),
+             "ln2": _norm(d), "mlp": _mlp_templates(cfg, dense)}
+        if cross_attn:
+            t["ln_x"] = _norm(d)
+            t["xattn"] = _attn_templates(cfg, cross=True)
+        return t
     if kind == "rglru":
         return {"ln1": _norm(d), "rglru": _rglru_templates(cfg),
                 "ln2": _norm(d), "mlp": _mlp_templates(cfg, True)}
@@ -216,9 +211,9 @@ def _stack(tree: dict, n: int) -> dict:
 
 
 def model_templates(cfg: ModelConfig) -> dict:
-    check_ported(cfg)
     plan = cfg.layer_plan()
     d, vp = cfg.d_model, cfg.padded_vocab
+    cross = cfg.is_encdec
     t: dict[str, Any] = {
         "embed": ParamSpec((vp, d), "normal02"),
         "final_norm": _norm(d),
@@ -226,15 +221,23 @@ def model_templates(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         t["head"] = ParamSpec((vp, d), "normal02")
     if plan.prefix:
-        t["prefix"] = {f"{i}_{k}": block_templates(cfg, k, dense=True)
+        t["prefix"] = {f"{i}_{k}": block_templates(cfg, k, dense=True,
+                                                   cross_attn=cross)
                        for i, k in enumerate(plan.prefix)}
     if plan.n_super:
-        t["stack"] = _stack({f"{i}_{k}": block_templates(cfg, k, dense=False)
-                             for i, k in enumerate(plan.super_block)},
-                            plan.n_super)
+        t["stack"] = _stack({f"{i}_{k}": block_templates(
+            cfg, k, dense=False, cross_attn=cross)
+            for i, k in enumerate(plan.super_block)}, plan.n_super)
     if plan.tail:
-        t["tail"] = {f"{i}_{k}": block_templates(cfg, k, dense=False)
+        t["tail"] = {f"{i}_{k}": block_templates(cfg, k, dense=False,
+                                                 cross_attn=cross)
                      for i, k in enumerate(plan.tail)}
+    if cfg.is_encdec:
+        enc = {"0_attn": block_templates(cfg, "attn", dense=True)}
+        t["encoder"] = {"stack": _stack(enc, cfg.encoder_layers),
+                        "final_norm": _norm(d)}
+    if cfg.frontend is not None:
+        t["frontend"] = {"adapter": ParamSpec((d, d))}
     return t
 
 
@@ -292,13 +295,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 
 # weights the reference casts to the activation dtype on every use
-# (``w.astype(x.dtype)``): the attention, MLA, MLP and expert weights, the
-# router, and every recurrent weight but RG-LRU's ``lam``; norm scales
+# (``w.astype(x.dtype)``): the attention (cross-attention too), MLA, MLP
+# and expert weights, the router, the frontend's adapter, and every
+# recurrent weight but RG-LRU's ``lam``; norm scales
 # (MLA's ``q_norm`` and ``kv_norm`` among them) and ``lam`` it reads in
 # float32
 _MATMUL_KEYS = frozenset({
     "w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
-    "w_in", "w_gate", "w_out", "embed", "head",
+    "w_in", "w_gate", "w_out", "embed", "head", "adapter",
     # MoE
     "router", "we_in", "we_gate", "we_out", "ws_in", "ws_gate", "ws_out",
     # MLA

@@ -7,6 +7,11 @@
     decode together (continuous batching);
   * finished sequences (EOS / max_new_tokens / cache full) free slots.
 
+The engine takes token prompts only, as the reference's does: it refuses
+an encoder-decoder config (whose model needs encoder frames) and a vision
+config (patches) when it is built; those run through ``LM.prefill`` /
+``LM.decode_step`` directly.
+
 The engine runs on the device its parameters lie on (the CUDA card unless
 the caller built them with ``device="cpu"``).  It casts the weights to the
 activation dtype once, when it is built (``models.compute_params``); the
@@ -54,6 +59,11 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, batch_slots: int = 4,
                  max_len: int = 256, eos_id: int | None = None,
                  offload: Any | None = None) -> None:
+        if not cfg.tokens_only:
+            raise ValueError(
+                f"ServingEngine takes token prompts only; {cfg.name} needs "
+                f"{'encoder frames' if cfg.is_encdec else 'vision patches'}"
+                ": drive LM.prefill / LM.decode_step directly")
         self.cfg = cfg
         self.model = LM(cfg)
         self.params = compute_params(cfg, params)

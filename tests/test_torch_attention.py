@@ -194,9 +194,17 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     tla.reset_launches()
     got = tla.local_flash_attention(q, k, v, kv_groups=2)
     assert tla.local_flash_attention.launches == 0
+    assert tla.local_flash_attention.launches_by_shape == {}
     torch.testing.assert_close(
         got, tla.local_flash_attention_plain(q, k, v, kv_groups=2),
         rtol=0, atol=0)
+
+
+def test_shape_key_names_rows_lengths_head_dim_and_mask():
+    assert tla.shape_key(64, 64, 1, 1024, 64, False, 0) == \
+        "64/64 Lq 1 Lk 1024 D 64 full window 0"
+    assert tla.shape_key(224, 32, 1088, 1088, 128, True, 0) == \
+        "224/32 Lq 1088 Lk 1088 D 128 causal window 0"
 
 
 def test_wrapper_rejects_bad_operands():

@@ -438,6 +438,9 @@ def test_each_route_counts_its_launches(cuda_device, dtype, d, route):
     assert (bwd_by_route[route], bwd_by_route[other]) == (1, 0)
     assert la.local_flash_attention.launches == 1
     assert la.local_flash_attention.backward_launches == 1
+    key = la.shape_key(4, 2, 130, 130, d, True, 0)
+    assert la.local_flash_attention.launches_by_shape == {key: 1}
+    assert la.local_flash_attention.backward_launches_by_shape == {key: 1}
 
 
 def test_gqa_wrapper_launches_the_kernel(cuda_device):
@@ -1147,3 +1150,140 @@ def test_suite_benchmark_on_the_card_matches_the_cpu(cuda_device, name):
     assert bool(torch.isfinite(out).all())
     err = float((out.cpu() - ref).abs().max())
     assert err <= 1e-4 * float(ref.abs().max())
+
+
+# Kernel 6 at the encoder-decoder's and the vision model's new cases, on
+# the tensor-core route against its plain version at the file's bounds:
+# one query row (decode's cross-attention, Lq = 1) against Lk 77 and 1024
+# at D 64 and 128, groups 1 and 7; seamless-m4t-large-v2's cross-attention
+# (64 rows, Lq 128 or 512 against 1024 frames, D 64) and its non-causal
+# encoder forward and backward; llava-next-34b's GQA 7 at D 128.
+@pytest.mark.parametrize("lk", [77, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("groups", [1, 7])
+def test_tensor_core_route_at_one_query(cuda_device, lk, d, groups):
+    q, k, v = _attn_inputs(48, 28, 1, lk, d, groups, torch.bfloat16,
+                           cuda_device)
+    la.reset_launches()
+    got = la.local_flash_attention(q, k, v, causal=False, kv_groups=groups)
+    want = la.local_flash_attention_plain(q, k, v, causal=False,
+                                          kv_groups=groups)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 1, "fma": 0}
+    assert got.shape == (28, 1, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("bh,bhkv,lq,lk,d,causal", [
+    (64, 64, 128, 1024, 64, False),      # seamless cross-attention, prefill
+    (32, 32, 512, 1024, 64, False),      # seamless cross-attention, training
+    (64, 64, 1024, 1024, 64, False),     # seamless encoder
+    (56, 8, 1088, 1088, 128, True),      # llava GQA 7, one request
+    (56, 8, 333, 333, 128, False)])
+def test_tensor_core_route_at_the_multimodal_shapes(cuda_device, bh, bhkv,
+                                                    lq, lk, d, causal):
+    """Forward at rtol 1e-2 / atol 1e-3 and backward within 2e-2 *
+    max|plain|, bit-equal on a repeat; Lq != Lk only without a causal
+    mask (its masks assume aligned positions)."""
+    g = bh // bhkv
+    rng = np.random.default_rng(49)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device=cuda_device, dtype=torch.bfloat16)
+        for shape in ((bh, lq, d), (bhkv, lk, d), (bhkv, lk, d)))
+    dout = torch.from_numpy(rng.standard_normal((bh, lq, d)).astype(
+        np.float32)).to(device=cuda_device, dtype=torch.bfloat16)
+    kw = dict(causal=causal, kv_groups=g)
+    la.reset_launches()
+    got = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                 dout)
+    want = _grads(lambda *t: la.local_flash_attention_plain(*t, **kw), q, k,
+                  v, dout)
+    again = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                   dout)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches_by_route == {
+        "tensor_core": 2, "fma": 0}
+    assert la.local_flash_attention.backward_launches_by_route == {
+        "tensor_core": 2, "fma": 0}
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=1e-2,
+                               atol=1e-3)
+    for name, a, w, r in zip(("dq", "dk", "dv"), got[1:], want[1:],
+                             again[1:]):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=2e-2 * top, msg=name)
+        assert torch.equal(a, r), name
+
+
+def _multimodal_batch(cfg, b, s, dev, labels=False):
+    rng = np.random.default_rng(50)
+    s_text = s - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    toks = rng.integers(0, cfg.vocab_size, (b, s_text + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev)}
+    if labels:
+        batch["labels"] = torch.from_numpy(toks[:, 1:]).to(dev)
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, s // 2, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
+def test_multimodal_prefill_and_decode_on_the_card_match_the_cpu(
+        cuda_device, arch):
+    """Both families' smoke prefill and 3 decode steps on the card against
+    the CPU at the bf16 bound (5e-2): one launch per encoder layer,
+    decoder self-attention and cross-attention a prefill, and one
+    cross-attention launch per decoder layer a decode step."""
+    cfg = tcfgs.get_smoke_config(arch)
+    params = compute_params(cfg, init_params(cfg, device="cpu"))
+    on_card = _to(params, cuda_device)
+    batch = _multimodal_batch(cfg, 2, 40, "cpu")
+    model = LM(cfg)
+    max_len = 48 + cfg.frontend_tokens
+    cpu_cache, want = model.prefill(params, batch, max_len=max_len)
+    la.reset_launches()
+    cache, got = model.prefill(on_card, _to(batch, cuda_device),
+                               max_len=max_len)
+    torch.cuda.synchronize()
+    per_prefill = cfg.encoder_layers + cfg.n_layers * (
+        2 if cfg.is_encdec else 1)
+    assert la.local_flash_attention.launches == per_prefill
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+    toks = batch["tokens"][:, :1]
+    for _ in range(3):
+        want, cpu_cache = model.decode_step(params, cpu_cache, toks)
+        got, cache = model.decode_step(on_card, cache, toks.to(cuda_device))
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+        toks = torch.argmax(want, dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    assert la.local_flash_attention.launches == per_prefill + 3 * (
+        cfg.n_layers if cfg.is_encdec else 0)
+
+
+def test_encdec_loss_and_grads_on_the_card_match_the_cpu(cuda_device):
+    """seamless's smoke training loss on the card (every encoder and
+    decoder block rematerialized: each forward twice, each backward once)
+    against the CPU at the bf16 bound."""
+    cfg = tcfgs.get_smoke_config("seamless-m4t-large-v2")
+    params = init_params(cfg, device="cpu")
+    batch = _multimodal_batch(cfg, 2, 64, "cpu", labels=True)
+    want, _, want_g = loss_and_grads(LM(cfg), params, batch)
+    la.reset_launches()
+    got, _, got_g = loss_and_grads(LM(cfg), _to(params, cuda_device),
+                                   _to(batch, cuda_device))
+    torch.cuda.synchronize()
+    n = cfg.encoder_layers + 2 * cfg.n_layers
+    assert la.local_flash_attention.launches == 2 * n
+    assert la.local_flash_attention.backward_launches == n
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+    for (path, g), (_, w) in zip(leaves(got_g), leaves(want_g)):
+        top = float(w.abs().max())
+        torch.testing.assert_close(g.cpu(), w, rtol=5e-2,
+                                   atol=5e-2 * max(top, 1e-30),
+                                   msg="/".join(path))

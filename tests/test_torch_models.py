@@ -88,7 +88,7 @@ def _np(x):
 
 
 def test_configs_match_reference_field_for_field():
-    for arch in ARCHS:
+    for arch in jcfgs.ARCHS:
         for get in ("get_config", "get_smoke_config"):
             j = getattr(jcfgs, get)(arch)
             t = getattr(tcfgs, get)(arch)
@@ -101,14 +101,28 @@ def test_configs_match_reference_field_for_field():
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "llava-next-34b"])
-def test_unported_arch_raises_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcfgs.get_config(arch)
+def test_multimodal_arch_builds_and_runs_its_smoke_loss(arch):
+    """The encoder-decoder and vision archs build at full size and run
+    their smoke loss (frames or patches beside the tokens); an unknown
+    arch is a KeyError."""
+    LM(tcfgs.get_config(arch))
+    cfg = tcfgs.get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, 8)))
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 4, cfg.d_model)).astype(np.float32))
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    loss, metrics = LM(cfg).loss(init_params(cfg, device="cpu"), batch)
+    assert bool(torch.isfinite(loss)) and float(metrics["n_tokens"]) == 16
     with pytest.raises(KeyError):
         tcfgs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(jcfgs.ARCHS))
 def test_param_counts_equal_reference(arch):
     assert param_counts(tcfgs.get_config(arch)) == \
         jcounts(jcfgs.get_config(arch))
@@ -287,19 +301,21 @@ def test_decode_matches_full_forward(arch, dtype):
     assert int(cache["pos"][0]) == s + 3
 
 
-def test_unported_entry_points_raise():
+def test_every_block_kind_and_input_builds():
+    """No config the reference takes is refused: a dense config given
+    experts, an encoder, a vision frontend or a recurrent pattern builds,
+    and its parameters carry the encoder and the adapter."""
     cfg = tcfgs.get_smoke_config("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcfgs.get_config("seamless-m4t-large-v2")
-    # MoE is ported: a dense config given experts builds
     moe = MoEConfig(n_routed=4, top_k=2, d_expert=32)
     LM(dataclasses.replace(cfg, moe=moe))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        init_params(dataclasses.replace(cfg, encoder_layers=2),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="frontend"):
-        LM(dataclasses.replace(cfg, frontend="vision"))
-    # the recurrent kinds are ported: a hybrid of them builds
+    encdec = init_params(dataclasses.replace(cfg, encoder_layers=2,
+                                             frontend="audio"), device="cpu")
+    assert {"encoder", "frontend"} <= set(encdec)
+    assert "xattn" in encdec["stack"]["0_attn"]
+    vision = dataclasses.replace(cfg, frontend="vision", frontend_tokens=4)
+    LM(vision)
+    assert "adapter" in init_params(vision, device="cpu")["frontend"]
+    # the recurrent kinds: a hybrid of them builds
     LM(dataclasses.replace(cfg, pattern=("rglru", "attn")))
 
 

@@ -104,7 +104,7 @@ def _moe_layer(arch, cf=None):
 
 def test_configs_match_reference_field_for_field():
     for arch in ARCHS:
-        assert arch in tcfgs.PORTED
+        assert arch in tcfgs.ARCHS
         for get in ("get_config", "get_smoke_config"):
             j = getattr(jcfgs, get)(arch)
             t = getattr(tcfgs, get)(arch)

@@ -1,6 +1,7 @@
 """The planner table's twin (``repro_torch.casestudy.planner_table``)
-against the reference's ``benchmarks/planner_table.py``, for the eight
-architectures the port runs (four dense, two recurrent, two MoE).
+against the reference's ``benchmarks/planner_table.py``, for all ten
+architectures (four dense, two recurrent, two MoE, the encoder-decoder
+and the vision model).
 
 * Fed the reference's FLOP counts, with the port's host peak set to the
   reference's (197e12, a TPU v5e's bf16 rate), every row is the
@@ -25,8 +26,9 @@ from repro.configs import shapes as jshapes
 from repro_torch import configs as tcfgs
 from repro_torch.casestudy import planner_table as tplanner
 
-ARCHS = ("qwen2-72b", "qwen2.5-32b", "stablelm-1.6b", "nemotron-4-340b",
-         "recurrentgemma-9b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
+ARCHS = ("seamless-m4t-large-v2", "qwen2-72b", "qwen2.5-32b",
+         "stablelm-1.6b", "nemotron-4-340b", "recurrentgemma-9b",
+         "llava-next-34b", "qwen2-moe-a2.7b", "deepseek-v3-671b",
          "xlstm-125m")
 FLAGS = ("mvm_worthwhile", "mvm_conversion_bound", "fourier_worthwhile")
 
@@ -63,7 +65,7 @@ def _assert_same_row(got, want):
 
 
 def test_ported_archs_are_the_four_dense_ones():
-    assert set(tcfgs.PORTED) == set(ARCHS)
+    assert set(tcfgs.ARCHS) == set(ARCHS)
     assert tplanner.HOST_PEAK == 989e12
 
 
@@ -91,7 +93,7 @@ def test_own_counts_and_verdicts_match_reference(reference, monkeypatch,
 
 def test_run_gives_one_row_per_ported_arch_at_the_h100_peak(reference):
     rows = tplanner.run()
-    assert [r["arch"] for r in rows] == list(tcfgs.PORTED)
+    assert [r["arch"] for r in rows] == list(tcfgs.ARCHS) == list(ARCHS)
     for r in rows:
         assert r["mvm_speedup"] >= 1.0 and r["fourier_speedup"] >= 1.0
         assert not r["mvm_worthwhile"] and not r["fourier_worthwhile"]

@@ -6,10 +6,12 @@ dispatches; the reference walks its jaxpr.  Tolerances, and why:
 
 * matmul, conv and fft FLOPs are integer-valued counts computed from
   shapes by the same rules: equal to rtol 1e-9 (exact in practice), on
-  hand-made functions and on the stablelm-1.6b and qwen2-72b smoke
-  ``LM.loss`` (the reference's ``model.loss`` at the planner's batch of
-  2 x 32 tokens, the port's at the same tokens with the reference's
-  weights carried over by ``convert.lm_params_from_numpy``);
+  hand-made functions and on the stablelm-1.6b, qwen2-72b,
+  seamless-m4t-large-v2 and llava-next-34b smoke ``LM.loss`` (the
+  reference's ``model.loss`` at the planner's batch of 2 x 32 tokens,
+  with 16 encoder frames or the vision patches where the config takes
+  them, the port's at the same inputs with the reference's weights
+  carried over by ``convert.lm_params_from_numpy``);
 * the same counts, every category, on ``meta`` and on ``cpu``: equal;
 * 'other' is an approximate count by design (one per produced element of
   every non-contraction op).  The reference counts layout ops
@@ -54,7 +56,8 @@ from repro_torch.kernels import adc_dac, local_attention, ops, optical_dft
 from repro_torch.models import LM
 from repro_torch.models.params import map_tree
 
-ARCHS = ["stablelm-1.6b", "qwen2-72b"]
+ARCHS = ["stablelm-1.6b", "qwen2-72b", "seamless-m4t-large-v2",
+         "llava-next-34b"]
 OTHER_BAND = (0.5, 2.0)
 
 
@@ -304,6 +307,15 @@ def _lm_pair(arch):
     jb = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)}
     tb = {"tokens": torch.from_numpy(tok).long(),
           "labels": torch.from_numpy(lab).long()}
+    # the planner's frames (b, s // 2, d) and patches, as float32 inputs
+    extra = {}
+    if tcfg.is_encdec:
+        extra["frames"] = (b, s // 2, tcfg.d_model)
+    if tcfg.frontend == "vision":
+        extra["patches"] = (b, tcfg.frontend_tokens, tcfg.d_model)
+    for k, shape in extra.items():
+        x = rng.standard_normal(shape).astype(np.float32)
+        jb[k], tb[k] = jnp.asarray(x), torch.from_numpy(x)
     return (JLM(jcfg), jp, jb), (LM(tcfg), tp, tb)
 
 

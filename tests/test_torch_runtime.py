@@ -366,7 +366,11 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.runtime, repro_torch.convert\n"
             "import repro_torch.models, repro_torch.configs\n"
-            "import repro_torch.models.moe\n"
+            "import repro_torch.models.moe, repro_torch.models.attention\n"
+            "import repro_torch.models.model, repro_torch.models.params\n"
+            "import repro_torch.configs.seamless_m4t_large_v2\n"
+            "import repro_torch.configs.llava_next_34b\n"
+            "import repro_torch.casestudy.planner_table\n"
             "import repro_torch.serving, repro_torch.launch.serve\n"
             "import repro_torch.runtime.scheduler\n"
             "import repro_torch.optim, repro_torch.train, repro_torch.data\n"
