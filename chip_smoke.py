@@ -91,7 +91,19 @@ and read just after:
   llava's GQA 7 at D 128; one seamless ``LM.loss`` + backward at 2 x 512
   tokens and 1024 frames with every gradient finite; kernel 6 at every
   shape each run launched it (the run's launches counted per shape)
-  against its plain version, SDPA and its bound, the backward too.
+  against its plain version, SDPA and its bound, the backward too;
+* the mesh: stablelm-1.6b at full width and depth taking one AdamW step
+  of phase 6's Markov batch (4 x 1024 tokens) on a (1, 1) ``(data,
+  model)`` CUDA mesh over a one-rank NCCL process group, its params,
+  AdamW state and batch DTensors laid out by ``param_pspecs``,
+  ``opt_pspecs`` and ``batch_pspecs``; the loss against the same step
+  unmeshed on the same params and batch (within the reference test's
+  5e-2), the placements kept, kernel 6 launched 48 times forward and 24
+  backward a step on the tensor-core route, on the local shards, and held
+  to its plain version at that shape; the step's wall and peak memory
+  beside the unmeshed step's; and the shape-only dry run
+  (``python -m repro_torch.launch.dryrun``) of stablelm-1.6b ``train_4k``
+  on both production meshes, in a subprocess.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -145,6 +157,16 @@ TRAIN_BATCH = 4
 TRAIN_SEQ = 1024
 TRAIN_STEPS = 5          # 1 warm-up step + 4 timed
 TRAIN_CKPT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+# the mesh: one step on a (1, 1) (data, model) mesh, and the dry run's
+# cell of the same model
+MESH_SHAPE = (1, 1)
+# on one card the meshed step does the unmeshed step's work in the same
+# order: its loss, gradient norm and update agree to this (relative for
+# the last two)
+MESH_TOL = 1e-6
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 300
 
 # the sharded runtime: 4 logical devices; one conv frame larger than
 # BATCHED_4F's 2048^2 aperture; chaos flushes until every injected kind
@@ -2643,6 +2665,239 @@ def phase_multimodal(la, dev, card: str) -> dict:
     return out
 
 
+# --- phase 15: the mesh and the dry run ---------------------------------------
+
+
+def timed_step(step_fn, params, state, batch
+               ) -> tuple[float, float, dict, float]:
+    """(loss, wall s, the new params, gradient norm) of one step, its loss
+    read on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_params, _, metrics = step_fn(params, state, batch, 0)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    return (loss, time.perf_counter() - t0, new_params,
+            float(metrics["grad_norm"]))
+
+
+def update_error(got: dict, want: dict) -> float:
+    """The largest difference of two params trees, each leaf's relative to
+    its largest entry in ``want``; ``got`` may hold DTensors (on a (1, 1)
+    mesh their local shard is the whole) and ``want`` lie on the host."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.params import leaves
+    err = 0.0
+    for (_, a), (_, b) in zip(leaves(got), leaves(want)):
+        a = a.to_local() if isinstance(a, DTensor) else a
+        b = b.to(a.device)
+        err = max(err, float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30)))
+    return err
+
+
+def phase_mesh(la, dev, card: str, training: dict) -> dict:
+    """stablelm-1.6b at full width and depth: one AdamW step unmeshed and
+    the same step on a (1, 1) ``(data, model)`` CUDA mesh, on the same
+    params (random, from the seed) and phase 6's Markov batch; each run
+    twice, the second timed.  The meshed run's params, AdamW state and
+    batch are DTensors laid out by the spec trees."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.data import MarkovTask
+    from repro_torch.distributed.compat import enter_mesh
+    from repro_torch.distributed.sharding import (current_axis_names,
+                                                  distribute_tree)
+    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import LM, init_params
+    from repro_torch.models.params import leaves, map_tree, param_pspecs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = configs.get_config(ARCH)
+    check(cfg.n_layers == 24 and cfg.d_model == 2048,
+          f"{ARCH} is not at full width and depth")
+    model = LM(cfg)
+    opt = adamw(3e-3)
+    step_fn = make_train_step(model, opt)
+    batch = MarkovTask(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=SEED).batch(0, dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    state = opt.init(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    plain, plain_new = [], None
+    for _ in range(2):
+        loss, wall, new, grad_norm = timed_step(step_fn, params, state,
+                                                batch)
+        plain.append((loss, wall, grad_norm))
+        if plain_new is None:     # the update, kept on the host
+            plain_new = map_tree(lambda t: t.cpu(), new)
+        del new
+    plain_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(MESH_SHAPE, ("data", "model"))
+        check(mesh.device_type == "cuda" and mesh.size() == 1,
+              f"the test mesh is {mesh}")
+        enter_mesh(mesh)
+        pps = param_pspecs(cfg, fsdp_size=0, tp_size=MESH_SHAPE[1])
+        dparams = distribute_tree(params, pps, mesh)
+        dstate = distribute_tree(state, opt_pspecs(state, pps), mesh)
+        dbatch = distribute_tree(batch, batch_pspecs(
+            batch, mesh.mesh_dim_names, dp_total=MESH_SHAPE[0]), mesh)
+        del params, state
+        axes = []
+        on_shards = ops._on_shards
+
+        def spy(q, k, v, **kw):
+            axes.append(current_axis_names())
+            check(all(isinstance(t, DTensor) for t in (q, k, v)),
+                  "kernel 6's DTensor path got a plain tensor")
+            return on_shards(q, k, v, **kw)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        la.reset_launches()
+        ops._on_shards = spy
+        try:
+            loss, first_s, new, grad_norm = timed_step(
+                step_fn, dparams, dstate, dbatch)
+        finally:
+            ops._on_shards = on_shards
+        f = la.local_flash_attention
+        launches = {"forward": f.launches,
+                    "backward": f.backward_launches,
+                    "forward_by_route": dict(f.launches_by_route),
+                    "backward_by_route": dict(f.backward_launches_by_route),
+                    "forward_by_shape": dict(f.launches_by_shape),
+                    "backward_by_shape": dict(f.backward_launches_by_shape)}
+        kept = all(isinstance(b, DTensor)
+                   and tuple(a.placements) == tuple(b.placements)
+                   for (_, a), (_, b) in zip(leaves(dparams), leaves(new)))
+        update_err = update_error(new, plain_new)
+        del new, plain_new
+        again, step_s, _, _ = timed_step(step_fn, dparams, dstate, dbatch)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    finally:
+        enter_mesh(None)
+        dist.destroy_process_group()
+    del dparams, dstate, dbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    diff = abs(loss - plain[0][0])
+    norm_err = abs(grad_norm - plain[0][2]) / plain[0][2]
+    print(f"  {ARCH} on a {MESH_SHAPE} (data, model) mesh, one AdamW step "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: loss {loss:.6f}, "
+          f"unmeshed {plain[0][0]:.6f}, |difference| {diff:.3e} "
+          f"(bound {MESH_TOL}); gradient norm {grad_norm:.6f}, unmeshed "
+          f"{plain[0][2]:.6f}, relative difference {norm_err:.3e} (bound "
+          f"{MESH_TOL}); updated params' largest difference {update_err:.3e}"
+          f" of a leaf's largest (bound {MESH_TOL}); a repeat of the meshed "
+          f"step {again:.6f}; placements kept: {kept}")
+    print(f"  kernel 6 in the meshed step: {launches['forward']} forward "
+          f"{launches['forward_by_route']}, {launches['backward']} backward "
+          f"{launches['backward_by_route']}, at {launches['forward_by_shape']}"
+          f"; the DTensor path took {len(axes)} calls under mesh axes "
+          f"{sorted(set(axes))}")
+    print(f"  [{card}] meshed step wall {step_s:.4f} s (first "
+          f"{first_s:.4f} s), peak memory {peak_gb:.2f} GB; unmeshed step "
+          f"on the same params and batch {plain[1][1]:.4f} s (first "
+          f"{plain[0][1]:.4f} s), peak {plain_peak_gb:.2f} GB "
+          f"({held_gb:.2f} GB held at the phase's start); phase 6's "
+          f"median step {training['step_wall_s_median']:.4f} s, peak "
+          f"{training['peak_memory_gb']:.2f} GB")
+    check(np.isfinite(loss) and diff <= MESH_TOL,
+          f"meshed loss {loss} against unmeshed {plain[0][0]}")
+    check(norm_err <= MESH_TOL, f"meshed gradient norm {grad_norm} against "
+          f"unmeshed {plain[0][2]}")
+    check(update_err <= MESH_TOL, f"the meshed step's updated params differ "
+          f"from the unmeshed step's by {update_err} of a leaf's largest")
+    check(kept, "a parameter lost its placements in the meshed step")
+    n = cfg.n_layers
+    check(launches["forward_by_route"] == {"tensor_core": 2 * n, "fma": 0}
+          and launches["backward_by_route"] == {"tensor_core": n, "fma": 0},
+          f"kernel 6 in the meshed step: {launches} (want {2 * n} forward "
+          f"and {n} backward a step, all on the tensor-core route)")
+    check(len(axes) == 2 * n and set(axes) == {("data", "model")},
+          f"the DTensor path of kernel 6 ran {len(axes)} times under "
+          f"{set(axes)}")
+    h = TRAIN_BATCH * cfg.n_heads
+    held = attention_case(la, dev, h, h, TRAIN_SEQ, cfg.head_dim_,
+                          backward=True)
+    rows = held_at_path(la, launches["forward_by_shape"],
+                        {"local_flash_attention": (held, 2 * n)},
+                        "meshed step forward")
+    held_at_path(la, launches["backward_by_shape"],
+                 {"local_flash_attention_backward": (held, n)},
+                 "meshed step backward")
+    return {"arch": ARCH, "mesh": list(MESH_SHAPE), "loss": loss,
+            "loss_unmeshed": plain[0][0], "loss_difference": diff,
+            "grad_norm": grad_norm, "grad_norm_unmeshed": plain[0][2],
+            "grad_norm_relative_difference": norm_err,
+            "update_error": update_err,
+            "loss_repeat": again, "placements_kept": kept,
+            "step_wall_s": step_s, "first_step_wall_s": first_s,
+            "unmeshed_step_wall_s": plain[1][1],
+            "unmeshed_first_step_wall_s": plain[0][1],
+            "peak_memory_gb": peak_gb,
+            "unmeshed_peak_memory_gb": plain_peak_gb,
+            "held_before_gb": held_gb, "launches": launches,
+            "kernel6": rows["local_flash_attention"]}
+
+
+def phase_dryrun(card: str) -> dict:
+    """The shape-only dry run of stablelm-1.6b ``train_4k`` on both
+    production meshes, in its own process (it builds its meshes over a
+    fake process group of 512 ranks)."""
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "train_4k", "--mesh", "both", "--outdir",
+         str(DRYRUN_DIR)], env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S, cwd=root)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the dry run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out = {"wall_s": wall}
+    for mesh in ("single", "multi"):
+        rec = json.loads((DRYRUN_DIR / f"{ARCH}__train_4k__{mesh}.json")
+                         .read_text())
+        mem = rec["analytic_memory_per_device"]
+        check(rec["source"] == "meta" and rec["jaxpr_flops_global"] > 0
+              and rec["argument_bytes_per_device"] > 0,
+              f"dry-run record {rec['cell']}")
+        out[mesh] = {k: rec[k] for k in (
+            "devices", "argument_bytes_per_device", "output_bytes_per_device",
+            "jaxpr_flops_global", "jaxpr_flops_by_category",
+            "jaxpr_traffic_bytes_global", "count_s")}
+        out[mesh]["analytic_memory_per_device"] = mem
+        print(f"  dry run {rec['cell']} ({rec['devices']} devices): "
+              f"argument bytes per device {rec['argument_bytes_per_device']:,}"
+              f", analytic total {mem['total'] / 2**30:.3f} GiB a device "
+              f"(fits 16 GiB {mem['fits_16gb']}, fits an H100's 80 GB "
+              f"{mem['fits_h100_80gb']}), global FLOPs "
+              f"{rec['jaxpr_flops_global']:.4e}")
+    print(f"  [{card}] dry-run subprocess wall {wall:.2f} s")
+    return out
+
+
 # --- phase 7: the converter boundary -------------------------------------------
 
 
@@ -3770,6 +4025,19 @@ def main() -> int:
             else:
                 row["library_backend"] = k6["library_backend"]
             rows.append(row)
+    print("phase 15: the mesh and the dry run")
+    t0 = time.perf_counter()
+    meshed = phase_mesh(la, dev, card, training)
+    dryrun = phase_dryrun(card)
+    print(f"  [{card}] phase wall {time.perf_counter() - t0:.2f} s")
+    attn_row["launches_by_path"]["meshed_training"] = \
+        meshed["launches"]["forward"]
+    attn_row["launches"] = sum(attn_row["launches_by_path"].values())
+    attn_row["at_meshed_training"] = meshed["kernel6"]
+    bwd_row["launches_by_path"] = {
+        "training": bwd_row["launches"],
+        "meshed_training": meshed["launches"]["backward"]}
+    bwd_row["launches"] = sum(bwd_row["launches_by_path"].values())
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving": serving}))
@@ -3781,6 +4049,7 @@ def main() -> int:
                                     "optimizers": optim}}))
     print(json.dumps({"moe_serving": moe_runs}))
     print(json.dumps({"multimodal": mm}))
+    print(json.dumps({"mesh": meshed, "dryrun": dryrun}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

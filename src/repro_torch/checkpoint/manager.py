@@ -20,6 +20,11 @@ Guarantees:
   * async      — ``save_async`` snapshots every tensor to host numpy
     before it returns (training may go on and change the tensors) and
     writes on a daemon thread; ``wait`` joins.
+  * elastic    — a DTensor leaf is saved whole (``full_tensor``: every
+    rank of its mesh must call ``save``), and ``restore`` /
+    ``restore_latest(..., shardings=)`` bring each leaf back as a DTensor
+    with the requested ``(mesh, placements)``, whatever layout it was
+    saved from.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["CheckpointManager"]
 
@@ -60,8 +66,24 @@ def _unflatten(like: Any, leaves: list[Any]) -> Any:
     return leaves.pop(0)
 
 
+def _pick(like: Any, tree: Any) -> list[Any]:
+    """The nodes of ``tree`` at the leaf positions of ``like`` (a
+    ``shardings`` tree, whose leaves are ``(mesh, placements)`` pairs or
+    None), in ``_flatten``'s order."""
+    if isinstance(like, dict):
+        return [n for k in sorted(like) for n in _pick(like[k], tree[k])]
+    if isinstance(like, (tuple, list)):
+        return [n for a, b in zip(like, tree) for n in _pick(a, b)]
+    if like is None:
+        return []
+    return [tree]
+
+
 def _to_host(leaf: Any) -> np.ndarray:
-    """A host copy of ``leaf`` that later changes to it cannot reach."""
+    """A host copy of ``leaf`` that later changes to it cannot reach (a
+    DTensor's whole value)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf)
@@ -151,11 +173,15 @@ class CheckpointManager:
         except ValueError:
             return None
 
-    def restore(self, step: int, like: Any, *, verify: bool = True) -> Any:
+    def restore(self, step: int, like: Any, *, shardings: Any | None = None,
+                verify: bool = True) -> Any:
         """Restore into the structure of ``like`` (nested dicts, tuples and
         lists of tensors or arrays).  Each leaf comes back as a tensor in
         its saved dtype, on the device of ``like``'s leaf when that is a
-        tensor, else on the CPU."""
+        tensor, else on the CPU.  ``shardings``, a tree of ``like``'s
+        structure with ``(mesh, placements)`` leaves, brings each leaf
+        back as a DTensor with exactly those placements: every rank reads
+        the whole leaf and keeps its own shard, with no communication."""
         base = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(base, "manifest.json")) as f:
             manifest = json.load(f)
@@ -164,28 +190,39 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, "
                 f"target structure has {len(targets)}")
+        shards = (_pick(like, shardings) if shardings is not None
+                  else [None] * len(targets))
         out = []
-        for entry, tgt in zip(manifest["leaves"], targets):
+        for entry, tgt, shd in zip(manifest["leaves"], targets, shards):
             path = os.path.join(base, entry["file"])
             if verify and _sha256(path) != entry["sha256"]:
                 raise IOError(f"checksum mismatch in {path}")
             arr = np.load(path)
-            if tuple(arr.shape) != tuple(np.shape(tgt)):
+            want = tuple(tgt.shape if isinstance(tgt, torch.Tensor)
+                         else np.shape(tgt))
+            if tuple(arr.shape) != want:
                 raise ValueError(f"shape mismatch {arr.shape} vs "
-                                 f"{tuple(np.shape(tgt))} for "
+                                 f"{want} for "
                                  f"{entry['file']}")
+            if shd is not None:
+                mesh, placements = shd
+                out.append(distribute_tensor(torch.from_numpy(arr), mesh,
+                                             placements, src_data_rank=None))
+                continue
             dev = tgt.device if isinstance(tgt, torch.Tensor) else "cpu"
             out.append(torch.from_numpy(arr).to(dev))
         return _unflatten(like, out)
 
-    def restore_latest(self, like: Any, *, allow_fallback: bool = True):
+    def restore_latest(self, like: Any, *, shardings: Any | None = None,
+                       allow_fallback: bool = True):
         """Returns (step, tree) from the newest valid checkpoint, walking
-        backwards past corrupted ones when ``allow_fallback``."""
+        backwards past corrupted ones when ``allow_fallback``; with
+        ``shardings`` as in :meth:`restore`."""
         candidates = sorted(self.steps(), reverse=True)
         last_err: Exception | None = None
         for step in candidates:
             try:
-                return step, self.restore(step, like)
+                return step, self.restore(step, like, shardings=shardings)
             except (OSError, ValueError, KeyError) as e:
                 # corrupted or incomplete -> try older
                 last_err = e

@@ -16,10 +16,14 @@ cProfile with FFT/conv-named functions attributed to the accelerator):
 The reference walks a jaxpr instead.  Counting eagerly changes three
 things.  A Python loop runs and is counted trip by trip, so the
 reference's ``scan`` multiplier is implicit and its
-``__while_unknown_trips__`` flag never appears; a branch counts the side
-that ran, where the reference's ``cond`` averages its branches.  Shapes
-alone are counted by passing tensors on ``device="meta"``, the
-counterpart of the reference's ``ShapeDtypeStruct`` arguments.
+``__while_unknown_trips__`` flag never appears (where a shape-only run
+would walk a long loop over time, the xLSTM cells on ``meta``, the model
+runs one trip under :func:`repeated` instead, which multiplies what that
+trip counts, forward and backward, by the trip count); a branch counts
+the side that ran, where the reference's ``cond`` averages its
+branches.  Shapes alone are counted by passing tensors on
+``device="meta"``, the counterpart of the reference's
+``ShapeDtypeStruct`` arguments.
 
 The port's hand-written kernels launch through ``ctypes`` and dispatch no
 aten op, so a dispatch mode cannot see them.  Their wrappers are
@@ -42,8 +46,8 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["OpProfiler", "flops_by_category", "traffic_bytes",
-           "OFFLOADABLE_CATEGORIES"]
+__all__ = ["OpProfiler", "flops_by_category", "traffic_bytes", "counted",
+           "repeated", "OFFLOADABLE_CATEGORIES"]
 
 OFFLOADABLE_CATEGORIES = ("fft", "conv", "matmul")
 
@@ -222,6 +226,7 @@ class _Counter(TorchDispatchMode):
         self.flops: dict[str, float] = collections.defaultdict(float)
         self.bytes = 0.0
         self._paused = 0
+        self.trips = 1      # what one op counts for (``repeated``)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -231,16 +236,18 @@ class _Counter(TorchDispatchMode):
         outs = _tensors(out)
         p = func.overloadpacket
         if p in _MATMUL:
-            self.flops["matmul"] += _matmul_flops(func, args)
+            cat, n = "matmul", _matmul_flops(func, args)
         elif _is_sdpa(func):
-            self.flops["matmul"] += _sdpa_flops(args)
+            cat, n = "matmul", _sdpa_flops(args)
         elif p is _aten.convolution:
-            self.flops["conv"] += _conv_flops(args, outs[0])
+            cat, n = "conv", _conv_flops(args, outs[0])
         elif p in _FFT:
-            self.flops["fft"] += _fft_flops(func, args, outs[0])
+            cat, n = "fft", _fft_flops(func, args, outs[0])
         else:
-            self.flops["other"] += float(sum(t.numel() for t in outs))
-        self.bytes += _bytes(_tensors((args, kwargs))) + _bytes(outs)
+            cat, n = "other", float(sum(t.numel() for t in outs))
+        self.flops[cat] += self.trips * n
+        self.bytes += self.trips * (_bytes(_tensors((args, kwargs)))
+                                    + _bytes(outs))
         return out
 
     def charge_kernel(self, work: dict[str, float], fn: Callable,
@@ -259,16 +266,39 @@ class _Counter(TorchDispatchMode):
             self._paused -= 1
         outs = _tensors(out)
         for cat, v in work.items():
-            self.flops[cat] += v
-        self.flops["other"] += float(sum(t.numel() for t in outs))
-        self.bytes += _bytes(_tensors((args, kwargs))) + _bytes(outs)
+            self.flops[cat] += self.trips * v
+        self.flops["other"] += self.trips * float(sum(t.numel()
+                                                      for t in outs))
+        self.bytes += self.trips * (_bytes(_tensors((args, kwargs)))
+                                    + _bytes(outs))
         return out
 
 
-def _count(fn: Callable, args, kwargs) -> _Counter:
+@contextlib.contextmanager
+def repeated(trips: int):
+    """Count every op run inside as ``trips`` ops, in each active
+    counting mode (nothing changes when none is active): a loop body run
+    once stands for the whole loop, the reference's scan multiplier."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, _Counter)]
+    for m in modes:
+        m.trips *= trips
+    try:
+        yield
+    finally:
+        for m in modes:
+            m.trips //= trips
+
+
+def counted(fn: Callable, *args, **kwargs
+            ) -> tuple[dict[str, float], float, Any]:
+    """One counted run of ``fn``: (its FLOPs by category, as
+    :func:`flops_by_category` gives them; its bytes, as
+    :func:`traffic_bytes` gives them; what ``fn`` returned)."""
     with _Counter() as counter:
-        fn(*args, **kwargs)
-    return counter
+        out = fn(*args, **kwargs)
+    return dict(counter.flops), counter.bytes, out
 
 
 def traffic_bytes(fn: Callable, *args, **kwargs) -> float:
@@ -277,7 +307,7 @@ def traffic_bytes(fn: Callable, *args, **kwargs) -> float:
     chain is counted op by op), so this is an *upper bound* on HBM
     traffic, and the consistent numerator for a roofline's memory term.
     View ops move nothing and count nothing."""
-    return _count(fn, args, kwargs).bytes
+    return counted(fn, *args, **kwargs)[1]
 
 
 def flops_by_category(fn: Callable, *args, **kwargs) -> dict[str, float]:
@@ -290,4 +320,4 @@ def flops_by_category(fn: Callable, *args, **kwargs) -> dict[str, float]:
     accelerator — the paper's best-case methodology).  Only categories
     that occurred are keys.
     """
-    return dict(_count(fn, args, kwargs).flops)
+    return counted(fn, *args, **kwargs)[0]

@@ -5,8 +5,8 @@ Batches are pure functions of ``(seed, step)``: each step seeds its own
 state is one integer, and a restart re-produces bit-identical batches with
 no data-loader state files.  The draws are torch's, not ``jax.random``'s,
 so the two packages give different batches from one seed; parity tests
-hand both the same tokens.  The reference's ``make_batch_sharding`` (a JAX
-mesh) waits for the distributed port (``ROADMAP.md``).
+hand both the same tokens.  ``make_batch_sharding`` gives the batch's
+layout on a device mesh, as ``(mesh, placements)``.
 
 Two sources:
   * ``SyntheticTask``  — uniform random tokens (shape/throughput testing).
@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["SyntheticTask", "MarkovTask"]
+__all__ = ["SyntheticTask", "MarkovTask", "make_batch_sharding"]
 
 
 def _generator(seed: int, step: int) -> torch.Generator:
@@ -91,3 +91,11 @@ class MarkovTask:
     def entropy_floor_nats(self) -> float:
         """CE floor for a perfect model: log(branching) (uniform choices)."""
         return float(np.log(self.branching))
+
+
+def make_batch_sharding(mesh) -> tuple:
+    """(mesh, placements) of a batch whose dim 0 is sharded over every
+    data-like mesh axis (``pod`` and ``data``), the rest replicated."""
+    from repro_torch.distributed.sharding import placements
+    axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    return mesh, placements((axes if axes else None,), mesh)

@@ -18,7 +18,7 @@ import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 __all__ = ["WARP", "SM_COUNT", "SMEM_PER_BLOCK", "VECTOR_BYTES",
-           "pick_block", "charged"]
+           "pick_block", "charged", "counting"]
 
 # H100 SXM (NVIDIA data sheet): a warp is 32 threads; a block may use
 # 232,448 bytes of dynamic shared memory; 132 SMs; 16-byte vector loads.
@@ -43,6 +43,21 @@ def pick_block(dim: int, preferred: int, align: int) -> int:
     return b if dim % b == 0 else dim
 
 
+def _counting_mode():
+    """The active counting mode (``core.profiler``'s FLOP count), or None.
+    With no dispatch mode active this is one C call."""
+    if torch._C._len_torch_dispatch_stack():
+        for mode in _get_current_dispatch_mode_stack():
+            if hasattr(mode, "charge_kernel"):
+                return mode
+    return None
+
+
+def counting() -> bool:
+    """True under a counting mode (``core.profiler``'s FLOP count)."""
+    return _counting_mode() is not None
+
+
 def charged(work: Callable[..., dict[str, float]] | None = None):
     """Decorate a kernel wrapper so that ``core.profiler``'s FLOP count
     sees it.
@@ -58,12 +73,11 @@ def charged(work: Callable[..., dict[str, float]] | None = None):
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            if torch._C._len_torch_dispatch_stack():
-                for mode in _get_current_dispatch_mode_stack():
-                    if hasattr(mode, "charge_kernel"):
-                        return mode.charge_kernel(
-                            work(*args, **kwargs) if work else {}, fn,
-                            *args, **kwargs)
+            mode = _counting_mode()
+            if mode is not None:
+                return mode.charge_kernel(
+                    work(*args, **kwargs) if work else {}, fn,
+                    *args, **kwargs)
             return fn(*args, **kwargs)
         return call
     return wrap

@@ -69,7 +69,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.common import charged
+from repro_torch.kernels.common import charged, counting
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
            "reset_launches", "route", "shape_key", "ROUTES"]
@@ -234,6 +234,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _attention_backward_work(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *_, **__) -> dict[str, float]:
+    """What the reference's autodiff of its chunked attention counts for
+    the backward of the same call (measured against its walk): the scores
+    recomputed and the four gradient products, 2·BH·Lq·Lk·(3D + 2Dv)
+    matmul FLOPs, the flash backward's own work; and 'other', ten
+    elementwise passes over the scores and the three gradients written."""
+    scores = math.prod(q.shape[:-1]) * k.shape[-2]     # BH·Lq·Lk
+    return {"matmul": 2.0 * scores * (3 * q.shape[-1] + 2 * v.shape[-1]),
+            "other": 10.0 * scores + q.numel() + k.numel() + v.numel()}
+
+
+@charged(_attention_backward_work)
 def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
               scale: float, window: int, causal: bool, kv_groups: int,
@@ -286,6 +299,43 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+@charged(_attention_backward_work)
+def _plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor) -> tuple:
+    """The plain version's backward, run by autograd over the graph its
+    forward built (``_PlainAttention``)."""
+    want = [t for t in (q, k, v) if t.requires_grad]
+    got = iter(torch.autograd.grad(out, want, dout))
+    return tuple(next(got) if t.requires_grad else None for t in (q, k, v))
+
+
+class _PlainAttention(torch.autograd.Function):
+    """The plain version under a FLOP count: its backward is charged as
+    the kernel's is (``_attention_backward_work``), so a count of a
+    training step is the same on the CPU, on ``meta`` and on the card.
+    The forward builds the plain version's graph on its own inputs (no
+    saved-tensor hooks of an enclosing checkpoint reach it, so its
+    backward never recomputes the checkpointed region), and the backward
+    differentiates it: the same numbers as the plain version's
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, causal, kv_groups):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip((q, k, v), ctx.needs_input_grad)]
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: t, lambda t: t):
+            out = local_flash_attention_plain(
+                *ins, scale=scale, window=window, causal=causal,
+                kv_groups=kv_groups)
+        ctx.ins, ctx.out = ins, out
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _plain_backward(*ctx.ins, ctx.out, dout) + (None,) * 4
+
+
 def _attention_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     **_) -> dict[str, float]:
     """What the reference's model path counts for the same call: its dense
@@ -325,7 +375,8 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     by route and head dim); unlike the reference's Pallas kernel it takes
     no block sizes.
     Gradients flow to q, k and v: through the CUDA backward on the card,
-    through the plain version's autograd on the CPU.
+    through the plain version's autograd on the CPU.  Under a FLOP count
+    (``core.profiler``) the backward is charged as the forward is.
     """
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3 \
             or v.shape[:2] != k.shape[:2] \
@@ -349,6 +400,10 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     if _on_cpu(q, k, v):
+        if counting() and torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            return _PlainAttention.apply(q, k, v, scale, window, causal,
+                                         kv_groups)
         return local_flash_attention_plain(q, k, v, scale=scale,
                                            window=window, causal=causal,
                                            kv_groups=kv_groups)

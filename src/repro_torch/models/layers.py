@@ -95,7 +95,14 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens].to(cfg.activation_dtype)
+    """The rows of ``embed`` at ``tokens``, through ``F.embedding``, whose
+    forward and backward DTensor also implements for a vocab-sharded
+    table (under a mesh).  The cast copies even where the dtypes agree:
+    a vocab-sharded lookup gives a masked partial sum, which the cast
+    then reduces as an op of its own; left to a later redistribute, its
+    backward would have to turn a partial-sum gradient back into the
+    masked partial, which DTensor refuses."""
+    return F.embedding(tokens, embed).to(cfg.activation_dtype, copy=True)
 
 
 def _ce_chunk(xc: torch.Tensor, lc: torch.Tensor, hw: torch.Tensor,
@@ -103,11 +110,15 @@ def _ce_chunk(xc: torch.Tensor, lc: torch.Tensor, hw: torch.Tensor,
     """(sum of CE over valid positions, number of valid positions) of one
     sequence chunk: xc (B, sc, D), lc (B, sc)."""
     logits = (xc @ hw.T).to(torch.float32)               # (B, sc, Vp)
+    col = torch.arange(hw.shape[0], device=xc.device)
     if hw.shape[0] != vocab:
-        col = torch.arange(hw.shape[0], device=xc.device)
         logits = torch.where(col < vocab, logits, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    lbl = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    # the label's logit by a masked sum over the vocab, as the reference
+    # picks it: it also works on vocab-sharded logits (under a mesh), and
+    # adds exact zeros
+    lbl = torch.sum(torch.where(col == lc.clamp(min=0)[..., None], logits,
+                                0.0), dim=-1)
     valid = (lc >= 0).to(torch.float32)
     return torch.sum((lse - lbl) * valid), torch.sum(valid)
 

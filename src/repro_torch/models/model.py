@@ -4,7 +4,9 @@ The reference compiles the stack as ``prefix + lax.scan over super-blocks
 + tail``; the port walks the same stacked parameters with a Python loop
 over the layer axis (one ``unbind`` of each stacked leaf per traversal,
 so that backward stacks the layers' gradients once).  Its sharding
-constraints are identity off a mesh and are left out.  The port runs the
+constraints are the reference's (``distributed.sharding.constrain`` on the
+embedded inputs, ``constrain_residual`` at each block's entry): the
+identity off a mesh, a DTensor redistribute under one.  The port runs the
 ``attn`` block kind (GQA or MLA attention, a dense MLP or a mixture of
 experts) and the recurrent kinds ``rglru``, ``mlstm`` and ``slstm``.  A
 MoE config's attention blocks take the experts except in the ``prefix``
@@ -66,6 +68,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import constrain, constrain_residual
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
@@ -115,6 +118,7 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     """One block of ``kind`` over the whole sequence (an attention block
     cross-attends to ``enc_out`` when it has ``xattn``; ``causal`` False
     for the encoder's).  Returns (x, aux_loss or None, cache_or_None)."""
+    x = constrain_residual(x)
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
     if kind == "attn" and cfg.mla is not None:
@@ -263,6 +267,7 @@ class LM:
                 pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
                                  device=labels.device)
                 labels = torch.cat([pad, labels], dim=1)
+        x = constrain(x, ("pod", "data"), None, None)
         return x, labels, enc_out
 
     def _encode(self, params: dict, frames: torch.Tensor, *,

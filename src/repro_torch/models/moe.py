@@ -7,9 +7,9 @@ an expert's capacity C = ceil(S*k*cf / E) are dropped (standard
 capacity-factor semantics: a dropped slot adds nothing, and its token
 keeps the residual).  The gathered (B, E, C, D) activations go through
 the three expert products batched over experts, as the reference's
-``jnp.einsum``s (outside any kernel there too).  The reference's sharding
-constraint on the gathered activations is identity off a mesh and is
-left out.
+``jnp.einsum``s (outside any kernel there too).  Under ``ep`` sharding
+the gathered activations are constrained to (data, model, ., .), the
+expert dim over ``model``, as in the reference: the identity off a mesh.
 
 Every shape depends on the config and the input's shape only (no
 ``nonzero``, no ``.item()``), so a count on the ``meta`` device sees the
@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["moe_apply", "capacity"]
@@ -118,6 +119,8 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     gx = torch.gather(xp, 1, slot_tok[..., None].expand(b, e * cap, d))
     gx = gx.reshape(b, e, cap, d)
+    if m.shard_mode == "ep":
+        gx = constrain(gx, ("pod", "data"), "model", None, None)
 
     w_in = p["we_in"].to(x.dtype)
     w_gate = p["we_gate"].to(x.dtype)

@@ -5,16 +5,29 @@ reference's tree layout (``embed``, ``final_norm``, ``head`` and the
 repeated super-blocks stacked on a leading layer axis under ``stack``).
 From the same template tree come (a) real initialized tensors
 (:func:`init_params`, from an explicit ``torch.Generator``), (b) exact
-parameter counts (:func:`param_counts`), and (c) the shapes
+parameter counts (:func:`param_counts`), (c) the shapes
 ``repro_torch.convert.lm_params_from_numpy`` checks a carried-over tree
-against.  The blocks are the reference's: attention (GQA or
-DeepSeek-V3's MLA, with a dense MLP or a mixture of experts; an
+against, (d) ``meta`` tensors standing in for the parameters
+(:func:`param_shape_structs`, for the shape-only dry run) and (e) the
+partition-spec trees (:func:`param_pspecs`) that
+``repro_torch.distributed.sharding`` maps onto a device mesh.  The
+blocks are the reference's: attention (GQA or DeepSeek-V3's MLA, with a
+dense MLP or a mixture of experts; an
 encoder-decoder config's decoder blocks add ``ln_x`` and a GQA
 cross-attention ``xattn``), and the recurrent RG-LRU, mLSTM and sLSTM.
 An encoder-decoder config adds the ``encoder`` (a stack of dense
 attention blocks and its ``final_norm``), and a config with a frontend
 (audio frames or vision patches) its linear ``frontend.adapter``.
-Sharding specs wait for the distributed port.
+
+Sharding convention (mesh axes ``pod``/``data``/``model``), the
+reference's: each leaf's ``pspec`` names one logical axis (or None) per
+dim.  Vocab tables shard the padded vocab over ``model``; attention and
+MLP follow Megatron TP (column-parallel in, row-parallel out); MoE
+experts shard the expert dim (``ep``) or each expert's ffn dim (``tp``);
+recurrent inner widths shard over ``model`` when divisible (xlstm-125m's
+mLSTM replicates).  A spec is plain data, a tuple of axis names or None
+per dim, so that it compares leaf for leaf with the reference's
+``PartitionSpec``.
 """
 
 from __future__ import annotations
@@ -28,7 +41,8 @@ import torch
 from repro_torch.models.config import ModelConfig, torch_dtype
 
 __all__ = ["ParamSpec", "model_templates", "init_params", "param_counts",
-           "compute_params", "map_tree", "leaves"]
+           "compute_params", "map_tree", "leaves", "param_shape_structs",
+           "param_pspecs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +50,10 @@ class ParamSpec:
     shape: tuple[int, ...]
     init: str = "fan_in"      # fan_in | normal02 | zeros | ones | lru_lambda
     dtype: str | None = None  # override config.param_dtype
+    # one logical mesh axis (or None) per dim; keyword only, so that the
+    # positional (shape, init, dtype) keep their meaning
+    pspec: tuple[Any, ...] | None = dataclasses.field(default=None,
+                                                      kw_only=True)
 
 
 def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -60,7 +78,7 @@ def leaves(tree: Any, path: tuple[str, ...] = ()):
 
 
 def _norm(d: int) -> ParamSpec:
-    return ParamSpec((d,), "ones")
+    return ParamSpec((d,), "ones", pspec=(None,))
 
 
 def _mlp_templates(cfg: ModelConfig, dense: bool) -> dict[str, ParamSpec]:
@@ -71,21 +89,27 @@ def _mlp_templates(cfg: ModelConfig, dense: bool) -> dict[str, ParamSpec]:
     if cfg.moe is not None and not dense:
         m = cfg.moe
         fe, fs = m.d_expert, (m.d_shared or m.d_expert) * max(m.n_shared, 1)
+        if m.shard_mode == "ep":
+            e_in, e_out = ("model", None, None), ("model", None, None)
+        else:  # tp: shard each expert's ffn dim
+            e_in, e_out = (None, None, "model"), (None, "model", None)
         t = {
-            "router": ParamSpec((d, m.n_routed), "normal02"),
-            "we_in": ParamSpec((m.n_routed, d, fe)),
-            "we_gate": ParamSpec((m.n_routed, d, fe)),
-            "we_out": ParamSpec((m.n_routed, fe, d)),
+            "router": ParamSpec((d, m.n_routed), "normal02",
+                                pspec=(None, None)),
+            "we_in": ParamSpec((m.n_routed, d, fe), pspec=e_in),
+            "we_gate": ParamSpec((m.n_routed, d, fe), pspec=e_in),
+            "we_out": ParamSpec((m.n_routed, fe, d), pspec=e_out),
         }
         if m.n_shared:
-            t.update({"ws_in": ParamSpec((d, fs)),
-                      "ws_gate": ParamSpec((d, fs)),
-                      "ws_out": ParamSpec((fs, d))})
+            t.update({"ws_in": ParamSpec((d, fs), pspec=(None, "model")),
+                      "ws_gate": ParamSpec((d, fs), pspec=(None, "model")),
+                      "ws_out": ParamSpec((fs, d), pspec=("model", None))})
         return t
     f = cfg.d_ff
-    t = {"w_in": ParamSpec((d, f)), "w_out": ParamSpec((f, d))}
+    t = {"w_in": ParamSpec((d, f), pspec=(None, "model")),
+         "w_out": ParamSpec((f, d), pspec=("model", None))}
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        t["w_gate"] = ParamSpec((d, f))
+        t["w_gate"] = ParamSpec((d, f), pspec=(None, "model"))
     return t
 
 
@@ -96,27 +120,30 @@ def _attn_templates(cfg: ModelConfig,
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if cfg.mla is not None and not cross:
         m = cfg.mla
+        col, row = (None, "model"), ("model", None)
         return {
-            "w_dq": ParamSpec((d, m.q_lora_rank)),
+            "w_dq": ParamSpec((d, m.q_lora_rank), pspec=(None, None)),
             "q_norm": _norm(m.q_lora_rank),
-            "w_uq": ParamSpec((m.q_lora_rank, h * m.qk_head_dim)),
-            "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+            "w_uq": ParamSpec((m.q_lora_rank, h * m.qk_head_dim), pspec=col),
+            "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                               pspec=(None, None)),
             "kv_norm": _norm(m.kv_lora_rank),
-            "w_uk": ParamSpec((m.kv_lora_rank, h * m.qk_nope_head_dim)),
-            "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim)),
-            "w_o": ParamSpec((h * m.v_head_dim, d)),
+            "w_uk": ParamSpec((m.kv_lora_rank, h * m.qk_nope_head_dim),
+                              pspec=col),
+            "w_uv": ParamSpec((m.kv_lora_rank, h * m.v_head_dim), pspec=col),
+            "w_o": ParamSpec((h * m.v_head_dim, d), pspec=row),
         }
     t = {
-        "w_q": ParamSpec((d, h * hd)),
-        "w_k": ParamSpec((d, hk * hd)),
-        "w_v": ParamSpec((d, hk * hd)),
-        "w_o": ParamSpec((h * hd, d)),
+        "w_q": ParamSpec((d, h * hd), pspec=(None, "model")),
+        "w_k": ParamSpec((d, hk * hd), pspec=(None, "model")),
+        "w_v": ParamSpec((d, hk * hd), pspec=(None, "model")),
+        "w_o": ParamSpec((h * hd, d), pspec=("model", None)),
     }
     if cfg.attn_bias:
         t.update({
-            "b_q": ParamSpec((h * hd,), "zeros"),
-            "b_k": ParamSpec((hk * hd,), "zeros"),
-            "b_v": ParamSpec((hk * hd,), "zeros"),
+            "b_q": ParamSpec((h * hd,), "zeros", pspec=("model",)),
+            "b_k": ParamSpec((hk * hd,), "zeros", pspec=("model",)),
+            "b_v": ParamSpec((hk * hd,), "zeros", pspec=("model",)),
         })
     return t
 
@@ -124,17 +151,19 @@ def _attn_templates(cfg: ModelConfig,
 def _rglru_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     d = cfg.d_model
     w = cfg.lru_width or d
+    sh = "model" if w % 128 == 0 else None
     return {
-        "w_y": ParamSpec((d, w)),
-        "w_x": ParamSpec((d, w)),
-        "conv_w": ParamSpec((cfg.conv1d_width, w), "normal02"),
-        "conv_b": ParamSpec((w,), "zeros"),
-        "w_a": ParamSpec((w, w)),
-        "b_a": ParamSpec((w,), "zeros"),
-        "w_i": ParamSpec((w, w)),
-        "b_i": ParamSpec((w,), "zeros"),
-        "lam": ParamSpec((w,), "lru_lambda"),
-        "w_ro": ParamSpec((w, d)),
+        "w_y": ParamSpec((d, w), pspec=(None, sh)),
+        "w_x": ParamSpec((d, w), pspec=(None, sh)),
+        "conv_w": ParamSpec((cfg.conv1d_width, w), "normal02",
+                            pspec=(None, sh)),
+        "conv_b": ParamSpec((w,), "zeros", pspec=(sh,)),
+        "w_a": ParamSpec((w, w), pspec=(None, sh)),
+        "b_a": ParamSpec((w,), "zeros", pspec=(sh,)),
+        "w_i": ParamSpec((w, w), pspec=(None, sh)),
+        "b_i": ParamSpec((w,), "zeros", pspec=(sh,)),
+        "lam": ParamSpec((w,), "lru_lambda", pspec=(sh,)),
+        "w_ro": ParamSpec((w, d), pspec=(sh, None)),
     }
 
 
@@ -143,20 +172,21 @@ def _mlstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     d = cfg.d_model
     di = 2 * d
     h = cfg.n_heads
+    two, one = (None, None), (None,)   # 125M-class: DP only, replicated
     return {
-        "w_up": ParamSpec((d, di)),
-        "w_gate_up": ParamSpec((d, di)),
-        "conv_w": ParamSpec((cfg.conv1d_width, di), "normal02"),
-        "conv_b": ParamSpec((di,), "zeros"),
-        "w_q": ParamSpec((di, di)),
-        "w_k": ParamSpec((di, di)),
-        "w_v": ParamSpec((di, di)),
-        "w_if": ParamSpec((di, h), "normal02"),
-        "b_if": ParamSpec((h,), "zeros"),
-        "w_ff": ParamSpec((di, h), "normal02"),
-        "b_ff": ParamSpec((h,), "zeros"),
-        "skip_scale": ParamSpec((di,), "ones"),
-        "w_down": ParamSpec((di, d)),
+        "w_up": ParamSpec((d, di), pspec=two),
+        "w_gate_up": ParamSpec((d, di), pspec=two),
+        "conv_w": ParamSpec((cfg.conv1d_width, di), "normal02", pspec=two),
+        "conv_b": ParamSpec((di,), "zeros", pspec=one),
+        "w_q": ParamSpec((di, di), pspec=two),
+        "w_k": ParamSpec((di, di), pspec=two),
+        "w_v": ParamSpec((di, di), pspec=two),
+        "w_if": ParamSpec((di, h), "normal02", pspec=two),
+        "b_if": ParamSpec((h,), "zeros", pspec=one),
+        "w_ff": ParamSpec((di, h), "normal02", pspec=two),
+        "b_ff": ParamSpec((h,), "zeros", pspec=one),
+        "skip_scale": ParamSpec((di,), "ones", pspec=one),
+        "w_down": ParamSpec((di, d), pspec=two),
     }
 
 
@@ -167,14 +197,15 @@ def _slstm_templates(cfg: ModelConfig) -> dict[str, ParamSpec]:
     h = cfg.n_heads
     hd = d // h
     f = ((4 * d // 3) + 127) // 128 * 128
+    sh = "model" if f % 128 == 0 else None
     t: dict[str, ParamSpec] = {}
     for g in ("i", "f", "z", "o"):
-        t[f"w_{g}"] = ParamSpec((d, d))
-        t[f"r_{g}"] = ParamSpec((h, hd, hd))
-        t[f"b_{g}"] = ParamSpec((d,), "zeros")
-    t["ffn_in"] = ParamSpec((d, f))
-    t["ffn_gate"] = ParamSpec((d, f))
-    t["ffn_out"] = ParamSpec((f, d))
+        t[f"w_{g}"] = ParamSpec((d, d), pspec=(None, None))
+        t[f"r_{g}"] = ParamSpec((h, hd, hd), pspec=(None, None, None))
+        t[f"b_{g}"] = ParamSpec((d,), "zeros", pspec=(None,))
+    t["ffn_in"] = ParamSpec((d, f), pspec=(None, sh))
+    t["ffn_gate"] = ParamSpec((d, f), pspec=(None, sh))
+    t["ffn_out"] = ParamSpec((f, d), pspec=(sh, None))
     return t
 
 
@@ -205,9 +236,10 @@ def block_templates(cfg: ModelConfig, kind: str, dense: bool,
 
 
 def _stack(tree: dict, n: int) -> dict:
-    """Prepend a layer axis of length n to every leaf spec."""
-    return map_tree(lambda s: ParamSpec((n,) + s.shape, s.init, s.dtype),
-                    tree)
+    """Prepend a layer axis of length n (never sharded) to every leaf
+    spec."""
+    return map_tree(lambda s: ParamSpec((n,) + s.shape, s.init, s.dtype,
+                                        pspec=(None,) + s.pspec), tree)
 
 
 def model_templates(cfg: ModelConfig) -> dict:
@@ -215,11 +247,11 @@ def model_templates(cfg: ModelConfig) -> dict:
     d, vp = cfg.d_model, cfg.padded_vocab
     cross = cfg.is_encdec
     t: dict[str, Any] = {
-        "embed": ParamSpec((vp, d), "normal02"),
+        "embed": ParamSpec((vp, d), "normal02", pspec=("model", None)),
         "final_norm": _norm(d),
     }
     if not cfg.tie_embeddings:
-        t["head"] = ParamSpec((vp, d), "normal02")
+        t["head"] = ParamSpec((vp, d), "normal02", pspec=("model", None))
     if plan.prefix:
         t["prefix"] = {f"{i}_{k}": block_templates(cfg, k, dense=True,
                                                    cross_attn=cross)
@@ -237,7 +269,7 @@ def model_templates(cfg: ModelConfig) -> dict:
         t["encoder"] = {"stack": _stack(enc, cfg.encoder_layers),
                         "final_norm": _norm(d)}
     if cfg.frontend is not None:
-        t["frontend"] = {"adapter": ParamSpec((d, d))}
+        t["frontend"] = {"adapter": ParamSpec((d, d), pspec=(None, None))}
     return t
 
 
@@ -331,6 +363,50 @@ def compute_params(cfg: ModelConfig, params: dict) -> dict:
         return node.to(act) if key in _MATMUL_KEYS else node
 
     return walk(params, None)
+
+
+def param_shape_structs(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors: each leaf's shape and dtype
+    (the config's ``param_dtype`` unless the template overrides it), no
+    storage."""
+    dtype = torch_dtype(cfg.param_dtype)
+    return map_tree(
+        lambda s: torch.empty(s.shape, device="meta",
+                              dtype=torch_dtype(s.dtype) if s.dtype
+                              else dtype),
+        model_templates(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, *, fsdp_size: int = 0,
+                 tp_size: int = 16) -> dict:
+    """The partition-spec tree: per leaf a tuple of one axis name (or None)
+    per dim, the reference's ``param_pspecs`` as plain data.
+
+    ``model`` is dropped where ``tp_size`` does not divide its dim.
+    ``fsdp_size`` > 0 (the bf16 configs of 30B and more) puts ``data`` on
+    each leaf's largest still-free dim that ``fsdp_size`` divides and that
+    is at least ``4 * fsdp_size`` long: ZeRO-3 style, the layer's weights
+    are gathered just before use.  The layer axis of a stacked leaf is
+    never FSDP-sharded, and FSDP never spans ``pod``.
+    """
+    def to_pspec(spec: ParamSpec, stacked: bool) -> tuple:
+        axes = [None if ax == "model" and dim % tp_size else ax
+                for ax, dim in zip(spec.pspec, spec.shape)]
+        if fsdp_size:
+            cands = [i for i in range(1 if stacked else 0, len(axes))
+                     if axes[i] is None and spec.shape[i] % fsdp_size == 0
+                     and spec.shape[i] >= 4 * fsdp_size]
+            if cands:
+                axes[max(cands, key=lambda i: spec.shape[i])] = "data"
+        return tuple(axes)
+
+    def walk(node: Any, under_stack: bool) -> Any:
+        if isinstance(node, ParamSpec):
+            return to_pspec(node, under_stack)
+        return {k: walk(v, under_stack or k == "stack")
+                for k, v in node.items()}
+
+    return walk(model_templates(cfg), False)
 
 
 def param_counts(cfg: ModelConfig) -> tuple[int, int]:

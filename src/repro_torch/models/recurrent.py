@@ -14,7 +14,11 @@ does.  Full-sequence paths:
     (their gate stabilization is not associative); their states are
     O(d^2/head) and O(d).  The mLSTM state C is (B, H, dh, dh) in fp32:
     autograd keeps it for every step of a block, so training bounds it
-    by checkpointing each block (``LM.loss``'s remat).
+    by checkpointing each block (``LM.loss``'s remat).  On the ``meta``
+    device (the shape-only dry run) the loop is not walked: one step runs
+    under ``core.profiler.repeated`` and stands for all of them, forward
+    and backward (:func:`_time_loop`), so a 32k-token prefill counts as
+    fast as a short one.
 
 The reference's fp32 islands are kept: gates and states in fp32, ``m``
 starting at -1e30, ``max(|n.q|, 1)``, and log sigmoid written
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.profiler import repeated
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv1d
 
@@ -131,6 +136,69 @@ def rglru_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict):
                       return_state=True)
 
 
+# --- loops over time ---------------------------------------------------------------
+
+
+class _Repeated(torch.autograd.Function):
+    """One step of a loop over time that stands for ``trips`` steps in a
+    count: its forward and its backward both run under ``repeated``.
+    The step's graph is built inside the forward, where no saved-tensor
+    hooks of an enclosing checkpoint reach it, and differentiated in the
+    backward, so no step (and no checkpointed region) is recomputed
+    there."""
+
+    @staticmethod
+    def forward(ctx, step, trips, n_carry, n_x, *tensors):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(tensors, ctx.needs_input_grad[4:])]
+        with torch.enable_grad(), repeated(trips), \
+                torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                         lambda t: t):
+            carry, y = step(tuple(ins[:n_carry]),
+                            tuple(ins[n_carry:n_carry + n_x]),
+                            tuple(ins[n_carry + n_x:]))
+        ctx.ins, ctx.outs, ctx.trips = ins, tuple(carry) + (y,), trips
+        return tuple(o.detach() for o in ctx.outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        pairs = [(o, g) for o, g in zip(ctx.outs, gouts)
+                 if g is not None and o.requires_grad]
+        want = [i for i in ctx.ins if i.requires_grad]
+        got = iter([None] * len(want))
+        if pairs and want:
+            with repeated(ctx.trips):
+                got = iter(torch.autograd.grad(
+                    [o for o, _ in pairs], want, [g for _, g in pairs],
+                    allow_unused=True))
+        return (None,) * 4 + tuple(next(got) if i.requires_grad else None
+                                   for i in ctx.ins)
+
+
+def _time_loop(step, carry: tuple, xs: tuple, ws: tuple = ()):
+    """``carry, y_t = step(carry, (x[:, t] for x in xs), ws)`` for every t
+    of the sequence dim 1.  Returns (the last carry, the y_t stacked on
+    dim 1).  On ``meta`` step 0 runs, then one step stands for the others
+    (``_Repeated``) and its output is broadcast over time: the shapes, and
+    the matmul counts under ``core.profiler``, of the walked loop."""
+    s = xs[0].shape[1]
+    if xs[0].device.type == "meta" and s > 2:
+        # step 0 as it runs (its carry may need no gradient), then one
+        # step standing for the s - 1 others
+        carry, y0 = step(carry, tuple(x[:, 0] for x in xs), ws)
+        outs = _Repeated.apply(step, s - 1, len(carry), len(xs), *carry,
+                               *(x[:, 1] for x in xs), *ws)
+        y = outs[-1].unsqueeze(1)
+        return outs[:-1], torch.cat(
+            [y0.unsqueeze(1), y.expand(y.shape[0], s - 1, *y.shape[2:])],
+            dim=1)
+    ys = []
+    for t in range(s):
+        carry, y = step(carry, tuple(x[:, t] for x in xs), ws)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
 # --- mLSTM (xLSTM matrix memory) ---------------------------------------------------
 
 
@@ -194,12 +262,9 @@ def mlstm_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
         m = torch.full((b, h), -1e30, dtype=torch.float32, device=x.device)
     else:
         c, n, m = state["c"], state["n"], state["m"]
-    hs = []
-    for t in range(s):
-        (c, n, m), ht = _mlstm_step(
-            (c, n, m), (q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t]))
-        hs.append(ht)
-    out = _mlstm_out(p, torch.stack(hs, dim=1), u, gate, x.dtype)
+    (c, n, m), hs = _time_loop(lambda st, xt, _: _mlstm_step(st, xt),
+                               (c, n, m), (q, k, v, i_pre, f_pre))
+    out = _mlstm_out(p, hs, u, gate, x.dtype)
     if return_state:
         return out, {"c": c, "n": n, "m": m, "conv": conv_out}
     return out
@@ -273,12 +338,13 @@ def slstm_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                   device=x.device))
     else:
         st = (state["c"], state["n"], state["h"], state["m"])
-    xw = [x @ p[f"w_{g}"].to(x.dtype) for g in "ifzo"]
-    hs = []
-    for t in range(s):
-        st, ht = _slstm_step(cfg, p, st, [w[:, t] for w in xw])
-        hs.append(ht)
-    out = torch.stack(hs, dim=1).to(x.dtype)          # (B,S,D)
+    xw = tuple(x @ p[f"w_{g}"].to(x.dtype) for g in "ifzo")
+    keys = [f"{w}_{g}" for w in "rb" for g in "ifzo"]   # what a step reads
+    st, hs = _time_loop(
+        lambda st_, xt, ws: _slstm_step(cfg, dict(zip(keys, ws)), st_,
+                                        list(xt)),
+        st, xw, tuple(p[k] for k in keys))
+    out = hs.to(x.dtype)                              # (B,S,D)
     if return_state:
         c, n, h, m = st
         return out, {"c": c, "n": n, "h": h, "m": m}

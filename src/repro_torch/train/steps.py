@@ -8,6 +8,13 @@ detached copy of the parameter leaves (no ``.grad`` state survives a
 step).  Gradient accumulation loops over microbatches with fp32
 accumulators, bounding the activation peak at 1/accum_steps of the global
 batch, as the reference's scan does.
+
+Under a mesh (``distributed.compat.enter_mesh``) the trees may hold
+DTensors, laid out by ``param_pspecs``, ``opt_pspecs`` and
+``batch_pspecs``: the step runs under ``distributed.sharding.mesh_ops``,
+each gradient is brought to its parameter's placements (the sum over the
+data axes), so that the new parameters keep their layout, and the
+metrics come back as whole tensors.
 """
 
 from __future__ import annotations
@@ -15,7 +22,9 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import like_param, mesh_ops
 from repro_torch.models.model import LM
 from repro_torch.models.params import leaves, map_tree
 from repro_torch.optim.base import Optimizer, apply_updates
@@ -51,14 +60,26 @@ def loss_and_grads(model: LM, params: dict, batch: dict, *,
                                   allow_unused=True)
     grads: dict = {}
     for (path, p), g in zip(flat, got):
-        _set_path(grads, path, torch.zeros_like(p) if g is None else g)
+        _set_path(grads, path,
+                  torch.zeros_like(p) if g is None else like_param(g, p))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, grads
+
+
+def _whole(metrics: dict) -> dict:
+    """Metrics as whole tensors: a DTensor metric (a partial sum over the
+    data axes, or a replicated value) gathered; the others as they are."""
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in metrics.items()}
 
 
 def make_train_step(model: LM, optimizer: Optimizer, *, accum_steps: int = 1,
                     remat: bool = True) -> Callable:
     def train_step(params, opt_state, batch, step: int):
+        with mesh_ops():
+            return _train_step(params, opt_state, batch, step)
+
+    def _train_step(params, opt_state, batch, step: int):
         if accum_steps == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch,
                                                   remat=remat)
@@ -80,14 +101,14 @@ def make_train_step(model: LM, optimizer: Optimizer, *, accum_steps: int = 1,
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
-        return new_params, new_opt, metrics
+        return new_params, new_opt, _whole(metrics)
 
     return train_step
 
 
 def make_eval_step(model: LM, *, remat: bool = False) -> Callable:
     def eval_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), mesh_ops():
             loss, metrics = model.loss(params, batch, remat=remat)
-        return {"loss": loss, **metrics}
+            return _whole({"loss": loss, **metrics})
     return eval_step

@@ -379,6 +379,10 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.runtime.sharded, "
             "repro_torch.runtime.trace_export\n"
             "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.compat, "
+            "repro_torch.distributed.specs\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+            "import repro_torch.checkpoint.manager\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
