@@ -101,9 +101,21 @@ and read just after:
   5e-2), the placements kept, kernel 6 launched 48 times forward and 24
   backward a step on the tensor-core route, on the local shards, and held
   to its plain version at that shape; the step's wall and peak memory
-  beside the unmeshed step's; and the shape-only dry run
+  beside the unmeshed step's; and the dry run
   (``python -m repro_torch.launch.dryrun``) of stablelm-1.6b ``train_4k``
-  on both production meshes, in a subprocess.
+  on both production meshes and qwen2-moe-a2.7b ``decode_32k`` on 16x16,
+  in a subprocess: each record's global counts, its partitioned pass on
+  meta DTensors (FLOPs, bytes and collective bytes a device) and its
+  roofline row at the H100's constants, and one cross-entropy chunk's
+  vocab gather counted beside its shape arithmetic;
+* the mesh's serving and the roofline against the card: qwen2-moe-a2.7b
+  at full width and depth, a prefill of 1024 tokens and 16 greedy decode
+  steps unmeshed and on the (1, 1) mesh with params, tokens and cache
+  DTensors, logits, cache and tokens equal (within 1e-6), kernel 6 24
+  times on the tensor-core route through the DTensor path, both runs'
+  walls; and two one-card roofline rows, phase 6's training step and
+  phase 5's decode step counted on ``meta`` here, beside their measured
+  walls and device busy times, no wall below its bound.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -167,6 +179,10 @@ MESH_SHAPE = (1, 1)
 MESH_TOL = 1e-6
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 300
+# the dry run's cells: (arch, shape, meshes), the training cell of the
+# mesh's model on both production meshes and the MoE decode cell on 16x16
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "both"),
+                ("qwen2-moe-a2.7b", "decode_32k", "single"))
 
 # the sharded runtime: 4 logical devices; one conv frame larger than
 # BATCHED_4F's 2048^2 aperture; chaos flushes until every injected kind
@@ -2858,43 +2874,337 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
 
 
 def phase_dryrun(card: str) -> dict:
-    """The shape-only dry run of stablelm-1.6b ``train_4k`` on both
-    production meshes, in its own process (it builds its meshes over a
-    fake process group of 512 ranks)."""
+    """The dry run of stablelm-1.6b ``train_4k`` on both production meshes
+    and of qwen2-moe-a2.7b ``decode_32k`` on 16x16, in its own process (it
+    builds its meshes over a fake process group of 512 ranks): each
+    record's global counts, its partitioned pass (FLOPs, bytes and
+    collective bytes a device) and its roofline row at the H100's
+    constants; the count of one cross-entropy chunk's vocab gather beside
+    its shape arithmetic."""
     import os
     import shutil
+    from repro_torch import configs
+    from repro_torch.casestudy.roofline import roofline_row
+    from repro_torch.core.profiler import COLLECTIVE_KINDS
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
+    cells = [a for cell in DRYRUN_CELLS for a in ("--cell", *cell)]
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-         "--shape", "train_4k", "--mesh", "both", "--outdir",
-         str(DRYRUN_DIR)], env=env, capture_output=True, text=True,
-        timeout=DRYRUN_TIMEOUT_S, cwd=root)
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cells,
+         "--outdir", str(DRYRUN_DIR)], env=env, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT_S, cwd=root)
     wall = time.perf_counter() - t0
     check(proc.returncode == 0,
           f"the dry run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     out = {"wall_s": wall}
-    for mesh in ("single", "multi"):
-        rec = json.loads((DRYRUN_DIR / f"{ARCH}__train_4k__{mesh}.json")
-                         .read_text())
-        mem = rec["analytic_memory_per_device"]
-        check(rec["source"] == "meta" and rec["jaxpr_flops_global"] > 0
-              and rec["argument_bytes_per_device"] > 0,
-              f"dry-run record {rec['cell']}")
-        out[mesh] = {k: rec[k] for k in (
-            "devices", "argument_bytes_per_device", "output_bytes_per_device",
-            "jaxpr_flops_global", "jaxpr_flops_by_category",
-            "jaxpr_traffic_bytes_global", "count_s")}
-        out[mesh]["analytic_memory_per_device"] = mem
-        print(f"  dry run {rec['cell']} ({rec['devices']} devices): "
-              f"argument bytes per device {rec['argument_bytes_per_device']:,}"
-              f", analytic total {mem['total'] / 2**30:.3f} GiB a device "
-              f"(fits 16 GiB {mem['fits_16gb']}, fits an H100's 80 GB "
-              f"{mem['fits_h100_80gb']}), global FLOPs "
-              f"{rec['jaxpr_flops_global']:.4e}")
+    for arch, shape, meshes in DRYRUN_CELLS:
+        for mesh in (("single", "multi") if meshes == "both" else (meshes,)):
+            rec = json.loads((DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json")
+                             .read_text())
+            mem = rec["analytic_memory_per_device"]
+            coll = rec["collective_bytes"]
+            check(rec["source"] == "meta" and rec["jaxpr_flops_global"] > 0
+                  and rec["argument_bytes_per_device"] > 0
+                  and 0 < rec["flops"] < rec["jaxpr_flops_global"]
+                  and rec["bytes_accessed"] > 0
+                  and set(coll) <= set(COLLECTIVE_KINDS)
+                  and rec["collective_bytes_total"] == sum(coll.values()) > 0,
+                  f"dry-run record {rec['cell']}")
+            row = roofline_row(rec)
+            keep = {k: rec[k] for k in (
+                "devices", "argument_bytes_per_device",
+                "output_bytes_per_device", "jaxpr_flops_global",
+                "jaxpr_flops_by_category", "jaxpr_traffic_bytes_global",
+                "flops", "flops_by_category_per_device", "bytes_accessed",
+                "bytes_min", "partition", "accum_steps", "accum_counted",
+                "collective_bytes", "collective_bytes_total",
+                "ce_chunk_collective_bytes", "count_s", "partition_s")}
+            keep.update(analytic_memory_per_device=mem, roofline=row)
+            print(f"  dry run {rec['cell']} ({rec['devices']} devices): "
+                  f"argument bytes per device "
+                  f"{rec['argument_bytes_per_device']:,}, analytic total "
+                  f"{mem['total'] / 2**30:.3f} GiB a device (fits 16 GiB "
+                  f"{mem['fits_16gb']}, fits an H100's 80 GB "
+                  f"{mem['fits_h100_80gb']}), global FLOPs "
+                  f"{rec['jaxpr_flops_global']:.4e}; a device: FLOPs "
+                  f"{rec['flops']:.4e}, bytes it must move "
+                  f"{rec['bytes_min']:.4e} (eager traffic "
+                  f"{rec['bytes_accessed']:.4e}), "
+                  "collective bytes " + ", ".join(
+                      f"{k} {v:.4e}" for k, v in sorted(coll.items()))
+                  + f" (count {rec['count_s']} s, partitioned "
+                  f"{rec['partition_s']} s, counted as {rec['partition']}, "
+                  f"{rec['accum_counted']} of {rec['accum_steps']} "
+                  "microbatches)")
+            print(f"    roofline at the H100's constants: compute "
+                  f"{row['compute_s']:.4e} s, memory {row['memory_s']:.4e} s, "
+                  f"collective {row['collective_s']:.4e} s (eager traffic "
+                  f"{row['traffic_s']:.4e} s, not a bound), dominant "
+                  f"{row['dominant']}, bound {row['step_lower_bound_s']:.4e} "
+                  f"s, useful {row['useful_ratio']:.3f}")
+            if rec["ce_chunk_collective_bytes"] is not None:
+                cfg = configs.get_config(arch)
+                sh = configs.SHAPES[shape]
+                b_local = sh.global_batch // (rec["devices"] // 16)
+                vp = -(-cfg.vocab_size // cfg.vocab_pad_multiple) \
+                    * cfg.vocab_pad_multiple
+                arith = b_local * (sh.seq_len // cfg.logit_chunks) * vp * 4
+                got = rec["ce_chunk_collective_bytes"].get("all-gather", 0.0)
+                keep["ce_gather_shape_arithmetic"] = arith
+                print(f"    one CE chunk's vocab gather: counted {got:,.0f} "
+                      f"B all-gather a device; shape arithmetic {b_local} x "
+                      f"{sh.seq_len // cfg.logit_chunks} x {vp} x 4 = "
+                      f"{arith:,} B")
+                check(got == arith, f"{rec['cell']}: the CE gather counted "
+                      f"{got} B against {arith} B of shape arithmetic")
+            out[rec["cell"]] = keep
     print(f"  [{card}] dry-run subprocess wall {wall:.2f} s")
+    return out
+
+
+# --- phase 16: the mesh's serving and the roofline against the card ---------
+
+MESH_MOE_ARCH = "qwen2-moe-a2.7b"
+MESH_MOE_NEW = 16        # greedy decode steps after the prefill
+
+
+def greedy_run(model, params, prompt, new: int, max_len: int) -> dict:
+    """A prefill of ``prompt`` (1, L) and ``new`` greedy decode steps at
+    batch 1: each step's logits (on the host), the tokens, the cache, the
+    prefill's wall and each decode step's wall.  DTensor logits are
+    gathered whole (on one device, their local shard)."""
+    from torch.distributed.tensor import DTensor
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, lg = model.prefill(params, {"tokens": prompt}, max_len=max_len)
+    lg = whole(lg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits, toks, steps = [lg.float().cpu()], [], []
+    for _ in range(new):
+        nxt = torch.argmax(lg, dim=-1, keepdim=True)
+        toks.append(int(nxt))
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, nxt)
+        lg = whole(lg)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        logits.append(lg.float().cpu())
+    return {"logits": logits, "tokens": toks, "cache": cache,
+            "prefill_s": prefill_s, "decode_s": steps}
+
+
+def phase_mesh_serving(la, dev, card: str, kernel6: dict) -> dict:
+    """qwen2-moe-a2.7b at full width and depth: a prefill of phase 13's
+    first request, drawn at kernel 6's timed length (PREFILL_L tokens),
+    and MESH_MOE_NEW greedy decode steps, unmeshed and on a (1, 1) ``(data,
+    model)`` CUDA mesh of one NCCL rank with params, tokens and cache
+    DTensors.  The meshed run's logits, cache and tokens against the
+    unmeshed run's (MESH_TOL), kernel 6's launches through the DTensor
+    path on the tensor-core route at (16 / 16, PREFILL_L, 128), both
+    runs' walls."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.distributed.compat import enter_mesh
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.specs import batch_pspecs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import LM, compute_params, init_params
+    from repro_torch.models.params import leaves, param_pspecs
+
+    cfg = configs.get_config(MESH_MOE_ARCH)
+    check(cfg.n_layers == MOE_WIDTHS[MESH_MOE_ARCH][0]
+          and cfg.d_model == MOE_WIDTHS[MESH_MOE_ARCH][1],
+          f"{MESH_MOE_ARCH} is not at full width and depth")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = compute_params(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    rng = np.random.default_rng(SEED + 4)     # phase 13's request stream
+    prompt = torch.tensor([rng.integers(0, cfg.vocab_size, PREFILL_L)
+                           .tolist()], device=dev)
+    max_len = PREFILL_L + MESH_MOE_NEW + 1
+    model = LM(cfg)
+    plain = greedy_run(model, params, prompt, MESH_MOE_NEW, max_len)
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(MESH_SHAPE, ("data", "model"))
+        enter_mesh(mesh)
+        dparams = distribute_tree(params, param_pspecs(
+            cfg, fsdp_size=0, tp_size=MESH_SHAPE[1]), mesh)
+        dprompt = distribute_tree({"tokens": prompt}, batch_pspecs(
+            {"tokens": prompt}, mesh.mesh_dim_names,
+            dp_total=MESH_SHAPE[0]), mesh)["tokens"]
+        shards = []
+        on_shards = ops._on_shards
+
+        def spy(q, k, v, **kw):
+            shards.append(all(isinstance(t, DTensor) for t in (q, k, v)))
+            return on_shards(q, k, v, **kw)
+
+        la.reset_launches()
+        ops._on_shards = spy
+        try:
+            meshed = greedy_run(model, dparams, dprompt, MESH_MOE_NEW,
+                                max_len)
+        finally:
+            ops._on_shards = on_shards
+        f = la.local_flash_attention
+        launches = {"forward": f.launches,
+                    "forward_by_route": dict(f.launches_by_route),
+                    "forward_by_shape": dict(f.launches_by_shape)}
+        cache_err = 0.0
+        for (_, a), (_, b) in zip(leaves(meshed["cache"]),
+                                  leaves(plain["cache"])):
+            a = a.to_local() if isinstance(a, DTensor) else a
+            cache_err = max(cache_err,
+                            float((a.float() - b.float()).abs().max()))
+        dtensor_leaves = sum(isinstance(t, DTensor)
+                             for _, t in leaves(meshed["cache"]))
+    finally:
+        enter_mesh(None)
+        dist.destroy_process_group()
+    del params, dparams, plain["cache"], meshed["cache"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    logit_err = max(float((a - b).abs().max())
+                    for a, b in zip(meshed["logits"], plain["logits"]))
+    n = cfg.n_layers
+    walls = {tag: {"prefill_s": run["prefill_s"],
+                   "decode_step_s_median": statistics.median(run["decode_s"]),
+                   "decode_step_s": run["decode_s"]}
+             for tag, run in (("unmeshed", plain), ("meshed", meshed))}
+    print(f"  {MESH_MOE_ARCH} on a {MESH_SHAPE} (data, model) mesh: a "
+          f"prefill of {PREFILL_L} tokens and {MESH_MOE_NEW} greedy decode "
+          f"steps; logits' largest difference from the unmeshed run "
+          f"{logit_err:.3e}, cache's {cache_err:.3e} (bound {MESH_TOL}); "
+          f"tokens equal: {meshed['tokens'] == plain['tokens']} "
+          f"({meshed['tokens'][:8]}...); {dtensor_leaves} cache leaves "
+          "DTensors")
+    print(f"  kernel 6 in the meshed prefill: {launches['forward']} "
+          f"{launches['forward_by_route']} at {launches['forward_by_shape']};"
+          f" the DTensor path took {sum(shards)} of {len(shards)} calls")
+    print(f"  [{card}] meshed prefill {walls['meshed']['prefill_s']:.4f} s "
+          f"(the first on the mesh), decode step median "
+          f"{walls['meshed']['decode_step_s_median'] * 1e3:.3f} ms; "
+          f"unmeshed prefill {walls['unmeshed']['prefill_s']:.4f} s, decode "
+          f"step median {walls['unmeshed']['decode_step_s_median'] * 1e3:.3f}"
+          " ms")
+    check(logit_err <= MESH_TOL and cache_err <= MESH_TOL
+          and meshed["tokens"] == plain["tokens"],
+          f"the meshed MoE run differs from the unmeshed one: logits "
+          f"{logit_err}, cache {cache_err}, tokens {meshed['tokens']} "
+          f"against {plain['tokens']}")
+    check(dtensor_leaves > 0, "the meshed run's cache holds no DTensor")
+    check(launches["forward_by_route"] == {"tensor_core": n, "fma": 0}
+          and shards == [True] * n,
+          f"kernel 6 in the meshed prefill: {launches}, DTensor path "
+          f"{shards} (want {n} tensor-core launches through the DTensor "
+          "path)")
+    rows = held_at_path(la, launches["forward_by_shape"],
+                        {"local_flash_attention": (kernel6, n)},
+                        "meshed MoE prefill")
+    return {"arch": MESH_MOE_ARCH, "mesh": list(MESH_SHAPE),
+            "prompt_len": PREFILL_L, "new_tokens": MESH_MOE_NEW,
+            "logit_difference": logit_err, "cache_difference": cache_err,
+            "tokens": meshed["tokens"], "walls": walls,
+            "launches": launches, "kernel6": rows["local_flash_attention"]}
+
+
+def card_roofline(training: dict, serving: dict, card: str) -> dict:
+    """Two one-card roofline rows (``devices`` 1) at the H100's constants:
+    phase 6's training step (stablelm-1.6b, 4 x 1024 tokens, AdamW, every
+    block rematerialized) and phase 5's decode step (4 lanes of 2048),
+    each counted on ``meta`` here, beside the phase's measured median wall
+    and its profiled device busy time.  No measured wall may fall below
+    its bound: if one did, the count or the constants would be wrong.
+    The bound's memory term is the bytes the step must move
+    (``launch.dryrun.step_bytes_min``); the eager step's counted traffic
+    stands beside it."""
+    from torch.utils._pytree import tree_leaves
+    from repro_torch import configs
+    from repro_torch.casestudy.roofline import roofline_row
+    from repro_torch.core.profiler import count_step
+    from repro_torch.launch.dryrun import (MeshDims, carry_bytes,
+                                          step_bytes_min)
+    from repro_torch.models import LM, compute_params, param_counts
+    from repro_torch.models.params import param_shape_structs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = configs.get_config(ARCH)
+    model = LM(cfg)
+    meta = lambda shape: torch.zeros(shape, dtype=torch.int64,
+                                     device="meta")
+    p_sds = param_shape_structs(cfg)
+    opt = adamw(3e-3)
+    batch = {"tokens": meta((TRAIN_BATCH, TRAIN_SEQ)),
+             "labels": meta((TRAIN_BATCH, TRAIN_SEQ))}
+    nbytes = lambda *trees: float(sum(
+        t.numel() * t.element_size() for t in tree_leaves(trees)
+        if isinstance(t, torch.Tensor)))
+    o_sds = opt.init(p_sds)
+    train = count_step(make_train_step(model, opt), p_sds, o_sds, batch, 0)
+    one = MeshDims({"data": 1, "model": 1}, 1)
+    train_min = step_bytes_min(
+        "train", nbytes(p_sds, o_sds, batch), nbytes(train.out[:2]), 0.0,
+        nbytes(p_sds), carry_bytes(cfg, configs.Shape(
+            "phase_train", TRAIN_SEQ, TRAIN_BATCH, "train"), one))
+    cache = model.init_cache(SLOTS, MAX_LEN, device="meta")
+    c_params, tok = compute_params(cfg, p_sds), meta((SLOTS, 1))
+    decode_args = nbytes(c_params, cache, tok)
+    decode = count_step(model.decode_step, c_params, cache, tok)
+    decode_min = step_bytes_min("decode", decode_args, nbytes(decode.out),
+                                nbytes(cache))
+    active = param_counts(cfg)[1]
+    measured = {
+        "train": (training["step_wall_s_median"],
+                  training["profiled_step"]["device_busy_ms"] / 1e3,
+                  "train", TRAIN_BATCH, TRAIN_SEQ, train, train_min),
+        "decode": (statistics.median(serving["unprofiled"]["decode_step_ms"])
+                   / 1e3,
+                   serving["profiled"]["decode_step"]["device_busy_ms"] / 1e3,
+                   "decode", SLOTS, MAX_LEN, decode, decode_min)}
+    out = {}
+    for name, (wall, busy, kind, batch_n, seq, c, must) in measured.items():
+        flops = sum(v for k, v in c.flops.items() if not k.startswith("__"))
+        rec = {"cell": f"{ARCH}__phase_{name}__card", "arch": ARCH,
+               "shape": f"phase_{name}", "mesh": "card", "devices": 1,
+               "kind": kind, "global_batch": batch_n, "seq_len": seq,
+               "flops": flops, "jaxpr_flops_global": flops,
+               "bytes_accessed": c.bytes, "bytes_accessed_corrected": c.bytes,
+               "bytes_min": must, "collective_bytes_total": 0.0,
+               "collective_bytes_corrected": 0.0, "params_active": active}
+        row = roofline_row(rec)
+        bound = row["step_lower_bound_s"]
+        out[name] = {"flops": flops, "flops_by_category": c.flops,
+                     "bytes": c.bytes, "bytes_min": must, "roofline": row,
+                     "measured_wall_s": wall, "device_busy_s": busy,
+                     "wall_over_bound": wall / bound,
+                     "busy_over_bound": busy / bound if busy else None}
+        print(f"  [{card}] one-card roofline, phase "
+              f"{'6 training' if name == 'train' else '5 decode'} step: "
+              f"FLOPs {flops:.4e}, bytes it must move {must:.4e} (eager "
+              f"traffic {c.bytes:.4e}); compute "
+              f"{row['compute_s'] * 1e3:.3f} ms, memory "
+              f"{row['memory_s'] * 1e3:.3f} ms (eager traffic "
+              f"{row['traffic_s'] * 1e3:.3f} ms, not a bound), dominant "
+              f"{row['dominant']}, "
+              f"bound {bound * 1e3:.3f} ms; measured median wall "
+              f"{wall * 1e3:.3f} ms ({wall / bound:.2f}x the bound), device "
+              f"busy {busy * 1e3:.3f} ms"
+              + (f" ({busy / bound:.2f}x)" if busy else " (not measured)"))
+        check(wall >= bound, f"phase {name}'s measured wall {wall} s is "
+              f"below its roofline bound {bound} s")
     return out
 
 
@@ -4030,10 +4340,21 @@ def main() -> int:
     meshed = phase_mesh(la, dev, card, training)
     dryrun = phase_dryrun(card)
     print(f"  [{card}] phase wall {time.perf_counter() - t0:.2f} s")
+    print("phase 16: the mesh's serving and the roofline against the card")
+    t0 = time.perf_counter()
+    print("phase 16a: MoE serving on the mesh")
+    mesh_moe = phase_mesh_serving(la, dev, card,
+                                  moe_runs[MESH_MOE_ARCH]["kernel6"])
+    print("phase 16c: one-card roofline rows against the card")
+    roof = card_roofline(training, serving, card)
+    print(f"  [{card}] phase wall {time.perf_counter() - t0:.2f} s")
     attn_row["launches_by_path"]["meshed_training"] = \
         meshed["launches"]["forward"]
+    attn_row["launches_by_path"]["meshed_serving"] = \
+        mesh_moe["launches"]["forward"]
     attn_row["launches"] = sum(attn_row["launches_by_path"].values())
     attn_row["at_meshed_training"] = meshed["kernel6"]
+    attn_row["at_meshed_serving"] = mesh_moe["kernel6"]
     bwd_row["launches_by_path"] = {
         "training": bwd_row["launches"],
         "meshed_training": meshed["launches"]["backward"]}
@@ -4050,6 +4371,7 @@ def main() -> int:
     print(json.dumps({"moe_serving": moe_runs}))
     print(json.dumps({"multimodal": mm}))
     print(json.dumps({"mesh": meshed, "dryrun": dryrun}))
+    print(json.dumps({"mesh_serving": mesh_moe, "card_roofline": roof}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ import torch
 from repro_torch import configs as cfgs
 from repro_torch.core.accelerator import ANDERSON_MVM, IDEAL_4F
 from repro_torch.core.planner import CategoryProfile, plan_offload
+from repro_torch.casestudy.roofline import PEAK_FLOPS
 from repro_torch.core.profiler import flops_by_category
 from repro_torch.models import LM
 from repro_torch.models.config import torch_dtype
@@ -41,7 +42,7 @@ from repro_torch.models.params import map_tree, model_templates
 
 __all__ = ["HOST_PEAK", "run", "arch_row"]
 
-HOST_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+HOST_PEAK = PEAK_FLOPS  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 _BATCH, _SEQ = 2, 32
 
 

@@ -12,17 +12,17 @@ Prints ``section,name,us_per_call,derived`` CSV rows, as the reference's
   * Fig 8: the software FFT's time on the device against the modelled
     prototype;
   * Fig 2: converter frontier gaps; Fig 3: complexity crossovers;
-  * the planner: the paper's decision rule on each ported LM
-    architecture (``planner_table``), host seconds priced at the H100's
+  * the planner: the paper's decision rule on each of the ten LM
+    architectures (``planner_table``), host seconds priced at the H100's
     bf16 peak;
   * the offload runtime's benchmark (``runtime_bench``): its CSV rows and
     the ``drift_gate`` row.  It writes its snapshot and history under
-    ``--out`` (default ``build/bench/``).
-
-The planner covers the four dense architectures the port runs; the other
-six come with their model code (ROADMAP.md, queue 1 items g and h).  The
-roofline rows of the reference's driver are not here yet: they read the
-dry run's cells (ROADMAP.md, queue 1 item d).
+    ``--out`` (default ``build/bench/``), and Table 1's rows there as
+    ``amdahl.json`` (what ``casestudy.experiments`` reads);
+  * the roofline (``casestudy.roofline``, an H100's constants) of each
+    dry-run record in ``build/dryrun/`` and ``build/dryrun_opt/``
+    (``roofline`` and ``roofline_opt`` rows), where the dry run has
+    written them: us_per_call = the step's lower bound.
 
 The first row after the header names the device the times were taken
 on.  It runs on the CUDA card unless ``--device cpu`` is given, and
@@ -32,6 +32,7 @@ fails without a card: there is no fallback.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -69,6 +70,14 @@ def main(argv: list[str] | None = None) -> int:
         print(f"table1,{r.name},{1e6 * r.total_time_s:.1f},"
               f"speedup={r.end_to_end_speedup:.2f}x|frac={100*r.fraction:.2f}%"
               f"|paper={paper_s:.2f}x|paper_frac={paper_pct:.2f}%")
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "amdahl.json"), "w") as f:
+        json.dump([{"name": r.name, "fraction": r.fraction,
+                    "speedup": r.end_to_end_speedup,
+                    "total_time_s": r.total_time_s,
+                    "paper_frac": PAPER_TABLE1[r.name][0],
+                    "paper_speedup": PAPER_TABLE1[r.name][1]}
+                   for r in rows], f, indent=1)
     ss = sorted(speedups)
     median = ss[len(ss) // 2]
     mean = sum(ss) / len(ss)
@@ -120,6 +129,16 @@ def main(argv: list[str] | None = None) -> int:
         print(row)
     ok, msg = rb.drift_gate(payload["traced"]["drift"], history)
     print(f"drift_gate,{'ok' if ok else 'FAIL'},,{msg}")
+
+    # --- Roofline of the dry run's records, where they have been written --
+    from repro_torch.casestudy.roofline import ART_DIR, run as roofline
+    for tag, d in (("roofline", ART_DIR),
+                   ("roofline_opt", os.path.join(os.path.dirname(ART_DIR),
+                                                 "dryrun_opt"))):
+        for r in roofline(d):
+            print(f"{tag},{r['cell']},{1e6 * r['step_lower_bound_s']:.1f},"
+                  f"dominant={r['dominant']}|useful={r['useful_ratio']:.3f}"
+                  f"|roof={100*r['roofline_fraction']:.1f}%")
     return 0
 
 

@@ -25,6 +25,18 @@ branches.  Shapes alone are counted by passing tensors on
 ``device="meta"``, the counterpart of the reference's
 ``ShapeDtypeStruct`` arguments.
 
+Under a mesh the arguments may be DTensors.  The counting mode then steps
+aside for them (it returns ``NotImplemented``, as torch's
+``CommDebugMode`` does), so DTensor desugars each op into this rank's
+local ops and its collectives, and the mode counts those: FLOPs and
+bytes per device, and the bytes of every ``_c10d_functional``
+collective by kind (:func:`count_step`), each counted as max(result,
+operand), the reference's rule for its partitioned HLO
+(``repro.launch.dryrun.collective_bytes``).  A collective and its
+``wait_tensor`` count once.  The ops DTensor runs on ``FakeTensor``s to
+propagate shapes are not the step's work and count nothing.  On plain
+tensors nothing of this applies and every count is what it was.
+
 The port's hand-written kernels launch through ``ctypes`` and dispatch no
 aten op, so a dispatch mode cannot see them.  Their wrappers are
 decorated with ``repro_torch.kernels.common.charged``: under
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import math
 import time
 from typing import Any, Callable, Iterable
@@ -46,8 +59,9 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["OpProfiler", "flops_by_category", "traffic_bytes", "counted",
-           "repeated", "OFFLOADABLE_CATEGORIES"]
+__all__ = ["OpProfiler", "flops_by_category", "traffic_bytes",
+           "count_step", "Counts", "repeated", "COLLECTIVE_KINDS",
+           "OFFLOADABLE_CATEGORIES"]
 
 OFFLOADABLE_CATEGORIES = ("fft", "conv", "matmul")
 
@@ -204,6 +218,46 @@ def _fft_flops(func, args, out) -> float:
     return 5.0 * batch * n * max(math.log2(max(n, 2.0)), 1.0)
 
 
+# the reference's collective kinds (its partitioned HLO's op names), by the
+# name of the ``_c10d_functional`` op (or DTensor's own all-to-all) that
+# does the same
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_KIND_BY_PREFIX = (("all_gather", "all-gather"), ("all_reduce", "all-reduce"),
+                   ("reduce_scatter", "reduce-scatter"),
+                   ("all_to_all", "all-to-all"),
+                   ("shard_dim_alltoall", "all-to-all"),
+                   ("permute", "collective-permute"))
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor")
+_MOVES_NOTHING = ("wait_tensor", "_wrap_tensor_autograd")
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
+
+
+def _collective_kind(func) -> str | None:
+    """The collective kind of a ``_c10d_functional`` / ``_dtensor`` op
+    (any other collective under its own op name); "" for the ones that
+    move nothing (``wait_tensor``, the autograd wrap); None for any other
+    op."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    if name in _MOVES_NOTHING:
+        return ""
+    for prefix, kind in _KIND_BY_PREFIX:
+        if name.startswith(prefix):
+            return kind
+    return name
+
+
+def _wrapper_types() -> tuple[type, ...]:
+    """Tensor subclasses the counting mode steps aside for: DTensor (its
+    dispatch then runs the local ops and collectives, which the mode
+    counts) and the functional collectives' async wrapper."""
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor
+    return DTensor, AsyncCollectiveTensor
+
+
 def _tensors(tree: Any) -> list[torch.Tensor]:
     return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
@@ -225,15 +279,28 @@ class _Counter(TorchDispatchMode):
         super().__init__()
         self.flops: dict[str, float] = collections.defaultdict(float)
         self.bytes = 0.0
+        self.collectives: dict[str, float] = collections.defaultdict(float)
         self._paused = 0
         self.trips = 1      # what one op counts for (``repeated``)
+        self._wrappers = _wrapper_types()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            # DTensor propagating shapes on fake tensors: not the step's
+            return func(*args, **kwargs)
+        if any(issubclass(t, self._wrappers) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
         if self._paused or _is_view(func):
             return out
         outs = _tensors(out)
+        kind = _collective_kind(func)
+        if kind is not None:
+            if kind:
+                self.collectives[kind] += self.trips * max(
+                    _bytes(_tensors((args, kwargs))), _bytes(outs))
+            return out
         p = func.overloadpacket
         if p in _MATMUL:
             cat, n = "matmul", _matmul_flops(func, args)
@@ -291,14 +358,23 @@ def repeated(trips: int):
             m.trips //= trips
 
 
-def counted(fn: Callable, *args, **kwargs
-            ) -> tuple[dict[str, float], float, Any]:
-    """One counted run of ``fn``: (its FLOPs by category, as
-    :func:`flops_by_category` gives them; its bytes, as
-    :func:`traffic_bytes` gives them; what ``fn`` returned)."""
+@dataclasses.dataclass
+class Counts:
+    """What one counted run of a function did (on DTensors: one device's
+    share): FLOPs by category, bytes moved, collective bytes by kind
+    (empty on plain tensors), and the function's result."""
+    flops: dict[str, float]
+    bytes: float
+    collectives: dict[str, float]
+    out: Any
+
+
+def count_step(fn: Callable, *args, **kwargs) -> Counts:
+    """One counted run of ``fn``."""
     with _Counter() as counter:
         out = fn(*args, **kwargs)
-    return dict(counter.flops), counter.bytes, out
+    return Counts(dict(counter.flops), counter.bytes,
+                  dict(counter.collectives), out)
 
 
 def traffic_bytes(fn: Callable, *args, **kwargs) -> float:
@@ -307,7 +383,7 @@ def traffic_bytes(fn: Callable, *args, **kwargs) -> float:
     chain is counted op by op), so this is an *upper bound* on HBM
     traffic, and the consistent numerator for a roofline's memory term.
     View ops move nothing and count nothing."""
-    return counted(fn, *args, **kwargs)[1]
+    return count_step(fn, *args, **kwargs).bytes
 
 
 def flops_by_category(fn: Callable, *args, **kwargs) -> dict[str, float]:
@@ -320,4 +396,4 @@ def flops_by_category(fn: Callable, *args, **kwargs) -> dict[str, float]:
     accelerator — the paper's best-case methodology).  Only categories
     that occurred are keys.
     """
-    return counted(fn, *args, **kwargs)[0]
+    return count_step(fn, *args, **kwargs).flops

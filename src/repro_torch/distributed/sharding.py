@@ -10,6 +10,12 @@ mesh, the multi-pod ``(pod, data, model)`` mesh and tiny test meshes;
 :func:`distribute_tree` distributes a params, optimizer-state or batch
 tree by its spec tree.
 
+:func:`meta_tree` lays out a tree of ``meta`` shape stand-ins the same
+way without data: each leaf becomes a DTensor whose local tensor is the
+first device's shard, for the dry run's per-device count over a fake
+process group (``distribute_tensor`` would scatter, which a fake group
+cannot do).
+
 :func:`constrain` is the one entry point the model uses to pin an
 activation's layout: the identity on a plain tensor or off a mesh, and a
 ``redistribute`` to the filtered spec for a DTensor under a mesh.
@@ -20,6 +26,7 @@ nothing to do with the mesh.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from typing import Any, Iterator, Sequence
 
@@ -31,7 +38,9 @@ from torch.distributed.tensor.experimental import implicit_replication
 __all__ = ["constrain", "batch_axes", "current_axis_names",
            "logical_to_mesh", "activation_sharding_mode",
            "constrain_residual", "placements", "distribute_tree",
-           "like_param", "mesh_ops", "shard_devices"]
+           "meta_tree", "local_shape", "like_param", "mesh_ops",
+           "reshape", "like_layout", "on_local",
+           "gather_fsdp", "pin_residual", "shard_devices"]
 
 
 def activation_sharding_mode() -> str:
@@ -54,6 +63,41 @@ def constrain_residual(x: torch.Tensor) -> torch.Tensor:
     if mode == "sp" and x.ndim == 3 and x.shape[1] % 16 == 0:
         return constrain(x, ("pod", "data"), "model", None)
     return constrain(x, ("pod", "data"), None, None)
+
+
+def pin_residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, S, D) after a residual add, under a mesh
+    in the 'baseline' mode: its batch split kept and every other dim
+    replicated, the tensor-parallel layout XLA's propagation gives the
+    reference there.  DTensor picks each op's layout alone: left
+    unpinned it reduce-scatters a row-parallel product into a D split,
+    and the next block's products then replicate their work over
+    ``model``.  The identity on a plain tensor and in the 'dp' and 'sp'
+    modes (``constrain_residual`` pins those at each block's entry)."""
+    if not isinstance(x, DTensor) or activation_sharding_mode() != "baseline":
+        return x
+    return _Pin.apply(x, tuple(like_layout(x, {0: 0})))
+
+
+class _Pin(torch.autograd.Function):
+    """A redistribute whose backward lays the gradient out as the forward
+    laid out its result (a partial-sum gradient is summed there), as a
+    tensor-parallel residual's gradient is: DTensor's own backward would
+    hand the gradient on as a partial sum, and the products behind it
+    then gather their weights whole to take it."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = list(want)
+        if list(x.placements) == ctx.want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, ctx.want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if list(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None
 
 
 def current_axis_names() -> tuple[str, ...]:
@@ -104,6 +148,63 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
                     tree, specs)
 
 
+def local_shape(shape: Sequence[int], pl: Sequence[Placement],
+                mesh) -> tuple[int, ...]:
+    """The first device's shard of a tensor of ``shape`` under ``pl``:
+    each sharded dim split by ceiling over each mesh dim that shards it,
+    in mesh-dim order, as DTensor's ``Shard`` splits it (the first
+    shard is the largest)."""
+    out = list(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            out[p.dim] = -(-out[p.dim] // mesh.size(i))
+    return tuple(out)
+
+
+def meta_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every tensor of ``tree`` (shape stand-ins on ``meta``) as a DTensor
+    on ``mesh`` laid out by its leaf of ``specs`` (None: replicated),
+    holding the first device's shard on ``meta``; what is not a tensor is
+    kept as it is."""
+    from repro_torch.models.params import map_tree   # models import us
+
+    def one(t, spec):
+        if not isinstance(t, torch.Tensor):
+            return t
+        pl = placements(spec or (), mesh)
+        local = torch.empty(local_shape(t.shape, pl, mesh), dtype=t.dtype,
+                            device="meta")
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    if specs is None:
+        return map_tree(lambda t: one(t, None), tree)
+    return map_tree(one, tree, specs)
+
+
+def gather_fsdp(tree: Any) -> Any:
+    """Every DTensor of ``tree`` (a layer's parameters) gathered over the
+    mesh dims named ``data`` or ``pod`` that split it, its ``model``
+    split kept: the ZeRO-3 all-gather of ``param_pspecs``' FSDP dims just
+    before the layer uses them (its backward reduce-scatters the
+    gradients back).  Plain tensors, and DTensors no data axis splits,
+    are returned as they are."""
+    from repro_torch.models.params import map_tree   # models import us
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        names = t.device_mesh.mesh_dim_names
+        want = [Replicate() if isinstance(p, Shard)
+                and names[i] in ("pod", "data") else p
+                for i, p in enumerate(t.placements)]
+        if want == list(t.placements):
+            return t
+        return t.redistribute(t.device_mesh, want)
+
+    return map_tree(one, tree)
+
+
 def like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A gradient laid out as its parameter: a DTensor gradient (Partial
     over the data axes, where the batch was sharded) is redistributed to
@@ -115,33 +216,142 @@ def like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g
 
 
+_MESH_OPS_DEPTH = [0]
+
+
 @contextlib.contextmanager
 def mesh_ops() -> Iterator[None]:
     """Under a current mesh, plain tensors that the model makes for itself
     (RoPE angles, masks, ``arange``s, zeros) join DTensor ops as
     replicated DTensors; they are the same on every rank.  Off a mesh it
-    does nothing.  Not reentrant: the train and eval steps enter it once,
-    around forward and backward both (a checkpointed block's recompute
-    runs in backward)."""
+    does nothing.  The train and eval steps enter it around forward and
+    backward both (a checkpointed block's recompute runs in backward),
+    ``LM.prefill`` and ``decode_step`` around their forward; a nested
+    entry does nothing (torch's ``implicit_replication`` turns the switch
+    off on exit, whatever it was)."""
     from repro_torch.distributed.compat import current_mesh
-    if current_mesh() is None:
+    if current_mesh() is None or _MESH_OPS_DEPTH[0]:
         yield
         return
-    with implicit_replication():
-        yield
+    _MESH_OPS_DEPTH[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _MESH_OPS_DEPTH[0] -= 1
 
 
 def constrain(x: torch.Tensor, *spec: Any) -> torch.Tensor:
     """Pin ``x``'s layout to ``spec``: the identity on a plain tensor or
     off a mesh; a DTensor under a mesh is redistributed to the spec
-    filtered for that mesh (differentiably)."""
+    filtered for that mesh (differentiably).  A dim the mesh dims that
+    name it do not divide stays replicated on them (a microbatch of fewer
+    rows than data devices): DTensor's rules take no uneven split."""
     resolved = logical_to_mesh(spec)
     if resolved is None or not isinstance(x, DTensor):
         return x
-    want = placements(resolved, x.device_mesh)
+    mesh = x.device_mesh
+    want = placements(resolved, mesh)
+    for d in {p.dim for p in want if isinstance(p, Shard)}:
+        split = [i for i, p in enumerate(want) if p == Shard(d)]
+        if x.shape[d] % math.prod(mesh.size(i) for i in split):
+            for i in split:
+                want[i] = Replicate()
     if list(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)``.  A DTensor whose layout the reshape cannot
+    keep (a dim split into factors the mesh does not divide, merged with
+    a sharded inner dim, or merged past a split the mesh does not divide
+    while a partial sum) is replicated first: its sharded dims other than
+    an unchanged leading one are all-gathered and its partial sums
+    reduced, and the count of collectives sees it.  DTensor has no rule
+    for an uneven split or merge; XLA re-lays such a tensor out as it
+    must."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _Reshape.apply(x, shape)
+
+
+def _reshape_dtensor(x: DTensor, shape) -> DTensor:
+    try:
+        return x.reshape(shape)
+    except (RuntimeError, NotImplementedError):
+        keep = shape and shape[0] == x.shape[0]
+        want = [Replicate() if p.is_partial() or p.is_shard()
+                and not (keep and type(p) is Shard and p.dim == 0) else p
+                for p in x.placements]
+        return x.redistribute(x.device_mesh, want).reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """:func:`reshape` of a DTensor, whose backward reshapes the gradient
+    the same way (its placements may differ from the forward's)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _reshape_dtensor(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape_dtensor(g, ctx.shape), None
+
+
+def like_layout(x: torch.Tensor, dims: dict[int, int]
+                ) -> list[Placement] | None:
+    """``x``'s placements carried over to another tensor whose dim
+    ``dims[d]`` stands for ``x``'s dim d (a dim ``dims`` does not map is
+    replicated); None for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return None
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+            else Replicate() for p in x.placements]
+
+
+def on_local(fn, args: Sequence, layouts: Sequence, out_layouts: Any):
+    """``fn`` on local shards.  Each DTensor of ``args`` is redistributed
+    to its entry of ``layouts`` (None: as it is) and passed as its local
+    tensor; a plain tensor with a layout joins as a replicated DTensor
+    first (the model's own ``arange``s and zeros), one without is passed
+    as it is; anything else is passed as it is.  ``fn``'s tensor result
+    (or each of a tuple) is wrapped as a DTensor with its entry of
+    ``out_layouts`` (a list of placements, or a tuple of them), its shard
+    the same on every device of a dim it shards.  With no DTensor among
+    ``args`` this is ``fn(*args)``.  Local tensors alias their DTensors
+    when no redistribute was needed, so ``fn`` may write into them in
+    place (a decode cache).
+
+    torch's ``local_map`` does the rest of this but not the plain
+    tensors: it passes a plain tensor whole whatever its placements say,
+    where the model's per-lane positions and slots (plain ``arange``s
+    and a plain ``cache["pos"]``) must reach ``fn`` as the device's rows
+    of the batch split."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    local = []
+    for a, lay in zip(args, layouts):
+        if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) \
+                and lay is not None:
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if isinstance(a, DTensor):
+            if lay is not None and list(a.placements) != list(lay):
+                a = a.redistribute(mesh, lay)
+            a = a.to_local()
+        local.append(a)
+    out = fn(*local)
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, lay, run_check=False)
+                     for o, lay in zip(out, out_layouts))
+    return DTensor.from_local(out, mesh, out_layouts, run_check=False)
 
 
 def batch_axes() -> tuple[str, ...] | None:

@@ -30,12 +30,26 @@ Decode caches:
 Unlike the reference, whose arrays are immutable, ``gqa_decode`` and
 ``mla_decode`` write the new token into the cache in place and return the
 same tensors: a copy of every layer's cache per token is what that saves.
+
+Under a mesh (DTensor activations and caches, laid out by
+``distributed.specs.cache_pspecs``) the cache writes run on each
+device's own shards (``distributed.sharding.on_local``: DTensor has no
+rule for an indexed write into a sharded tensor), the new token's key,
+value or latent laid out as the cache first.  A head split the mesh
+does not divide, or a merge with a split inner dim, all-gathers that dim
+first (``distributed.sharding.reshape``).  MLA's absorbed decode slices
+the latent cache, split over ``model`` along its last dim, into its
+compressed and rotary parts: DTensor gathers it whole for that, every
+step, and the dry run's count sees the gather.
 """
 
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor import Partial, Shard
+
+from repro_torch.distributed.sharding import like_layout, on_local, reshape
 from repro_torch.kernels import ops
 from repro_torch.kernels.local_attention import local_flash_attention_plain
 from repro_torch.models.config import ModelConfig
@@ -75,9 +89,9 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = q + p["b_q"].to(x.dtype)
         k = k + p["b_k"].to(x.dtype)
         v = v + p["b_v"].to(x.dtype)
-    q = q.reshape(*x.shape[:-1], h, hd)
-    k = k.reshape(*kv_in.shape[:-1], hk, hd)
-    v = v.reshape(*kv_in.shape[:-1], hk, hd)
+    q = reshape(q, *x.shape[:-1], h, hd)
+    k = reshape(k, *kv_in.shape[:-1], hk, hd)
+    v = reshape(v, *kv_in.shape[:-1], hk, hd)
     return q, k, v
 
 
@@ -99,15 +113,21 @@ def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
     out = ops.gqa_flash_attention(
         q.transpose(1, 2), kt, vt, window=window if cross_kv is None else 0,
         causal=causal and cross_kv is None)               # (B,H,S,hd)
-    y = out.transpose(1, 2).reshape(*x.shape[:-1], -1) @ p["w_o"].to(x.dtype)
+    y = reshape(out.transpose(1, 2), *x.shape[:-1], -1) \
+        @ p["w_o"].to(x.dtype)
     if return_cache:
         return y, (kt, vt)
     return y
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   window: int = 0, *, device: str | torch.device = "cuda"):
-    hk, hd = cfg.n_kv_heads, cfg.head_dim_
+                   window: int = 0, *, heads: int | None = None,
+                   head_dim: int | None = None,
+                   device: str | torch.device = "cuda"):
+    """An empty GQA decode cache; ``heads`` and ``head_dim`` (the config's
+    by default) are a device's shard's under a mesh."""
+    hk = cfg.n_kv_heads if heads is None else heads
+    hd = cfg.head_dim_ if head_dim is None else head_dim
     size = min(window, max_len) if window > 0 else max_len
     dt = cfg.activation_dtype
     return {
@@ -132,14 +152,59 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     size = ck.shape[2]
     slot = pos % size if window > 0 else torch.clamp(pos, max=size - 1)
-    lanes = torch.arange(b, device=x.device)
-    ck[lanes, :, slot, :] = k[:, 0].to(ck.dtype)
-    cv[lanes, :, slot, :] = v[:, 0].to(cv.dtype)
-    spos[lanes, slot] = pos
+    new = like_layout(ck, {0: 0, 1: 2, 3: 3})   # (B, 1, Hkv, hd)
+    rows = like_layout(ck, {0: 0})
+    if like_layout(spos, {0: 0}) == rows:
+        on_local(_write_kv, (ck, cv, spos, k, v, pos, slot),
+                 (None, None, None, new, new, rows, rows), None)
+    else:
+        # a slot map laid out apart from the cache's batch split (replicated,
+        # as cache_pspecs lays it out): every device writes the whole map
+        on_local(_write_kv, (ck, cv, None, k, v, None, slot),
+                 (None, None, None, new, new, None, rows), None)
+        whole = like_layout(spos, {0: 0})
+        on_local(_write_slot_pos, (spos, pos, slot), (None, whole, whole),
+                 None)
 
+    scale = hd ** -0.5
+    if not any(isinstance(pl, Shard) and pl.dim == 3
+               for pl in getattr(ck, "placements", ())):
+        # whole heads on each device (or a plain cache): all local
+        heads = like_layout(ck, {0: 0, 1: 2})         # (B, 1, H, hd)
+        out = on_local(
+            lambda q_, ck_, cv_, sp, ps: _decode_mix(
+                _decode_scores(q_, ck_, scale), cv_, sp, ps, window),
+            (q, ck, cv, spos, pos), (heads, None, None, rows, rows), heads)
+    else:
+        # the head dim split over ``model`` (too few KV heads to split):
+        # each device's scores are a partial sum, summed before the softmax
+        split = like_layout(ck, {0: 0, 3: 3})
+        part = on_local(lambda q_, ck_: _decode_scores(q_, ck_, scale),
+                        (q, ck), (split, None),
+                        [Partial() if isinstance(pl, Shard) and pl.dim == 3
+                         else pl for pl in split])
+        out = on_local(
+            lambda s_, cv_, sp, ps: _decode_mix(s_, cv_, sp, ps, window),
+            (part, cv, spos, pos),
+            (like_layout(part, {0: 0}), None, rows, rows), split)
+    out = reshape(out, b, 1, h * hd).to(x.dtype)
+    return out @ p["w_o"].to(x.dtype), cache
+
+
+def _decode_scores(q, ck, scale: float) -> torch.Tensor:
+    """One query's scores against the cache: q (B, 1, H, hd), ck (B, Hkv,
+    size, hd) -> (B, Hkv, H / Hkv, 1, size), float32, times ``scale``."""
+    b, _, h, hd = q.shape
+    hk = ck.shape[1]
     qh = q.reshape(b, 1, hk, h // hk, hd).permute(0, 2, 3, 1, 4)
-    s_ = torch.einsum("bkgqd,bksd->bkgqs", qh.to(torch.float32),
-                      ck.to(torch.float32)) * hd ** -0.5
+    return torch.einsum("bkgqd,bksd->bkgqs", qh.to(torch.float32),
+                        ck.to(torch.float32)) * scale
+
+
+def _decode_mix(s_, cv, spos, pos, window: int) -> torch.Tensor:
+    """The scores s_ (B, Hkv, G, 1, size) masked to the lanes' visible
+    slots, softmaxed and applied to cv (B, Hkv, size, dv): (B, 1, H,
+    dv), float32."""
     valid = spos >= 0                                  # (B, size)
     if window > 0:
         valid &= (pos[:, None] - spos) < window
@@ -148,8 +213,24 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     s_ = torch.where(valid[:, None, None, None, :], s_, _NEG)
     pw = torch.softmax(s_, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", pw, cv.to(torch.float32))
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd).to(x.dtype)
-    return out @ p["w_o"].to(x.dtype), cache
+    b, hk, g, _, dv = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, hk * g, dv)
+
+
+def _write_kv(ck, cv, spos, k, v, pos, slot) -> None:
+    """This token's key and value into their cache slots, in place, and
+    its position into the slot map spos (unless None): ck, cv (B, Hkv,
+    size, hd), spos (B, size), k, v (B, 1, Hkv, hd), pos and slot (B,)."""
+    lanes = torch.arange(ck.shape[0], device=ck.device)
+    ck[lanes, :, slot, :] = k[:, 0].to(ck.dtype)
+    cv[lanes, :, slot, :] = v[:, 0].to(cv.dtype)
+    if spos is not None:
+        spos[lanes, slot] = pos
+
+
+def _write_slot_pos(spos, pos, slot) -> None:
+    """Each lane's position into its slot of spos (B, size), in place."""
+    spos[torch.arange(spos.shape[0], device=spos.device), slot] = pos
 
 
 def gqa_decode_cross(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -170,8 +251,8 @@ def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
     m = cfg.mla
     h = cfg.n_heads
     cq = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["w_uq"].to(x.dtype)).reshape(*x.shape[:-1], h,
-                                             m.qk_head_dim)
+    q = reshape(cq @ p["w_uq"].to(x.dtype), *x.shape[:-1], h,
+                m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
     return q_nope, q_rope
@@ -201,23 +282,27 @@ def mla_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
     positions = pos0 + torch.arange(s, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
-    k_nope = (c_kv @ p["w_uk"].to(x.dtype)).reshape(b, s, h,
-                                                    m.qk_nope_head_dim)
-    v = (c_kv @ p["w_uv"].to(x.dtype)).reshape(b, s, h, m.v_head_dim)
+    k_nope = reshape(c_kv @ p["w_uk"].to(x.dtype), b, s, h,
+                     m.qk_nope_head_dim)
+    v = reshape(c_kv @ p["w_uv"].to(x.dtype), b, s, h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     out = ops.gqa_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2))   # (B,H,S,hdv)
-    y = out.transpose(1, 2).reshape(b, s, -1) @ p["w_o"].to(x.dtype)
+    y = reshape(out.transpose(1, 2), b, s, -1) @ p["w_o"].to(x.dtype)
     if return_cache:
         return y, torch.cat([c_kv, k_rope], dim=-1)    # (B,S,Rkv+rope)
     return y
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   dim: int | None = None,
                    device: str | torch.device = "cuda"):
-    return {"latent": torch.zeros((batch, max_len, cfg.mla.cache_dim),
+    """An empty MLA decode cache; ``dim`` (the config's latent width by
+    default) is a device's shard's under a mesh."""
+    dim = cfg.mla.cache_dim if dim is None else dim
+    return {"latent": torch.zeros((batch, max_len, dim),
                                   dtype=cfg.activation_dtype, device=device)}
 
 
@@ -237,16 +322,16 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     new_lat = torch.cat([c_kv, k_rope], dim=-1)[:, 0]      # (B,D_lat)
     lat = cache["latent"]
     size = lat.shape[1]
-    lanes = torch.arange(b, device=x.device)
     slot = torch.clamp(pos, max=size - 1)
-    lat[lanes, slot] = torch.where((pos < size)[:, None],
-                                   new_lat.to(lat.dtype), lat[lanes, slot])
+    rows = like_layout(lat, {0: 0})
+    on_local(_write_latent, (lat, new_lat, pos, slot),
+             (None, like_layout(lat, {0: 0, 2: 1}), rows, rows), None)
     c_all, r_all = lat[..., :m.kv_lora_rank], lat[..., m.kv_lora_rank:]
 
     # absorb W_uk into the query:
     # q_eff[b,h,r] = sum_d q_nope[b,h,d] W_uk[r, h*d]
-    wuk = p["w_uk"].to(x.dtype).reshape(m.kv_lora_rank, h,
-                                        m.qk_nope_head_dim)
+    wuk = reshape(p["w_uk"].to(x.dtype), m.kv_lora_rank, h,
+                  m.qk_nope_head_dim)
     q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wuk)
     scores = (torch.einsum("bhr,bsr->bhs", q_eff.to(torch.float32),
                            c_all.to(torch.float32))
@@ -257,7 +342,16 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     scores = torch.where(valid[:, None, :], scores, _NEG)
     pw = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("bhs,bsr->bhr", pw, c_all.to(torch.float32))
-    wuv = p["w_uv"].to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
+    wuv = reshape(p["w_uv"].to(x.dtype), m.kv_lora_rank, h, m.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", out_lat.to(x.dtype), wuv)
-    y = out.reshape(b, 1, h * m.v_head_dim) @ p["w_o"].to(x.dtype)
+    y = reshape(out, b, 1, h * m.v_head_dim) @ p["w_o"].to(x.dtype)
     return y, cache
+
+
+def _write_latent(lat, new_lat, pos, slot) -> None:
+    """This token's latent into its cache slot, in place, where ``pos``
+    lies inside the cache: lat (B, size, D_lat), new_lat (B, D_lat), pos
+    and slot (B,)."""
+    lanes = torch.arange(lat.shape[0], device=lat.device)
+    lat[lanes, slot] = torch.where((pos < lat.shape[1])[:, None],
+                                   new_lat.to(lat.dtype), lat[lanes, slot])

@@ -68,7 +68,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import constrain, constrain_residual
+from repro_torch.distributed.sharding import (constrain, constrain_residual,
+                                              gather_fsdp, like_layout,
+                                              mesh_ops, on_local,
+                                              pin_residual)
 from repro_torch.models import attention as attn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
@@ -118,6 +121,7 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
     """One block of ``kind`` over the whole sequence (an attention block
     cross-attends to ``enc_out`` when it has ``xattn``; ``causal`` False
     for the encoder's).  Returns (x, aux_loss or None, cache_or_None)."""
+    p = gather_fsdp(p)
     x = constrain_residual(x)
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     cache = None
@@ -141,13 +145,14 @@ def _block_full(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor, *,
             y, cache = y
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    x = x + y
+    x = pin_residual(x + y)
     if enc_out is not None and "xattn" in p:
         xh = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + attn.gqa_full(cfg, p["xattn"], xh, cross_kv=enc_out,
-                              causal=False, use_rope=False)
+        x = pin_residual(x + attn.gqa_full(cfg, p["xattn"], xh,
+                                           cross_kv=enc_out, causal=False,
+                                           use_rope=False))
     x, aux = _block_rest(cfg, kind, p, x, dense=dense)
-    return x, aux, cache
+    return pin_residual(x), aux, cache
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
@@ -157,6 +162,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     block has ``xattn``).  Returns (x, cache): an attention block's cache
     updated in place, a recurrent block's new state (the caller writes it
     back)."""
+    p = gather_fsdp(p)
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn" and cfg.mla is not None:
         y, cache = attn.mla_decode(cfg, p["attn"], h_in, cache, pos)
@@ -167,11 +173,12 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         y, cache = getattr(rec, f"{kind}_decode")(cfg, p[kind], h_in, cache)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    x = x + y
+    x = pin_residual(x + y)
     if enc_out is not None and "xattn" in p:
         xh = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        x = x + attn.gqa_decode_cross(cfg, p["xattn"], xh, enc_out)
-    return _block_rest(cfg, kind, p, x, dense=dense)[0], cache
+        x = pin_residual(x + attn.gqa_decode_cross(cfg, p["xattn"], xh,
+                                                   enc_out))
+    return pin_residual(_block_rest(cfg, kind, p, x, dense=dense)[0]), cache
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -186,35 +193,61 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     return getattr(rec, f"init_{kind}_state")(cfg, batch, device=device)
 
 
-def _cache_from_prefill(cfg: ModelConfig, kind: str, built: dict, batch: int,
-                        seq: int, max_len: int, device: torch.device) -> dict:
+def _cache_from_prefill(cfg: ModelConfig, kind: str, built: dict,
+                        max_len: int) -> dict:
     """A prefill-built layer cache as a decode cache: an MLA layer's latent
     of ``seq`` positions, or a GQA layer's (k, v), in a cache of
     ``max_len`` (a ring of the last ``window`` positions when windowed); a
-    recurrent layer's state carries over unchanged."""
+    recurrent layer's state carries over unchanged.  Under a mesh each
+    device builds its own shards' cache, laid out as the built tensors
+    (DTensor has no rule for an indexed write)."""
     if kind != "attn":
         return built
     if cfg.mla is not None:
-        cache = attn.init_mla_cache(cfg, batch, max_len, device=device)
-        cache["latent"][:, :seq] = built["latent"]
-        return cache
+        lay = like_layout(built["latent"], {0: 0, 1: 1, 2: 2})
+        return {"latent": on_local(
+            lambda lat: _latent_cache(cfg, lat, max_len),
+            (built["latent"],), (lay,), lay)}
+    lay = like_layout(built["k"], {0: 0, 1: 1, 3: 3})
+    k, v, slot_pos = on_local(
+        lambda k, v: _gqa_cache(cfg, k, v, max_len), (built["k"], built["v"]),
+        (lay, lay), (lay, lay, like_layout(built["k"], {0: 0})))
+    return {"k": k, "v": v, "slot_pos": slot_pos}
+
+
+def _latent_cache(cfg: ModelConfig, latent: torch.Tensor,
+                  max_len: int) -> torch.Tensor:
+    """An MLA decode cache of ``max_len`` holding ``latent`` (B, S, D_lat)
+    at its first S positions."""
+    b, s, dl = latent.shape          # a device's shard under a mesh
+    cache = attn.init_mla_cache(cfg, b, max_len, dim=dl,
+                                device=latent.device)["latent"]
+    cache[:, :s] = latent
+    return cache
+
+
+def _gqa_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+               max_len: int) -> tuple[torch.Tensor, ...]:
+    """A GQA decode cache (k, v, slot_pos) of ``max_len`` holding the
+    prefill's k, v (B, Hkv, S, hd)."""
+    batch, hk, seq, hd = k.shape     # a device's shard under a mesh
     cache = attn.init_gqa_cache(cfg, batch, max_len, cfg.local_window,
-                                device=device)
+                                heads=hk, head_dim=hd, device=k.device)
     size = cache["k"].shape[2]
-    k = built["k"].to(cache["k"].dtype)
-    v = built["v"].to(cache["v"].dtype)
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
     if cfg.local_window > 0 and seq > size:
         # keep the last `size` positions, ring-aligned: slot = pos % size
-        positions = torch.arange(seq - size, seq, device=device)
+        positions = torch.arange(seq - size, seq, device=k.device)
         slots = positions % size
         cache["k"][:, :, slots, :] = k[:, :, -size:, :]
         cache["v"][:, :, slots, :] = v[:, :, -size:, :]
         cache["slot_pos"][:, slots] = positions
-        return cache
-    cache["k"][:, :, :seq, :] = k
-    cache["v"][:, :, :seq, :] = v
-    cache["slot_pos"][:, :seq] = torch.arange(seq, device=device)
-    return cache
+    else:
+        cache["k"][:, :, :seq, :] = k
+        cache["v"][:, :, :seq, :] = v
+        cache["slot_pos"][:, :seq] = torch.arange(seq, device=k.device)
+    return cache["k"], cache["v"], cache["slot_pos"]
 
 
 def _stacked(per_layer: list[dict]) -> dict:
@@ -255,13 +288,15 @@ class LM:
         enc_out = None
         if cfg.is_encdec:
             frames = batch["frames"].to(cfg.activation_dtype)
-            frames = frames @ params["frontend"]["adapter"].to(frames.dtype)
+            frames = frames @ gather_fsdp(
+                params["frontend"]["adapter"]).to(frames.dtype)
             enc_out = self._encode(params, frames, remat=remat)
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        x = embed_tokens(cfg, gather_fsdp(params["embed"]),
+                         batch["tokens"])
         if cfg.frontend == "vision":
             patches = batch["patches"].to(cfg.activation_dtype)
-            patches = patches @ params["frontend"]["adapter"].to(
-                patches.dtype)
+            patches = patches @ gather_fsdp(
+                params["frontend"]["adapter"]).to(patches.dtype)
             x = torch.cat([patches, x], dim=1)
             if labels is not None:
                 pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
@@ -285,7 +320,7 @@ class LM:
                 pos0=0, dense=True, build_cache=False, causal=False)
             x = (checkpoint(block, x, use_reentrant=False) if remat
                  else block(x))[0]
-        return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+        return rms_norm(x, gather_fsdp(enc["final_norm"]), cfg.norm_eps)
 
     # ----- layer-stack traversal ----------------------------------------------
     def _super_blocks(self, params: dict) -> list[dict]:
@@ -391,11 +426,12 @@ class LM:
                 caches[section] = {
                     k: _stacked(v) if section == "stack" else v[0]
                     for k, v in built.items()}
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
         return x, aux, caches
 
     def _head(self, params: dict) -> torch.Tensor:
-        return params["embed"] if self.cfg.tie_embeddings else params["head"]
+        return gather_fsdp(params["embed"] if self.cfg.tie_embeddings
+                           else params["head"])
 
     # ----- public entry points ---------------------------------------------------
     def loss(self, params: dict, batch: dict, *, remat: bool = True):
@@ -420,13 +456,18 @@ class LM:
     def prefill(self, params: dict, batch: dict, *, max_len: int):
         """Forward + cache build.  Returns (cache, last-position logits);
         an encoder-decoder's cache keeps the encoder memory (``enc_out``)
-        for decode's cross-attention."""
+        for decode's cross-attention.  On DTensor trees under a mesh it
+        runs under ``distributed.sharding.mesh_ops``."""
+        with mesh_ops():
+            return self._prefill(params, batch, max_len=max_len)
+
+    def _prefill(self, params: dict, batch: dict, *, max_len: int):
         cfg = self.cfg
         x, _, enc_out = self._inputs(params, batch)
         b, s, _ = x.shape
         x, _, built = self._forward(params, x, enc_out=enc_out,
                                     build_cache=True)
-        cache = self._caches_to_decode(built, b, s, max_len, x.device)
+        cache = self._caches_to_decode(built, max_len)
         cache["pos"] = torch.full((b,), s, dtype=torch.int64,
                                   device=x.device)   # per-lane positions
         if enc_out is not None:
@@ -435,15 +476,14 @@ class LM:
             torch.float32)
         return cache, logits[:, : cfg.vocab_size]
 
-    def _caches_to_decode(self, built: dict, b: int, s: int, max_len: int,
-                          device: torch.device) -> dict:
+    def _caches_to_decode(self, built: dict, max_len: int) -> dict:
         cfg = self.cfg
         out: dict[str, Any] = {}
         for section in ("prefix", "tail"):
             if section in built:
                 out[section] = {key: _cache_from_prefill(
-                    cfg, _kind(key), built[section][key], b, s, max_len,
-                    device) for key in built[section]}
+                    cfg, _kind(key), built[section][key], max_len)
+                    for key in built[section]}
         if "stack" in built:
             out["stack"] = {}
             for key, layers in built["stack"].items():
@@ -451,7 +491,7 @@ class LM:
                     out["stack"][key] = layers   # states carry over
                     continue
                 out["stack"][key] = _stacked([_cache_from_prefill(
-                    cfg, "attn", _layer(layers, i), b, s, max_len, device)
+                    cfg, "attn", _layer(layers, i), max_len)
                     for i in range(cfg.layer_plan().n_super)])
         return out
 
@@ -483,10 +523,17 @@ class LM:
         layer's new state is copied into its cache tensors, which for a
         stacked layer are views of the stacked state.  An encoder-decoder's
         cache carries ``enc_out`` through unchanged."""
+        with mesh_ops():
+            return self._decode_step(params, cache, tokens)
+
+    def _decode_step(self, params: dict, cache: dict, tokens: torch.Tensor):
         cfg = self.cfg
         pos = cache["pos"]
         enc_out = cache.get("enc_out")
-        x = embed_tokens(cfg, params["embed"], tokens)
+        x = embed_tokens(cfg, gather_fsdp(params["embed"]), tokens)
+        # as ``_inputs`` pins it: on a mesh with a vocab-split table this
+        # also sums the lookup's masked partial at once
+        x = constrain(x, ("pod", "data"), None, None)
         for section, key, i, lp in self._sections(params):
             lc = cache[section][key] if i is None \
                 else _layer(cache[section][key], i)
@@ -496,7 +543,7 @@ class LM:
             if new is not lc:
                 for name, t in new.items():
                     lc[name].copy_(t)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
         logits = (x[:, 0, :] @ self._head(params).to(x.dtype).T).to(
             torch.float32)
         new_cache = dict(cache, pos=pos + 1)

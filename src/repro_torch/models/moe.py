@@ -29,14 +29,29 @@ differ from jax's:
   on every run;
 * the sort and ``searchsorted`` are the stable and left-sided ones the
   reference calls.
+
+Under a mesh (DTensor activations) the routing is per row, as the
+reference's is: the top-k selection, the dispatch indices, the gather of
+each slot's token and the combine run on each device's own rows
+(``distributed.sharding.on_local``, the batch dim's sharding kept and
+every other dim replicated), since DTensor has no rule for ``sort``,
+``searchsorted``, ``scatter`` or ``gather``.  The router's scores, when
+their expert dim is split, and the experts' outputs, split over experts
+(``ep``) or over each expert's width (``tp``), are gathered whole over
+``model`` on the way in: the all-gathers a device's rows need, which the
+dry run's count of collectives sees.  The three expert products stay
+DTensor ops on the parameters' layouts.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, like_layout,
+                                              on_local, reshape)
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["moe_apply", "capacity"]
@@ -50,6 +65,14 @@ def capacity(cfg: ModelConfig, s: int) -> int:
     return max(-(-s * k * int(4 * m.capacity_factor) // (4 * e)), 1)
 
 
+def _top_k(scores: torch.Tensor, k: int):
+    """The top k of each row of scores (B, S, E), lower expert first among
+    equal scores (``jax.lax.top_k``), renormalized: (probs, idx)."""
+    top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :k], idx[..., :k]
+    return top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9), idx
+
+
 def _router(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D) -> (probs (B,S,k), idx (B,S,k), aux_loss)."""
     m = cfg.moe
@@ -58,10 +81,9 @@ def _router(cfg: ModelConfig, p: dict, x: torch.Tensor):
         scores = torch.sigmoid(logits)        # DeepSeek-V3 sigmoid router
     else:
         scores = torch.softmax(logits, dim=-1)
-    # the top k, lower expert first among equal scores (jax.lax.top_k)
-    top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    top, idx = top[..., :m.top_k], idx[..., :m.top_k]
-    top = top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9)
+    rows = like_layout(scores, {0: 0})
+    top, idx = on_local(functools.partial(_top_k, k=m.top_k), (scores,),
+                        (rows,), (rows, rows))
     # Switch-style load-balance auxiliary loss
     e = m.n_routed
     experts = torch.arange(e, device=x.device)
@@ -85,11 +107,36 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     b, s, d = x.shape
     e, k = m.n_routed, m.top_k
     cap = capacity(cfg, s)
-    dev = x.device
 
     top, idx, aux = _router(cfg, p, x)
+    rows = like_layout(x, {0: 0})
+    slot_tok, slot_w, slot_of = on_local(
+        functools.partial(_dispatch, s=s, e=e, cap=cap), (idx, top),
+        (rows, rows), (rows, rows, rows))
+    gx = on_local(functools.partial(_gather_slots, e=e, cap=cap),
+                  (x, slot_tok), (rows, rows), rows)       # (B,E,C,D)
+    if m.shard_mode == "ep":
+        gx = constrain(gx, ("pod", "data"), "model", None, None)
 
-    # ---- build per-row dispatch (all along the row's own S*k slots) -------
+    w_in = p["we_in"].to(x.dtype)
+    w_gate = p["we_gate"].to(x.dtype)
+    w_out = p["we_out"].to(x.dtype)
+    h = F.silu(torch.einsum("becd,edf->becf", gx, w_in))
+    h = h * torch.einsum("becd,edf->becf", gx, w_gate)
+    eo = torch.einsum("becf,efd->becd", h, w_out)          # (B,E,C,D)
+    eo = reshape(eo, b, e * cap, d) * slot_w[..., None].to(x.dtype)
+    out = on_local(_combine, (eo, slot_of, idx), (rows, rows, rows), rows)
+    return out + _shared(p, x), aux
+
+
+def _dispatch(idx: torch.Tensor, top: torch.Tensor, *, s: int, e: int,
+              cap: int):
+    """Each row's sort-based dispatch of its S*k (token, expert) slots.
+    idx, top: (B, S, k).  Returns (the token of each (expert, capacity)
+    slot, S for an empty one; its weight; the slot of each (token, j),
+    E*C for a dropped one), the first two (B, E*C), the last (B, S, k)."""
+    b, _, k = idx.shape
+    dev = idx.device
     flat_e = idx.reshape(b, s * k)                        # expert of each slot
     flat_t = torch.arange(s, device=dev).repeat_interleave(k).expand(b, -1)
     flat_p = top.reshape(b, s * k)
@@ -113,28 +160,19 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
     slot_w = torch.zeros((b, e * cap + 1), dtype=torch.float32, device=dev)
     slot_tok.scatter_(1, dest, torch.where(keep, st, s))
     slot_w.scatter_(1, dest, torch.where(keep, sp, 0.0))
-    slot_tok, slot_w = slot_tok[:, :-1], slot_w[:, :-1]
-
-    # ---- gather -> expert compute -> combine ------------------------------
-    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    gx = torch.gather(xp, 1, slot_tok[..., None].expand(b, e * cap, d))
-    gx = gx.reshape(b, e, cap, d)
-    if m.shard_mode == "ep":
-        gx = constrain(gx, ("pod", "data"), "model", None, None)
-
-    w_in = p["we_in"].to(x.dtype)
-    w_gate = p["we_gate"].to(x.dtype)
-    w_out = p["we_out"].to(x.dtype)
-    h = F.silu(torch.einsum("becd,edf->becf", gx, w_in))
-    h = h * torch.einsum("becd,edf->becf", gx, w_gate)
-    eo = torch.einsum("becf,efd->becd", h, w_out)          # (B,E,C,D)
-    eo = eo.reshape(b, e * cap, d) * slot_w[..., None].to(x.dtype)
-
     # the slot of each (token, j), E*C where dropped; the inverse of
     # ``order`` is a permutation, so no two writes meet
     slot_of = torch.empty_like(dest).scatter_(1, order, dest)   # (B, S*k)
-    out = _combine(eo, slot_of.reshape(b, s, k), idx)
-    return out + _shared(p, x), aux
+    return slot_tok[:, :-1], slot_w[:, :-1], slot_of.reshape(b, s, k)
+
+
+def _gather_slots(x: torch.Tensor, slot_tok: torch.Tensor, *, e: int,
+                  cap: int) -> torch.Tensor:
+    """The token of each slot, zeros for an empty one: (B, E, C, D)."""
+    b, _, d = x.shape
+    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+    gx = torch.gather(xp, 1, slot_tok[..., None].expand(b, e * cap, d))
+    return gx.reshape(b, e, cap, d)
 
 
 def _combine(eo: torch.Tensor, slot_of: torch.Tensor,

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.profiler import repeated
+from repro_torch.distributed.sharding import reshape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv1d
 
@@ -224,9 +225,9 @@ def _mlstm_qkvif(cfg: ModelConfig, p: dict, u: torch.Tensor,
     b, s, di = u.shape
     h = cfg.n_heads
     dh = di // h
-    q = (u @ p["w_q"].to(u.dtype)).reshape(b, s, h, dh)
-    k = (u @ p["w_k"].to(u.dtype)).reshape(b, s, h, dh) * dh ** -0.5
-    v = (v_src @ p["w_v"].to(u.dtype)).reshape(b, s, h, dh)
+    q = reshape(u @ p["w_q"].to(u.dtype), b, s, h, dh)
+    k = reshape(u @ p["w_k"].to(u.dtype), b, s, h, dh) * dh ** -0.5
+    v = reshape(v_src @ p["w_v"].to(u.dtype), b, s, h, dh)
     i_pre = u @ p["w_if"].to(u.dtype) + p["b_if"].to(u.dtype)
     f_pre = u @ p["w_ff"].to(u.dtype) + p["b_ff"].to(u.dtype)
     f32 = torch.float32
@@ -240,7 +241,7 @@ def _mlstm_out(p: dict, h_seq: torch.Tensor, u: torch.Tensor,
     # gate
     flat = h_seq * torch.rsqrt(torch.mean(h_seq * h_seq, dim=-1,
                                           keepdim=True) + 1e-6)
-    flat = flat.reshape(b, s, nh * dh).to(x_dtype)
+    flat = reshape(flat, b, s, nh * dh).to(x_dtype)
     y = (flat + p["skip_scale"].to(x_dtype) * u) * F.silu(gate)
     return y @ p["w_down"].to(x_dtype)
 
@@ -297,11 +298,11 @@ def _slstm_gates(cfg: ModelConfig, p: dict, xw: list[torch.Tensor],
     The block-diagonal recurrence is one (dh, dh) matrix per head."""
     b, d = h_prev.shape
     nh = cfg.n_heads
-    hh = h_prev.reshape(b, nh, d // nh)
+    hh = reshape(h_prev, b, nh, d // nh)
     outs = []
     for g, xg in zip("ifzo", xw):
         rec = torch.einsum("bhk,hkj->bhj", hh, p[f"r_{g}"].to(xg.dtype))
-        outs.append(xg + rec.reshape(b, d) + p[f"b_{g}"].to(xg.dtype))
+        outs.append(xg + reshape(rec, b, d) + p[f"b_{g}"].to(xg.dtype))
     return [o.to(torch.float32) for o in outs]
 
 

@@ -19,10 +19,11 @@ metrics come back as whole tensors.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.sharding import like_param, mesh_ops
 from repro_torch.models.model import LM
@@ -37,8 +38,25 @@ def _split_microbatches(batch: dict, accum: int) -> list[dict]:
         if x.shape[0] % accum:
             raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not "
                              f"split into {accum} microbatches")
+    batch = {name: _whole_rows(x, x.shape[0] // accum)
+             for name, x in batch.items()}
     return [{name: x.chunk(accum)[i] for name, x in batch.items()}
             for i in range(accum)]
+
+
+def _whole_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with its batch dim gathered over the mesh dims that split it
+    when a microbatch of ``rows`` rows would not split evenly over them
+    (DTensor takes no uneven split): every such device then runs the whole
+    microbatch.  Anything else is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    if rows % math.prod(mesh.size(i) for i in split) == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if i in split else p
+                                 for i, p in enumerate(x.placements)])
 
 
 def _set_path(tree: dict, path: tuple[str, ...], value: Any) -> None:

@@ -1287,3 +1287,77 @@ def test_encdec_loss_and_grads_on_the_card_match_the_cpu(cuda_device):
         torch.testing.assert_close(g.cpu(), w, rtol=5e-2,
                                    atol=5e-2 * max(top, 1e-30),
                                    msg="/".join(path))
+
+
+def test_meshed_moe_prefill_on_the_card_equals_unmeshed(cuda_device):
+    """qwen2-moe-a2.7b's smoke model on a (1, 1) ``(data, model)`` mesh of
+    one NCCL rank, params, tokens and cache DTensors: its prefill and two
+    greedy decode steps give the unmeshed run's logits and cache (within
+    1e-6; on one device every DTensor op is its local op), and kernel 6
+    launches once a layer through the DTensor path."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.compat import enter_mesh
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.specs import batch_pspecs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import param_pspecs
+
+    cfg = tcfgs.get_smoke_config("qwen2-moe-a2.7b")
+    params = compute_params(cfg, _to(init_params(cfg, device="cpu"),
+                                     cuda_device))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 64))).to(cuda_device)
+    model = LM(cfg)
+
+    def serve(p, t):
+        cache, lg = model.prefill(p, {"tokens": t}, max_len=80)
+        logits = [lg]
+        for _ in range(2):
+            nxt = torch.argmax(lg, dim=-1, keepdim=True)
+            lg, cache = model.decode_step(p, cache, nxt)
+            logits.append(lg)
+        return logits, cache
+
+    want, want_cache = serve(params, toks)
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        enter_mesh(mesh)
+        dparams = distribute_tree(params, param_pspecs(
+            cfg, fsdp_size=0, tp_size=1), mesh)
+        dtoks = distribute_tree({"tokens": toks}, batch_pspecs(
+            {"tokens": toks}, mesh.mesh_dim_names, dp_total=1),
+            mesh)["tokens"]
+        seen = []
+        on_shards = ops._on_shards
+
+        def spy(q, k, v, **kw):
+            seen.append(all(isinstance(t, DTensor) for t in (q, k, v)))
+            return on_shards(q, k, v, **kw)
+
+        la.reset_launches()
+        ops._on_shards = spy
+        try:
+            cache, lg = model.prefill(dparams, {"tokens": dtoks}, max_len=80)
+        finally:
+            ops._on_shards = on_shards
+        torch.cuda.synchronize()
+        assert la.local_flash_attention.launches == cfg.n_layers
+        assert seen == [True] * cfg.n_layers
+        got = [lg]
+        for _ in range(2):
+            nxt = torch.argmax(lg.full_tensor(), dim=-1, keepdim=True)
+            lg, cache = model.decode_step(dparams, cache, nxt)
+            got.append(lg)
+    finally:
+        enter_mesh(None)
+        dist.destroy_process_group()
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    for g, w in zip(got, want):
+        assert float((whole(g) - w).abs().max()) <= 1e-6
+    for (path, a), (_, b) in zip(leaves(cache), leaves(want_cache)):
+        assert float((whole(a).float() - b.float()).abs().max()) <= 1e-6, \
+            "/".join(path)

@@ -21,8 +21,17 @@ the reference's ``repro.launch.dryrun``.
   before the loop.)
 * The CLI runs a decode cell and a long-context cell on both production
   meshes (built over torch's fake process group) in a subprocess and
-  writes their records, with None under the keys only an XLA compile
-  gives.
+  writes their records: every key of the reference's record, the
+  per-device FLOPs, bytes and collective bytes of the partitioned pass,
+  ``scan_correction`` 1.0 with the corrected keys equal to the raw ones,
+  and None under the keys only an XLA compile gives.
+* The partitioned pass (``device_counts``) runs each family's smoke
+  config (train, prefill and decode) on a fake ``(data, model)`` (2, 4)
+  mesh and a fake ``(pod, data, model)`` (2, 2, 2) mesh, the production
+  meshes' names, in a subprocess over a fake group of 8 ranks (no
+  process group is made in the pytest process); ``repeated`` multiplies
+  the collectives it counts; on plain tensors the count has no
+  collectives and its FLOPs and bytes are ``counted``'s.
 """
 
 import json
@@ -47,7 +56,8 @@ from repro.optim import adafactor as jadafactor
 from repro.optim import adamw as jadamw
 from repro.train import make_train_step as jmake_train_step
 from repro_torch import configs as tcfgs
-from repro_torch.core.profiler import counted
+from repro_torch.core.profiler import (COLLECTIVE_KINDS, count_step,
+                                      flops_by_category, traffic_bytes)
 from repro_torch.launch import dryrun as tdry
 from repro_torch.models import LM
 from repro_torch.models.params import init_params, map_tree
@@ -115,6 +125,25 @@ def test_analytic_memory_equals_reference(arch, shape_name, mesh):
     assert got["fits_h100_80gb"] == (got["total"] < 80e9)
 
 
+@pytest.mark.parametrize("act", ["baseline", "sp"])
+def test_step_bytes_min_counts_what_a_step_must_move(act, monkeypatch):
+    """Arguments read once and outputs written once; a decode step's
+    aliased cache not written again; a train step's gradients and its
+    block-boundary carries written and read back once, the carries a
+    device's rows of the residual stream (and its model share under
+    'sp')."""
+    monkeypatch.setenv("REPRO_ACT_SHARDING", act)
+    assert tdry.step_bytes_min("prefill", 10.0, 3.0, 0.0) == 13.0
+    assert tdry.step_bytes_min("decode", 10.0, 7.0, 6.0) == 11.0
+    assert tdry.step_bytes_min("train", 10.0, 8.0, 8.0, 2.0, 5.0) == 32.0
+    cfg = tcfgs.get_config("qwen2-72b")
+    sh = tcfgs.SHAPES["train_4k"]
+    dims = tdry.MeshDims({"data": 16, "model": 16}, 256)
+    want = (cfg.n_layers * sh.global_batch * sh.seq_len * cfg.d_model * 2
+            / (16 * (16 if act == "sp" else 1)))
+    assert tdry.carry_bytes(cfg, sh, dims) == want
+
+
 def _smoke_train_cell(arch):
     return tdry.build_cell(arch, tcfgs.Shape("smoke", 32, 8, "train"),
                            tdry.MeshDims({"data": 1, "model": 1}, 1),
@@ -131,7 +160,7 @@ def test_smoke_train_cell_flops_equal_reference(arch):
     """The train cell's step at the smoke config, batch 8 x 32 tokens,
     with the cell's optimizer and accumulation."""
     accum = tdry.ACCUM.get(arch, 1)
-    got = counted(*_train_args(_smoke_train_cell(arch)))[0]
+    got = count_step(*_train_args(_smoke_train_cell(arch))).flops
 
     jcfg = jcfgs.get_smoke_config(arch)
     opt = (jadafactor(1e-4) if arch in jdry.ADAFACTOR_ARCHS
@@ -151,23 +180,31 @@ def test_xlstm_time_loops_count_as_walked():
     loops run step 0 and one step for the other 31; on the CPU they are
     walked, 32 steps.  The matmul FLOPs are equal."""
     cell = _smoke_train_cell("xlstm-125m")
-    meta = counted(*_train_args(cell))[0]
+    meta = count_step(*_train_args(cell)).flops
     params = init_params(tcfgs.get_smoke_config("xlstm-125m"),
                          device="cpu")
     state = map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype),
                      cell.args[1])
     batch = {k: torch.zeros(v.shape, dtype=v.dtype)
              for k, v in cell.args[2].items()}
-    walked = counted(cell.fn, params, state, batch, 0)[0]
+    walked = count_step(cell.fn, params, state, batch, 0).flops
     assert meta["matmul"] == walked["matmul"] > 0
     assert 0.5 <= meta["other"] / walked["other"] <= 2.0
 
 
-_NULL = ("flops", "bytes_accessed", "bytes_accessed_corrected",
-         "collective_bytes", "collective_bytes_total",
-         "collective_bytes_corrected", "temp_bytes_per_device",
-         "peak_bytes_per_device", "scan_correction", "lower_s",
+_NULL = ("temp_bytes_per_device", "peak_bytes_per_device", "lower_s",
          "compile_s")
+# the keys of the reference's record (``repro.launch.dryrun.run_cell``)
+REF_KEYS = ("cell", "arch", "shape", "mesh", "devices", "flops",
+            "jaxpr_flops_global", "jaxpr_flops_by_category",
+            "scan_correction", "bytes_accessed", "bytes_accessed_corrected",
+            "jaxpr_traffic_bytes_global", "collective_bytes",
+            "collective_bytes_total", "collective_bytes_corrected",
+            "argument_bytes_per_device", "output_bytes_per_device",
+            "temp_bytes_per_device", "alias_bytes_per_device",
+            "peak_bytes_per_device", "analytic_memory_per_device",
+            "params_total", "params_active", "accum_steps", "lower_s",
+            "compile_s")
 
 
 def test_cli_runs_decode_and_long_cells_on_both_meshes(tmp_path):
@@ -196,6 +233,7 @@ def test_cli_runs_decode_and_long_cells_on_both_meshes(tmp_path):
         recs = {m: json.loads((tmp_path / f"{arch}__{shape}__{m}.json")
                               .read_text()) for m in ("single", "multi")}
         for mesh, rec in recs.items():
+            assert set(REF_KEYS) <= set(rec), set(REF_KEYS) - set(rec)
             assert rec["source"] == "meta"
             assert rec["devices"] == (256 if mesh == "single" else 512)
             for k in _NULL:
@@ -203,6 +241,33 @@ def test_cli_runs_decode_and_long_cells_on_both_meshes(tmp_path):
             assert rec["jaxpr_flops_global"] > 0
             assert rec["jaxpr_traffic_bytes_global"] > 0
             assert rec["argument_bytes_per_device"] > 0
+            # the partitioned pass: one device's share, every trip counted
+            assert 0 < rec["flops"] < rec["jaxpr_flops_global"]
+            assert rec["flops"] == sum(
+                v for k, v in rec["flops_by_category_per_device"].items()
+                if not k.startswith("__"))
+            assert 0 < rec["bytes_accessed"] < \
+                rec["jaxpr_traffic_bytes_global"]
+            assert rec["scan_correction"] == 1.0
+            assert rec["bytes_accessed_corrected"] == rec["bytes_accessed"]
+            assert set(rec["collective_bytes"]) <= set(COLLECTIVE_KINDS)
+            assert rec["collective_bytes_total"] == sum(
+                rec["collective_bytes"].values()) > 0
+            assert rec["collective_bytes_corrected"] == \
+                rec["collective_bytes_total"]
+            assert rec["ce_chunk_collective_bytes"] is None   # not train
+            # a decode step must read its arguments and write its logits;
+            # its eager traffic is more
+            assert rec["bytes_min"] == (rec["argument_bytes_per_device"]
+                                        + rec["output_bytes_per_device"]
+                                        - rec["alias_bytes_per_device"])
+            assert 0 < rec["bytes_min"] < rec["bytes_accessed"]
+            assert rec["partition"] == ("mesh" if mesh == "single" else
+                                        "pod_slice+cross_pod_reduce")
+            assert rec["accum_counted"] == rec["accum_steps"] == 1
+            assert (rec["kind"], rec["global_batch"], rec["seq_len"]) == (
+                "decode", tcfgs.SHAPES[shape].global_batch,
+                tcfgs.SHAPES[shape].seq_len)
             mem = rec["analytic_memory_per_device"]
             assert mem["fits_16gb"] and mem["fits_h100_80gb"]
         # the counts are global: the same on both meshes
@@ -210,3 +275,120 @@ def test_cli_runs_decode_and_long_cells_on_both_meshes(tmp_path):
             recs["multi"]["jaxpr_flops_by_category"]
         assert recs["multi"]["argument_bytes_per_device"] <= \
             recs["single"]["argument_bytes_per_device"]
+
+
+# --- the partitioned pass on fake meshes, in subprocesses ---------------------
+
+_PARTITIONED = r'''
+import json, sys
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch import configs as cfgs
+from repro_torch.core.profiler import count_step, repeated
+from repro_torch.distributed.compat import make_auto_mesh
+from repro_torch.launch import dryrun
+
+torch.set_num_threads(1)
+shape, names, archs, out = json.loads(sys.argv[1])
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = make_auto_mesh(tuple(shape), tuple(names))
+res = {}
+for arch in archs:
+    cfg = cfgs.get_smoke_config(arch)
+    for kind in ("train", "prefill", "decode"):
+        c, ce, accum = dryrun.device_counts(
+            arch, cfgs.Shape("smoke", 16, 32, kind), mesh, cfg=cfg)
+        res[f"{arch}/{kind}"] = {"flops": c.flops, "bytes": c.bytes,
+                                 "collectives": c.collectives, "ce": ce,
+                                 "accum": accum}
+x = DTensor.from_local(torch.empty(4, 8, device="meta"), mesh,
+                       [Shard(0)] + [Replicate()] * (mesh.ndim - 1),
+                       run_check=False)
+whole = [Replicate()] * mesh.ndim
+once = count_step(lambda: x.redistribute(mesh, whole)).collectives
+
+
+def thrice():
+    with repeated(3):
+        x.redistribute(mesh, whole)
+
+
+res["repeated"] = [once, count_step(thrice).collectives]
+dist.destroy_process_group()
+with open(out, "w") as f:
+    json.dump(res, f)
+'''
+
+MESHES_SMALL = {"data_model": ((2, 4), ("data", "model")),
+                "pod_data_model": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def _family_archs() -> list[str]:
+    """One arch of each family, and deepseek-v3-671b (MLA) beside the
+    first MoE."""
+    seen = {}
+    for arch in tcfgs.ARCHS:
+        seen.setdefault(tcfgs.get_config(arch).family, arch)
+    return sorted(set(seen.values()) | {"deepseek-v3-671b"})
+
+
+@pytest.fixture(scope="module")
+def partitioned(tmp_path_factory):
+    d = tmp_path_factory.mktemp("partitioned")
+    script = d / "partitioned.py"
+    script.write_text(_PARTITIONED)
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, str(script), json.dumps(
+            [list(shape), list(names), _family_archs(),
+             str(d / f"{name}.json")])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (shape, names) in MESHES_SMALL.items()}
+    try:
+        outs = {n: p.communicate(timeout=900)[0] for n, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs.values()), {
+        n: o[-3000:] for n, o in outs.items()}
+    return {n: json.loads((d / f"{n}.json").read_text())
+            for n in MESHES_SMALL}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES_SMALL))
+def test_partitioned_pass_runs_every_family(partitioned, mesh):
+    res = partitioned[mesh]
+    archs = _family_archs()
+    assert len(archs) >= 6
+    for arch in archs:
+        for kind in ("train", "prefill", "decode"):
+            r = res[f"{arch}/{kind}"]
+            assert r["flops"]["matmul"] > 0 and r["bytes"] > 0, (arch, kind)
+            assert set(r["collectives"]) <= set(COLLECTIVE_KINDS)
+            assert sum(r["collectives"].values()) > 0, (arch, kind)
+            assert (r["ce"] is None) == (kind != "train")
+            assert 1 <= r["accum"] <= (tdry.ACCUM.get(arch, 1)
+                                       if kind == "train" else 1)
+        # the gradients' reduction across the pods
+        if mesh == "pod_data_model":
+            assert res[f"{arch}/train"]["collectives"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("mesh", list(MESHES_SMALL))
+def test_repeated_multiplies_collectives(partitioned, mesh):
+    once, thrice = partitioned[mesh]["repeated"]
+    assert once == {"all-gather": 8 * 8 * 4.0}      # max(result, operand)
+    assert thrice == {k: 3 * v for k, v in once.items()}
+
+
+def test_plain_count_has_no_collectives():
+    cell = _smoke_train_cell("stablelm-1.6b")
+    c = count_step(*_train_args(cell))
+    assert c.collectives == {}
+    assert c.flops == flops_by_category(*_train_args(cell))
+    assert c.bytes == traffic_bytes(*_train_args(cell))

@@ -29,6 +29,11 @@
   ``tests/test_system.py::test_elastic_checkpoint_restore_new_sharding``),
   ``make_batch_sharding`` gives the reference's axes, and the flash
   attention's wrapper on DTensors equals its result on whole tensors.
+  qwen2-moe-a2.7b's smoke model serves on the mesh as it does unmeshed.
+  Rank 0 counts the collective bytes of the meshed training step, the
+  MoE prefill and decode step, and xlstm-125m's training step on real
+  tensors; each equals the dry run's partitioned pass of the same cell
+  on meta shards over a fake group of 8 ranks, by kind, exactly.
 """
 
 import dataclasses
@@ -264,11 +269,15 @@ def nest(flat):
     return tree
 
 
-def run(rank, out_dir, weights):
+WORLD = 8
+
+
+def run(rank, out_dir, weights, moe_weights):
     from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                           distribute_tensor)
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core.profiler import count_step
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import make_batch_sharding
     from repro_torch.distributed.compat import (current_mesh_axis_names,
@@ -312,6 +321,10 @@ def run(rank, out_dir, weights):
     ops._on_shards = spy
     p2, s2, m2 = step(dparams, dstate, dbatch, 0)
     ops._on_shards = on_shards
+    # the same step counted on this rank's real tensors: its collective
+    # bytes by kind (rank 0's are held to the meta pass over a fake group)
+    out["step_collectives"] = count_step(step, dparams, dstate, dbatch,
+                                         0).collectives
     out["axes_in_step"] = seen.get("axes")
     out["attention_on_shards"] = seen["calls"]
     out["loss_meshed"] = float(m2["loss"])
@@ -420,23 +433,182 @@ def run(rank, out_dir, weights):
         and torch.equal(restored["b"].to_local(), tree["b"][2 * m:2 * m + 2]))
     out["ckpt_whole_equal"] = all(
         torch.equal(restored[k].full_tensor(), tree[k]) for k in tree)
+    moe = moe_serving(rank, mesh, out, out_dir, moe_weights)
+    rec = recurrent_step(mesh, out)
     enter_mesh(None)
     out["axes_after_leaving"] = list(current_mesh_axis_names())
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    return (params, state, batch), moe, rec
+
+
+def moe_serving(rank, mesh, out, out_dir, weights):
+    """qwen2-moe-a2.7b's smoke model at float32 activations: a prefill of
+    32 x 12 tokens and 3 decode steps, unmeshed and on the mesh (params,
+    tokens and cache DTensors); rank 0 keeps the meshed logits.  The
+    meshed prefill, and a decode step from the prefill's cache laid out
+    by ``cache_pspecs`` (the dry run's decode cell), counted: their
+    collective bytes by kind.  Returns what the meta pass needs."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.core.profiler import count_step
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.specs import batch_pspecs, cache_pspecs
+    from repro_torch.models import LM
+    from repro_torch.models.params import (compute_params, leaves,
+                                           param_pspecs)
+
+    flat = np.load(weights)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    params = compute_params(cfg, lm_params_from_numpy(nest(flat), cfg,
+                                                      device="cpu"))
+    toks = torch.from_numpy(flat["__tokens"]).to(torch.int64)
+    s, steps = 12, toks.shape[1] - 12
+    model = LM(cfg)
+
+    def serve(p, t):
+        cache, lg = model.prefill(p, {"tokens": t[:, :s]}, max_len=s + 8)
+        logits = [lg]
+        for i in range(steps):
+            lg, cache = model.decode_step(p, cache, t[:, s + i:s + i + 1])
+            logits.append(lg)
+        return logits, cache
+
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    want, want_cache = serve(params, toks)
+    dparams = distribute_tree(params, param_pspecs(cfg, fsdp_size=0,
+                                                   tp_size=4), mesh)
+    dtoks = distribute_tree({"tokens": toks}, batch_pspecs(
+        {"tokens": toks}, ("data", "model")), mesh)["tokens"]
+    got, got_cache = serve(dparams, dtoks)
+    got = [whole(g) for g in got]
+    out["moe_logits_err"] = max(float((g - w).abs().max() / w.abs().max())
+                                for g, w in zip(got, want))
+    out["moe_cache_err"] = max(
+        float((whole(a).float() - b.float()).abs().max())
+        for (_, a), (_, b) in zip(leaves(got_cache), leaves(want_cache)))
+    out["moe_cache_dtensors"] = sum(isinstance(t, DTensor)
+                                    for _, t in leaves(got_cache))
+    out["moe_logits_placements"] = [str(p) for p in dtoks.placements]
+    if rank == 0:
+        np.save(os.path.join(out_dir, "moe_logits.npy"),
+                torch.stack(got).numpy())
+
+    out["moe_prefill_collectives"] = count_step(
+        model.prefill, dparams, {"tokens": dtoks[:, :s]},
+        max_len=s + 8).collectives
+    cache, _ = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s + 8)
+    c_ps = cache_pspecs(cfg, cache, ("data", "model"), 4, toks.shape[0])
+    out["moe_decode_collectives"] = count_step(
+        model.decode_step, dparams, distribute_tree(cache, c_ps, mesh),
+        dtoks[:, s:s + 1]).collectives
+    return cfg, params, cache, c_ps, toks, s
+
+
+def recurrent_step(mesh, out):
+    """xlstm-125m's smoke training step on the mesh, counted: its
+    collective bytes by kind.  Its time loops run step by step here; on
+    ``meta`` one step stands for the rest (``core.profiler.repeated``).
+    Returns what the meta pass needs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.profiler import count_step
+    from repro_torch.distributed.sharding import distribute_tree
+    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.models import LM, init_params
+    from repro_torch.models.params import param_pspecs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    cfg = get_smoke_config("xlstm-125m")
+    params = init_params(cfg, device="cpu")
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (8, 17),
+                         generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
+    specs = (pps, opt_pspecs(state, pps),
+             batch_pspecs(batch, ("data", "model"), dp_total=2))
+    args = [distribute_tree(t, sp, mesh)
+            for t, sp in zip((params, state, batch), specs)]
+    out["recurrent_collectives"] = count_step(
+        make_train_step(LM(cfg), opt), *args, 0).collectives
+    return cfg, params, state, batch, specs
+
+
+def meta_counts(out_dir, train, moe, rec):
+    """The counted steps' collective bytes by kind from the dry run's
+    partitioned pass: the same steps and layouts on meta shards over a
+    fake group of the same 8 ranks, rank 0's view."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import LM
+    from repro_torch.models.params import map_tree, param_pspecs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    params, state, batch = train
+    cfg = get_smoke_config("qwen2-72b")
+    opt = adamw(1e-3)
+    on_meta = lambda tree: map_tree(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), tree)
+    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
+    cells = {"train": dryrun.Cell(
+        make_train_step(LM(cfg), opt),
+        (on_meta(params), on_meta(state), on_meta(batch), 0),
+        (pps, opt_pspecs(state, pps),
+         batch_pspecs(batch, ("data", "model"), dp_total=2), None),
+        None, (0, 1), None, None, 1)}
+
+    mcfg, mparams, cache, c_ps, toks, s = moe
+    model = LM(mcfg)
+    mpps = param_pspecs(mcfg, fsdp_size=0, tp_size=4)
+    tok_ps = batch_pspecs({"tokens": toks}, ("data", "model"))["tokens"]
+    cells["moe_prefill"] = dryrun.Cell(
+        lambda p, b: model.prefill(p, b, max_len=s + 8),
+        (on_meta(mparams), {"tokens": on_meta(toks[:, :s])}),
+        (mpps, {"tokens": tok_ps}), None, (), None, None, 1)
+    cells["moe_decode"] = dryrun.Cell(
+        model.decode_step,
+        (on_meta(mparams), on_meta(cache), on_meta(toks[:, s:s + 1])),
+        (mpps, c_ps, tok_ps), None, (1,), None, None, 1)
+
+    rcfg, rparams, rstate, rbatch, specs = rec
+    cells["recurrent"] = dryrun.Cell(
+        make_train_step(LM(rcfg), adamw(1e-3)),
+        (on_meta(rparams), on_meta(rstate), on_meta(rbatch), 0),
+        specs + (None,), None, (0, 1), None, None, 1)
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=WORLD)
+    try:
+        mesh = make_test_mesh((2, 4), ("data", "model"))
+        got = {name: dryrun.partitioned_count(cell, mesh).collectives
+               for name, cell in cells.items()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, "meta_counts.json"), "w") as f:
+        json.dump(got, f)
 
 
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
-    store, out_dir, weights = sys.argv[3:6]
+    store, out_dir, weights, moe_weights = sys.argv[3:7]
     os.nice(19)       # the machine's other test workers come first
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        run(rank, out_dir, weights)
+        trees = run(rank, out_dir, weights, moe_weights)
     finally:
         dist.destroy_process_group()
+    if rank == 0:
+        meta_counts(out_dir, *trees)
 
 
 main()
@@ -465,6 +637,11 @@ def ranks(tmp_path_factory):
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
     np.savez(d / "weights.npz", **_flat(params),
              **{"__" + k: v for k, v in batch.items()})
+    mcfg = dataclasses.replace(jcfgs.get_smoke_config("qwen2-moe-a2.7b"),
+                               dtype="float32")
+    mparams = jinit(mcfg, jax.random.PRNGKey(1))
+    mtoks = rng.integers(0, mcfg.vocab_size, (32, 15)).astype(np.int32)
+    np.savez(d / "moe.npz", **_flat(mparams), __tokens=mtoks)
     script = d / "child.py"
     script.write_text(_CHILD)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
@@ -478,7 +655,8 @@ def ranks(tmp_path_factory):
             logs.append(log)
             procs.append(subprocess.Popen(
                 [sys.executable, str(script), str(r), str(WORLD),
-                 str(d / "store"), str(d), str(d / "weights.npz")],
+                 str(d / "store"), str(d), str(d / "weights.npz"),
+                 str(d / "moe.npz")],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
         # both one-device steps while the ranks run
         opt = jadamw(1e-3)
@@ -502,6 +680,7 @@ def ranks(tmp_path_factory):
                     grads_f32={"/".join(path): t.numpy() for path, t in
                                leaves(loss_and_grads(model32, tparams_,
                                                      tbatch)[2])})
+        port["moe_reference"] = _reference_serving(mcfg, mparams, mtoks)
         codes = [p.wait(timeout=CHILD_TIMEOUT) for p in procs]
     finally:
         torch.set_num_threads(threads)
@@ -519,7 +698,23 @@ def ranks(tmp_path_factory):
             for r in range(WORLD)]
     with np.load(d / "meshed_grads.npz") as f:
         port["meshed_grads_f32"] = {k: f[k] for k in f.files}
+    port["moe_meshed"] = np.load(d / "moe_logits.npy")
+    port["meta_counts"] = json.loads((d / "meta_counts.json").read_text())
     return outs, ref_loss, port
+
+
+def _reference_serving(cfg, params, toks, s=12):
+    """The reference's prefill logits of ``toks[:, :s]`` and its decode
+    logits for the rest, stacked."""
+    model = JLM(cfg)
+    cache, lg = jax.jit(lambda p, t: model.prefill(
+        p, {"tokens": t}, max_len=s + 8))(params, jnp.asarray(toks[:, :s]))
+    out = [np.asarray(lg, np.float32)]
+    step = jax.jit(model.decode_step)
+    for i in range(toks.shape[1] - s):
+        lg, cache = step(params, cache, jnp.asarray(toks[:, s + i:s + i + 1]))
+        out.append(np.asarray(lg, np.float32))
+    return np.stack(out)
 
 
 def test_mesh_names_are_current_inside_the_step(ranks):
@@ -603,3 +798,48 @@ def test_flash_attention_on_dtensors_equals_whole(ranks):
         assert len(out["attention_cases"]) == 5
         for case in out["attention_cases"]:
             assert case["err"] <= 1e-5, case      # atol 1e-5, rtol 1e-5
+
+
+def test_meshed_step_collective_bytes_equal_the_meta_pass(ranks):
+    """Rank 0's count of the meshed training step on real tensors: its
+    collective bytes by kind equal the dry run's partitioned pass of the
+    same step and layouts on meta shards over a fake group of 8 ranks,
+    exactly; every rank moves the same bytes."""
+    outs, _, port = ranks
+    got = outs[0]["step_collectives"]
+    assert got and sum(got.values()) > 0
+    assert got == port["meta_counts"]["train"]
+    for out in outs:
+        assert out["step_collectives"] == got
+
+
+@pytest.mark.parametrize("step", ["moe_prefill", "moe_decode", "recurrent"])
+def test_meshed_serving_and_recurrent_collectives_equal_the_meta_pass(
+        ranks, step):
+    """Rank 0's counts on real tensors of qwen2-moe-a2.7b's meshed
+    prefill, of its decode step from a cache laid out by
+    ``cache_pspecs``, and of xlstm-125m's training step (time loops
+    walked): their collective bytes by kind equal the dry run's
+    partitioned pass of the same cells on meta shards over a fake group
+    of 8 ranks, exactly (the xLSTM loops run one step under ``repeated``
+    there)."""
+    outs, _, port = ranks
+    got = outs[0][f"{step}_collectives"]
+    assert got and sum(got.values()) > 0
+    assert got == port["meta_counts"][step]
+
+
+def test_meshed_moe_serving_matches_unmeshed_and_reference(ranks):
+    """qwen2-moe-a2.7b's smoke model at float32: a prefill and 3 decode
+    steps with params, tokens and cache as DTensors on the (2, 4) mesh
+    against the same run unmeshed (1e-5 of the largest logit) and the
+    reference's (5e-2)."""
+    outs, _, port = ranks
+    for out in outs:
+        assert out["moe_logits_err"] <= 1e-5, out["moe_logits_err"]
+        assert out["moe_cache_err"] <= 1e-5, out["moe_cache_err"]
+        assert out["moe_cache_dtensors"] > 0
+        assert out["moe_logits_placements"] == ["S(0)", "R"]
+    got, want = port["moe_meshed"], port["moe_reference"]
+    assert got.shape == want.shape == (4, 32, want.shape[-1])
+    assert np.abs(got - want).max() <= 5e-2, np.abs(got - want).max()

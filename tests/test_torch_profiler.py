@@ -423,7 +423,13 @@ def test_complexity_rejects_bad_input():
 
 def test_telemetry_profiles_reproduce_hand_profiled_plan():
     """Executing through the runtime's host backend must yield profiles
-    whose plan matches a hand ``OpProfiler`` run of the same frames."""
+    whose plan matches a hand ``OpProfiler`` run of the same frames.
+
+    Both loops are warmed before they are timed, and both run at one
+    intra-op thread: a 64x64 ``fft2`` opens a parallel region over every
+    thread, and on a loaded machine waiting for them took 150-280 ms for
+    the six calls (against ~0.5 ms at one thread), near the prototype's
+    0.29 s offload price, so either plan's fft decision could flip."""
     rng = np.random.default_rng(0)
     imgs = [torch.from_numpy(rng.random((64, 64), dtype=np.float32))
             for _ in range(6)]
@@ -431,6 +437,17 @@ def test_telemetry_profiles_reproduce_hand_profiled_plan():
     def host_fft(x):
         return torch.fft.fft2(x, norm="ortho").abs() ** 2
 
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _hand_and_telemetry_plans_agree(imgs, host_fft)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _hand_and_telemetry_plans_agree(imgs, host_fft):
+    for im in imgs:
+        host_fft(im)
     prof = OpProfiler()
     prof.start()
     for im in imgs:
@@ -446,6 +463,8 @@ def test_telemetry_profiles_reproduce_hand_profiled_plan():
 
     ex = trt.OffloadExecutor(PROTOTYPE_4F, default_backend="host",
                              device="cpu")
+    for im in imgs:
+        ex.warm("fft", im)
     ex.telemetry.start()
     for im in imgs:
         ex.run("fft", im)

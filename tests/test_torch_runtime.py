@@ -383,9 +383,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.distributed.specs\n"
             "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
             "import repro_torch.checkpoint.manager\n"
+            "import repro_torch.casestudy.roofline, "
+            "repro_torch.casestudy.experiments\n"
+            "import repro_torch.casestudy.run\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.')]\n"
+            "m.startswith('repro.') or m == 'benchmarks' or "
+            "m.startswith('benchmarks.')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(
         os.path.dirname(__file__), "..", "src"))
