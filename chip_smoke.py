@@ -180,9 +180,20 @@ MESH_TOL = 1e-6
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 300
 # the dry run's cells: (arch, shape, meshes), the training cell of the
-# mesh's model on both production meshes and the MoE decode cell on 16x16
+# mesh's model on both production meshes, the MoE decode cell on 16x16,
+# and a training cell whose query heads ``model`` (16) does not divide,
+# which runs on padded head splits (llava-next-34b's is counted on the
+# CPU only: the card's torch 2.11 cannot cat its patches to a
+# vocab-sharded embedding's masked partial on meta, having no meta kernel
+# for aten::equal)
 DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "both"),
-                ("qwen2-moe-a2.7b", "decode_32k", "single"))
+                ("qwen2-moe-a2.7b", "decode_32k", "single"),
+                ("qwen2.5-32b", "train_4k", "single"))
+# the padded cell's x split (a device's FLOPs over the global FLOPs over
+# its devices) without kernel 6's charged work stays in the band of the
+# production cells whose heads ``model`` divides (their dry-run records:
+# 1.00-1.30)
+X_SPLIT_BAND = (1.0, 1.30)
 
 # the sharded runtime: 4 logical devices; one conv frame larger than
 # BATCHED_4F's 2048^2 aperture; chaos flushes until every injected kind
@@ -2728,7 +2739,8 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
     from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import LM, init_params
+    from repro_torch.distributed import sharding
+    from repro_torch.models import LM, init_params, layers
     from repro_torch.models.params import leaves, map_tree, param_pspecs
     from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
@@ -2785,12 +2797,17 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         la.reset_launches()
+        entered = (layers._VocabParallelLSE.calls, sharding._PadHeads.calls)
         ops._on_shards = spy
         try:
             loss, first_s, new, grad_norm = timed_step(
                 step_fn, dparams, dstate, dbatch)
         finally:
             ops._on_shards = on_shards
+        # on a (1, 1) mesh nothing is split: the cross-entropy keeps
+        # torch.logsumexp and the heads their reshape
+        entered = (layers._VocabParallelLSE.calls - entered[0],
+                   sharding._PadHeads.calls - entered[1])
         f = la.local_flash_attention
         launches = {"forward": f.launches,
                     "backward": f.backward_launches,
@@ -2821,7 +2838,9 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
           f"{plain[0][2]:.6f}, relative difference {norm_err:.3e} (bound "
           f"{MESH_TOL}); updated params' largest difference {update_err:.3e}"
           f" of a leaf's largest (bound {MESH_TOL}); a repeat of the meshed "
-          f"step {again:.6f}; placements kept: {kept}")
+          f"step {again:.6f}; placements kept: {kept}; the vocab-parallel "
+          f"log-sum-exp entered {entered[0]} times, the padded head split "
+          f"{entered[1]} times")
     print(f"  kernel 6 in the meshed step: {launches['forward']} forward "
           f"{launches['forward_by_route']}, {launches['backward']} backward "
           f"{launches['backward_by_route']}, at {launches['forward_by_shape']}"
@@ -2836,6 +2855,8 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
           f"{training['peak_memory_gb']:.2f} GB")
     check(np.isfinite(loss) and diff <= MESH_TOL,
           f"meshed loss {loss} against unmeshed {plain[0][0]}")
+    check(entered == (0, 0), f"on the {MESH_SHAPE} mesh the vocab-parallel "
+          f"log-sum-exp and the padded head split ran {entered} times")
     check(norm_err <= MESH_TOL, f"meshed gradient norm {grad_norm} against "
           f"unmeshed {plain[0][2]}")
     check(update_err <= MESH_TOL, f"the meshed step's updated params differ "
@@ -2864,6 +2885,8 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
             "grad_norm_relative_difference": norm_err,
             "update_error": update_err,
             "loss_repeat": again, "placements_kept": kept,
+            "vocab_parallel_lse_calls": entered[0],
+            "padded_head_calls": entered[1],
             "step_wall_s": step_s, "first_step_wall_s": first_s,
             "unmeshed_step_wall_s": plain[1][1],
             "unmeshed_first_step_wall_s": plain[0][1],
@@ -2873,14 +2896,40 @@ def phase_mesh(la, dev, card: str, training: dict) -> dict:
             "kernel6": rows["local_flash_attention"]}
 
 
+def padded_attention_work(cfg, sh, devices: int
+                          ) -> tuple[float, float, int]:
+    """Kernel 6's charged work in a training step of ``cfg`` at shape
+    ``sh`` (the count's own rules, ``_attention_work`` for the forward
+    and its recompute and ``_attention_backward_work`` for the backward
+    in each layer, plus the outputs each launch writes), globally, and a
+    device's share when its ``model`` rank (of 16) runs hl padded heads
+    (``sharding.head_pad``) of its rows of the batch.  Returns (global,
+    a device's, hl)."""
+    from repro_torch.distributed.sharding import head_pad
+    from repro_torch.kernels.local_attention import (
+        _attention_backward_work, _attention_work)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    meta = lambda heads: torch.empty(
+        (sh.global_batch * heads, sh.seq_len, d), device="meta",
+        dtype=cfg.activation_dtype)
+    q, kv = meta(h), meta(hk)
+    fwd = sum(_attention_work(q, kv, kv).values()) + q.numel()
+    bwd = sum(_attention_backward_work(q, kv, kv).values()) \
+        + q.numel() + 2 * kv.numel()
+    work = cfg.n_layers * (2 * fwd + bwd)
+    hl = len(head_pad(h, hk, 16)) // 16
+    return work, work * hl / h / (devices // 16), hl
+
+
 def phase_dryrun(card: str) -> dict:
-    """The dry run of stablelm-1.6b ``train_4k`` on both production meshes
-    and of qwen2-moe-a2.7b ``decode_32k`` on 16x16, in its own process (it
-    builds its meshes over a fake process group of 512 ranks): each
-    record's global counts, its partitioned pass (FLOPs, bytes and
-    collective bytes a device) and its roofline row at the H100's
-    constants; the count of one cross-entropy chunk's vocab gather beside
-    its shape arithmetic."""
+    """The dry run of ``DRYRUN_CELLS`` in its own process (it builds its
+    meshes over a fake process group of 512 ranks): each record's global
+    counts, its partitioned pass (FLOPs, bytes and collective bytes a
+    device) and its roofline row at the H100's constants; one
+    cross-entropy chunk's collectives beside their shape arithmetic (no
+    vocab gather, the log-sum-exp's two all-reduces); the x split of the
+    cell whose heads run padded against the padding arithmetic
+    (``padded_attention_work``)."""
     import os
     import shutil
     from repro_torch import configs
@@ -2944,21 +2993,55 @@ def phase_dryrun(card: str) -> dict:
                   f"{row['traffic_s']:.4e} s, not a bound), dominant "
                   f"{row['dominant']}, bound {row['step_lower_bound_s']:.4e} "
                   f"s, useful {row['useful_ratio']:.3f}")
-            if rec["ce_chunk_collective_bytes"] is not None:
-                cfg = configs.get_config(arch)
-                sh = configs.SHAPES[shape]
+            cfg = configs.get_config(arch)
+            sh = configs.SHAPES[shape]
+            if rec["ce_chunk_collective_bytes"] is not None \
+                    and arch == "stablelm-1.6b":
+                ce = rec["ce_chunk_collective_bytes"]
                 b_local = sh.global_batch // (rec["devices"] // 16)
-                vp = -(-cfg.vocab_size // cfg.vocab_pad_multiple) \
-                    * cfg.vocab_pad_multiple
-                arith = b_local * (sh.seq_len // cfg.logit_chunks) * vp * 4
-                got = rec["ce_chunk_collective_bytes"].get("all-gather", 0.0)
-                keep["ce_gather_shape_arithmetic"] = arith
-                print(f"    one CE chunk's vocab gather: counted {got:,.0f} "
-                      f"B all-gather a device; shape arithmetic {b_local} x "
-                      f"{sh.seq_len // cfg.logit_chunks} x {vp} x 4 = "
-                      f"{arith:,} B")
-                check(got == arith, f"{rec['cell']}: the CE gather counted "
-                      f"{got} B against {arith} B of shape arithmetic")
+                sc = sh.seq_len // cfg.logit_chunks
+                arith = 2 * b_local * sc * 4
+                # the label pick's partial sum, one value a row, is
+                # reduced inside the chunk by torch 2.11's DTensor and
+                # after it by 2.13's
+                pick = b_local * sc * 4
+                keep["ce_all_reduce_shape_arithmetic"] = arith
+                print(f"    one CE chunk (vocab split over model): counted "
+                      f"all-gather {ce.get('all-gather', 0.0):,.0f} B, "
+                      f"all-reduce {ce.get('all-reduce', 0.0):,.0f} B a "
+                      f"device; shape arithmetic: no gather, the row max "
+                      f"and sum 2 x {b_local} x {sc} x 4 = {arith:,} B, "
+                      f"and the label pick's sum {pick:,} B where DTensor "
+                      f"reduces it in the chunk")
+                check(ce.get("all-gather", 0.0) == 0.0
+                      and ce.get("all-reduce", 0.0) in (arith, arith + pick),
+                      f"{rec['cell']}: the CE chunk counted {ce} against "
+                      f"no all-gather and {arith} B (+ {pick} B) of "
+                      f"all-reduce")
+            if cfg.n_heads % 16 and sh.kind == "train":
+                even = rec["jaxpr_flops_global"] / rec["devices"]
+                x = rec["flops"] / even
+                work, mine, hl = padded_attention_work(cfg, sh,
+                                                       rec["devices"])
+                rest = (rec["flops"] - mine) / (
+                    (rec["jaxpr_flops_global"] - work) / rec["devices"])
+                whole = (rec["flops"] - mine + mine * cfg.n_heads / hl) \
+                    / even
+                keep.update(x_split=x, x_split_without_attention=rest,
+                            attention_flops_global=work,
+                            attention_flops_per_device=mine)
+                print(f"    x split {x:.4f}: kernel 6's charged work "
+                      f"{work:.4e} FLOPs in all, {mine:.4e} a device at "
+                      f"the padding arithmetic ({hl} of {cfg.n_heads} heads "
+                      f"a model rank, padded {16 * hl} = 16 x {hl}; "
+                      f"{mine / even:.4f} x the step's even share), the rest "
+                      f"{rest:.4f} (band {X_SPLIT_BAND}); with every head "
+                      f"on every model rank the x split would be "
+                      f"{whole:.4f}")
+                check(X_SPLIT_BAND[0] <= rest <= X_SPLIT_BAND[1],
+                      f"{rec['cell']}: x split {x}, {rest} without kernel "
+                      f"6's work at the padding arithmetic, out of the "
+                      f"band {X_SPLIT_BAND}")
             out[rec["cell"]] = keep
     print(f"  [{card}] dry-run subprocess wall {wall:.2f} s")
     return out

@@ -16,6 +16,11 @@ first device's shard, for the dry run's per-device count over a fake
 process group (``distribute_tensor`` would scatter, which a fake group
 cannot do).
 
+:func:`split_heads` and :func:`merge_heads` split a projection's heads
+over ``model`` and merge them back; where ``model`` does not divide the
+heads they run padded (:func:`head_pad`), re-laid out by all-to-alls, as
+XLA pads an uneven split.
+
 :func:`constrain` is the one entry point the model uses to pin an
 activation's layout: the identity on a plain tensor or off a mesh, and a
 ``redistribute`` to the filtered spec for a DTensor under a mesh.
@@ -26,20 +31,22 @@ nothing to do with the mesh.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 from typing import Any, Iterator, Sequence
 
 import torch
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Placement, Replicate,
+                                      Shard, distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = ["constrain", "batch_axes", "current_axis_names",
            "logical_to_mesh", "activation_sharding_mode",
            "constrain_residual", "placements", "distribute_tree",
            "meta_tree", "local_shape", "like_param", "mesh_ops",
-           "reshape", "like_layout", "on_local",
+           "reshape", "split_heads", "merge_heads", "like_layout",
+           "on_local",
            "gather_fsdp", "pin_residual", "shard_devices"]
 
 
@@ -299,6 +306,236 @@ class _Reshape(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reshape_dtensor(g, ctx.shape), None
+
+
+def head_pad(heads: int, groups: int, m: int) -> list[int]:
+    """The padded head order of ``heads`` query heads in ``groups`` groups
+    (a group shares one KV head) over ``m`` devices: each group's g heads
+    padded to the least g' >= g that makes groups x g' a multiple of m, so
+    that padded head j reads KV head j // g' as real head ``out[j]`` reads
+    its own.  ``out[j]`` is the real head at padded slot j, -1 for a pad:
+    40 heads in 8 groups over 16 pad each group of 5 to 6 (48 = 16 x 3),
+    56 in 8 groups of 7 to 8 (64 = 16 x 4); MLA's heads, each with its own
+    K and V, are one group: 3 over 4 pad to 4."""
+    g = heads // groups
+    gp = g
+    while (groups * gp) % m:
+        gp += 1
+    return [(j // gp) * g + j % gp if j % gp < g else -1
+            for j in range(groups * gp)]
+
+
+def _model_dim(x: torch.Tensor) -> int | None:
+    """The index of the mesh dim named ``model`` of a DTensor, where it
+    has more than one device; None otherwise."""
+    if not isinstance(x, DTensor):
+        return None
+    names = list(x.device_mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    return i if x.device_mesh.size(i) > 1 else None
+
+
+def _real_columns(src: tuple[int, ...], head_dim: int, hl: int,
+                  t: int) -> list[tuple[int, int]]:
+    """(column of device t's padded shard, real column it holds) for each
+    of the shard's ``hl`` columns that is not a pad."""
+    out = []
+    for cp in range(t * hl, (t + 1) * hl):
+        j, e = divmod(cp, head_dim)
+        if src[j] >= 0:
+            out.append((cp - t * hl, src[j] * head_dim + e))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _relay_plan(n_cols: int, head_dim: int, src: tuple[int, ...], m: int,
+                r: int):
+    """Device r's part of laying the columns of (heads x head_dim) out as
+    the padded heads ``src`` (``head_pad``) split evenly over m devices,
+    from an even split of the real columns.  Returns (send index, send
+    sizes, receive positions, receive sizes, gather index): device r
+    sends the columns ``send index`` of its shard, ``send sizes[t]`` of
+    them to device t in t's order, and receives ``receive sizes[s]`` from
+    device s, which land at ``receive positions`` of its padded shard;
+    ``gather index`` builds the padded shard from what it received
+    followed by one zero column."""
+    n = n_cols // m                           # real columns a device
+    hl = len(src) // m * head_dim             # padded columns a device
+    mine = _real_columns(src, head_dim, hl, r)
+    recv_pos, recv_sizes = [], []
+    for s in range(m):
+        got = [p for p, c in mine if c // n == s]
+        recv_pos += got
+        recv_sizes.append(len(got))
+    gather = [len(recv_pos)] * hl
+    for k, p in enumerate(recv_pos):
+        gather[p] = k
+    send_idx, send_sizes = [], []
+    for t in range(m):
+        sent = [c - r * n for _, c in _real_columns(src, head_dim, hl, t)
+                if c // n == r]
+        send_idx += sent
+        send_sizes.append(len(sent))
+    return (tuple(send_idx), tuple(send_sizes), tuple(recv_pos),
+            tuple(recv_sizes), tuple(gather))
+
+
+def _index(seq, device) -> torch.Tensor:
+    """``seq`` as an index tensor on ``device``."""
+    return torch.tensor(seq, dtype=torch.long, device=device)
+
+
+def _all_to_all_cols(x: torch.Tensor, out_sizes, in_sizes, mesh,
+                     dim: int) -> torch.Tensor:
+    """An all-to-all over mesh dim ``dim`` of x's last-dim columns:
+    ``in_sizes[t]`` columns to device t, ``out_sizes[s]`` from device s,
+    in device order."""
+    import torch.distributed._functional_collectives as funcol
+    buf = x.movedim(-1, 0).contiguous()
+    got = funcol.all_to_all_single(buf, list(out_sizes), list(in_sizes),
+                                   (mesh, dim))
+    return got.movedim(0, -1)
+
+
+def _pad_spec(x: torch.Tensor, heads: int, head_dim: int, groups: int):
+    """How :func:`split_heads` pads ``x`` (..., heads x head_dim): None
+    where no padding is needed or possible (a plain tensor, no ``model``
+    dim of more than one device, heads it divides, a last dim not split
+    evenly over ``model`` alone, a partial sum); else (model dim index,
+    its size, ``head_pad``)."""
+    md = _model_dim(x)
+    if md is None or x.shape[-1] != heads * head_dim:
+        return None
+    m = x.device_mesh.size(md)
+    pl, last = x.placements, x.ndim - 1
+    if heads % m == 0 or heads * head_dim % m \
+            or any(p.is_partial() for p in pl) \
+            or not (isinstance(pl[md], Shard) and pl[md].dim == last) \
+            or any(isinstance(p, Shard) and p.dim == last
+                   for i, p in enumerate(pl) if i != md):
+        return None
+    return md, m, tuple(head_pad(heads, groups, m))
+
+
+def _wrap(local, mesh, pl, shape) -> DTensor:
+    """``local`` as a DTensor of global ``shape`` (contiguous)."""
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _to_padded(xl: torch.Tensor, plan, mesh, md: int) -> torch.Tensor:
+    """A device's padded shard from its shard of the real columns, by the
+    all-to-all of ``plan``."""
+    got = _all_to_all_cols(xl.index_select(-1, _index(plan[0], xl.device)),
+                           plan[3], plan[1], mesh, md)
+    got = torch.cat([got, got.new_zeros(got.shape[:-1] + (1,))], -1)
+    return got.index_select(-1, _index(plan[4], xl.device))
+
+
+def _to_real(yl: torch.Tensor, plan, mesh, md: int) -> torch.Tensor:
+    """A device's shard of the real columns from its padded shard: the
+    reverse all-to-all of ``plan``, the pads dropped."""
+    back = _all_to_all_cols(yl.index_select(-1, _index(plan[2], yl.device)),
+                            plan[1], plan[3], mesh, md)
+    inverse = [0] * len(plan[0])
+    for i, c in enumerate(plan[0]):
+        inverse[c] = i
+    return back.index_select(-1, _index(inverse, yl.device))
+
+
+def _local(g: DTensor, want: list) -> torch.Tensor:
+    """A gradient's local tensor, laid out as ``want`` first."""
+    if list(g.placements) != want:
+        g = g.redistribute(g.device_mesh, want)
+    return g.to_local()
+
+
+class _PadHeads(torch.autograd.Function):
+    """x (..., heads x head_dim), its columns split evenly over ``model``,
+    as the columns of the padded heads (``head_pad``) split evenly over
+    ``model``, the pads zero, by an all-to-all over ``model`` (the count
+    sees it); its backward takes the real columns' gradients back by the
+    reverse all-to-all.  ``calls`` counts the forwards."""
+
+    calls = 0
+
+    @staticmethod
+    def forward(ctx, x, head_dim, md, m, src):
+        _PadHeads.calls += 1
+        mesh = x.device_mesh
+        plan = _relay_plan(x.shape[-1], head_dim, src, m,
+                           mesh.get_coordinate()[md])
+        pl = list(x.placements)
+        ctx.args = (mesh, md, plan, pl, x.shape)
+        return _wrap(_to_padded(x.to_local(), plan, mesh, md), mesh, pl,
+                     (*x.shape[:-1], len(src) * head_dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, md, plan, pl, shape = ctx.args
+        return (_wrap(_to_real(_local(g, pl), plan, mesh, md), mesh, pl,
+                      tuple(shape)),
+                None, None, None, None)
+
+
+class _UnpadHeads(torch.autograd.Function):
+    """The inverse of :class:`_PadHeads`: padded heads split evenly over
+    ``model`` as the real heads' columns split evenly over ``model`` (the
+    row split of an output projection), the pads dropped, by the reverse
+    all-to-all; its backward is :class:`_PadHeads`' forward (the pads'
+    gradients zero)."""
+
+    @staticmethod
+    def forward(ctx, y, n_cols, head_dim, md, m, src):
+        mesh = y.device_mesh
+        plan = _relay_plan(n_cols, head_dim, src, m,
+                           mesh.get_coordinate()[md])
+        want = list(y.placements)
+        want[md] = Shard(y.ndim - 1)
+        ctx.args = (mesh, md, plan, want, y.shape)
+        return _wrap(_to_real(_local(y, want), plan, mesh, md), mesh, want,
+                     (*y.shape[:-1], n_cols))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, md, plan, want, shape = ctx.args
+        return (_wrap(_to_padded(_local(g, want), plan, mesh, md),
+                      mesh, want, tuple(shape)),
+                None, None, None, None, None)
+
+
+def split_heads(x: torch.Tensor, heads: int, head_dim: int,
+                groups: int = 1) -> torch.Tensor:
+    """x (..., heads x head_dim) as (..., heads, head_dim).  Under a mesh
+    whose ``model`` dim does not divide the heads, with x's columns split
+    evenly over ``model``, as (..., Hp, head_dim) of padded heads
+    (``head_pad``; ``groups``: the KV heads they read) split evenly over
+    ``model`` (:class:`_PadHeads`).  DTensor has no uneven split:
+    :func:`reshape` would gather the heads whole and every ``model``
+    device would repeat their work, where XLA pads an uneven split as
+    this does.  An x laid out otherwise (a replicated projection) takes
+    :func:`reshape` and stays replicated."""
+    spec = _pad_spec(x, heads, head_dim, groups)
+    if spec is not None:
+        x = _PadHeads.apply(x, head_dim, *spec)
+    return reshape(x, *x.shape[:-1], x.shape[-1] // head_dim, head_dim)
+
+
+def merge_heads(y: torch.Tensor, heads: int, groups: int = 1
+                ) -> torch.Tensor:
+    """y (..., heads or Hp, head_dim) as (..., heads x head_dim): the
+    inverse of :func:`split_heads` (:class:`_UnpadHeads`)."""
+    hd = y.shape[-1]
+    y = reshape(y, *y.shape[:-2], y.shape[-2] * hd)
+    if y.shape[-1] == heads * hd:
+        return y
+    md = _model_dim(y)
+    m = y.device_mesh.size(md)
+    return _UnpadHeads.apply(y, heads * hd, hd, md, m,
+                             tuple(head_pad(heads, groups, m)))
 
 
 def like_layout(x: torch.Tensor, dims: dict[int, int]

@@ -331,9 +331,9 @@ def ce_chunk_count(cell: Cell, cfg, mesh) -> Counts:
     over the data axes as the step's input is, the head laid out by its
     parameter spec with its FSDP split gathered (as ``LM.loss`` gathers it
     before the chunks, uncounted here), the labels by the batch spec.
-    Where the mesh splits
-    the vocab, DTensor's ``logsumexp`` gathers the chunk's logits whole:
-    its all-gather bytes are that gather."""
+    Where the mesh splits the vocab, the log-sum-exp runs on each
+    device's shard (``models.layers._VocabParallelLSE``): two all-reduces
+    of one value a row (its max and its sum), and no gather."""
     from repro_torch.models.layers import _ce_chunk
     params, batch = cell.args[0], cell.args[2]
     p_ps, b_ps = cell.in_specs[0], cell.in_specs[2]

@@ -35,9 +35,15 @@ Under a mesh (DTensor activations and caches, laid out by
 ``distributed.specs.cache_pspecs``) the cache writes run on each
 device's own shards (``distributed.sharding.on_local``: DTensor has no
 rule for an indexed write into a sharded tensor), the new token's key,
-value or latent laid out as the cache first.  A head split the mesh
-does not divide, or a merge with a split inner dim, all-gathers that dim
-first (``distributed.sharding.reshape``).  MLA's absorbed decode slices
+value or latent laid out as the cache first.  In the full-sequence
+paths, query heads that ``model`` does not divide run padded
+(``distributed.sharding.split_heads``: each device takes ceil(H / m)
+heads, every group padded alike so that each real head keeps its KV
+head), and the padded heads are dropped before ``w_o`` by an all-to-all
+to its row split (``merge_heads``).  Elsewhere a head split the mesh
+does not divide (the KV heads, decode's query heads), or a merge with a
+split inner dim, all-gathers that dim first
+(``distributed.sharding.reshape``).  MLA's absorbed decode slices
 the latent cache, split over ``model`` along its last dim, into its
 compressed and rotary parts: DTensor gathers it whole for that, every
 step, and the dry run's count sees the gather.
@@ -49,7 +55,8 @@ import torch
 
 from torch.distributed.tensor import Partial, Shard
 
-from repro_torch.distributed.sharding import like_layout, on_local, reshape
+from repro_torch.distributed.sharding import (like_layout, merge_heads,
+                                              on_local, reshape, split_heads)
 from repro_torch.kernels import ops
 from repro_torch.kernels.local_attention import local_flash_attention_plain
 from repro_torch.models.config import ModelConfig
@@ -77,9 +84,11 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
-         kv_x: torch.Tensor | None = None):
+         kv_x: torch.Tensor | None = None, *, pad: bool = False):
     """q from ``x``; k and v from ``kv_x`` (cross-attention's encoder
-    memory), or from ``x`` when None."""
+    memory), or from ``x`` when None.  ``pad``: q's heads split over
+    ``model`` padded where it does not divide them
+    (``sharding.split_heads``)."""
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kv_in = x if kv_x is None else kv_x
     q = x @ p["w_q"].to(x.dtype)
@@ -89,7 +98,8 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
         q = q + p["b_q"].to(x.dtype)
         k = k + p["b_k"].to(x.dtype)
         v = v + p["b_v"].to(x.dtype)
-    q = reshape(q, *x.shape[:-1], h, hd)
+    q = split_heads(q, h, hd, hk) if pad else reshape(q, *x.shape[:-1], h,
+                                                      hd)
     k = reshape(k, *kv_in.shape[:-1], hk, hd)
     v = reshape(v, *kv_in.shape[:-1], hk, hd)
     return q, k, v
@@ -104,7 +114,7 @@ def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
     cross-attention: keys and values from it, no RoPE, no causal mask and
     no window.  With ``return_cache`` also returns (k, v), each
     (B, Hkv, Sk, hd), for the decode cache."""
-    q, k, v = _qkv(cfg, p, x, cross_kv)
+    q, k, v = _qkv(cfg, p, x, cross_kv, pad=True)
     if use_rope and cross_kv is None:
         qpos = pos0 + torch.arange(x.shape[1], device=x.device)
         q = rope(q, qpos, theta=cfg.rope_theta, pct=cfg.rope_pct)
@@ -113,7 +123,7 @@ def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
     out = ops.gqa_flash_attention(
         q.transpose(1, 2), kt, vt, window=window if cross_kv is None else 0,
         causal=causal and cross_kv is None)               # (B,H,S,hd)
-    y = reshape(out.transpose(1, 2), *x.shape[:-1], -1) \
+    y = merge_heads(out.transpose(1, 2), cfg.n_heads, cfg.n_kv_heads) \
         @ p["w_o"].to(x.dtype)
     if return_cache:
         return y, (kt, vt)
@@ -247,12 +257,13 @@ def gqa_decode_cross(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
-           positions: torch.Tensor):
+           positions: torch.Tensor, *, pad: bool = False):
     m = cfg.mla
     h = cfg.n_heads
     cq = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
-    q = reshape(cq @ p["w_uq"].to(x.dtype), *x.shape[:-1], h,
-                m.qk_head_dim)
+    q = cq @ p["w_uq"].to(x.dtype)
+    q = split_heads(q, h, m.qk_head_dim) if pad else reshape(
+        q, *x.shape[:-1], h, m.qk_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
     return q_nope, q_rope
@@ -280,17 +291,18 @@ def mla_full(cfg: ModelConfig, p: dict, x: torch.Tensor, *, pos0: int = 0,
     h = cfg.n_heads
     b, s, _ = x.shape
     positions = pos0 + torch.arange(s, device=x.device)
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, pad=True)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
-    k_nope = reshape(c_kv @ p["w_uk"].to(x.dtype), b, s, h,
-                     m.qk_nope_head_dim)
-    v = reshape(c_kv @ p["w_uv"].to(x.dtype), b, s, h, m.v_head_dim)
+    # q, k and v padded alike, one group: each head has its own K and V
+    k_nope = split_heads(c_kv @ p["w_uk"].to(x.dtype), h,
+                         m.qk_nope_head_dim)
+    v = split_heads(c_kv @ p["w_uv"].to(x.dtype), h, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, m.qk_rope_head_dim)], dim=-1)
+        b, s, k_nope.shape[2], m.qk_rope_head_dim)], dim=-1)
     out = ops.gqa_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2))   # (B,H,S,hdv)
-    y = reshape(out.transpose(1, 2), b, s, -1) @ p["w_o"].to(x.dtype)
+    y = merge_heads(out.transpose(1, 2), h) @ p["w_o"].to(x.dtype)
     if return_cache:
         return y, torch.cat([c_kv, k_rope], dim=-1)    # (B,S,Rkv+rope)
     return y

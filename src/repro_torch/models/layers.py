@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
@@ -105,15 +106,86 @@ def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
     return F.embedding(tokens, embed).to(cfg.activation_dtype, copy=True)
 
 
+def _vocab_split(logits: torch.Tensor) -> list[int]:
+    """The mesh dims of more than one device that split a DTensor's last
+    dim (the vocab), where it holds no partial sum; [] otherwise (a plain
+    tensor, an unsplit vocab, a (1, 1) mesh)."""
+    if not isinstance(logits, DTensor) \
+            or any(p.is_partial() for p in logits.placements):
+        return []
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    return [i for i, p in enumerate(logits.placements)
+            if isinstance(p, Shard) and p.dim == last and mesh.size(i) > 1]
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp`` over the last dim; over a vocab that a mesh
+    splits, :class:`_VocabParallelLSE` on each device's shard."""
+    dims = _vocab_split(logits)
+    if not dims:
+        return torch.logsumexp(logits, dim=-1)
+    return _VocabParallelLSE.apply(logits, tuple(dims))
+
+
+class _VocabParallelLSE(torch.autograd.Function):
+    """The log-sum-exp over a vocab split across mesh dims, as XLA reduces
+    the reference's ``jax.nn.logsumexp`` there: each device takes its
+    shard's row max, all-reduces the max, takes its shard's sum of
+    ``exp(x - max)``, all-reduces the sum, and sets ``lse = max +
+    log(sum)``; the backward is ``exp(x - lse) * g`` on the shard, with no
+    collective.  DTensor has no vocab-sharded rule for
+    ``torch.logsumexp``: it gathers the logits whole.  The collectives are
+    ``_c10d_functional`` ops, which ``core.profiler`` counts by kind.
+    ``calls`` counts the forwards."""
+
+    calls = 0
+
+    @staticmethod
+    def forward(ctx, logits, dims):
+        import torch.distributed._functional_collectives as funcol
+        _VocabParallelLSE.calls += 1
+        mesh = logits.device_mesh
+        x = logits.to_local()
+        mx = x.amax(dim=-1)
+        for i in dims:
+            mx = funcol.all_reduce(mx, "max", (mesh, i))
+        se = torch.exp(x - mx[..., None]).sum(dim=-1)
+        for i in dims:
+            se = funcol.all_reduce(se, "sum", (mesh, i))
+        lse = mx + torch.log(se)
+        ctx.save_for_backward(x, lse)
+        ctx.mesh, ctx.in_pl = mesh, tuple(logits.placements)
+        ctx.shape, ctx.stride = logits.shape, logits.stride()
+        ctx.out_pl = [Replicate() if i in dims or (isinstance(p, Shard) and
+                                                   p.dim == logits.ndim - 1)
+                      else p for i, p in enumerate(logits.placements)]
+        shape = logits.shape[:-1]
+        return DTensor.from_local(lse, mesh, ctx.out_pl, run_check=False,
+                                  shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        if list(g.placements) != ctx.out_pl:
+            g = g.redistribute(ctx.mesh, ctx.out_pl)
+        dx = torch.exp(x - lse[..., None]) * g.to_local()[..., None]
+        return DTensor.from_local(dx, ctx.mesh, ctx.in_pl, run_check=False,
+                                  shape=ctx.shape, stride=ctx.stride), None
+
+
 def _ce_chunk(xc: torch.Tensor, lc: torch.Tensor, hw: torch.Tensor,
               vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(sum of CE over valid positions, number of valid positions) of one
-    sequence chunk: xc (B, sc, D), lc (B, sc)."""
+    sequence chunk: xc (B, sc, D), lc (B, sc).  Under a mesh that splits
+    the vocab, the log-sum-exp runs on each device's shard
+    (:class:`_VocabParallelLSE`)."""
     logits = (xc @ hw.T).to(torch.float32)               # (B, sc, Vp)
     col = torch.arange(hw.shape[0], device=xc.device)
     if hw.shape[0] != vocab:
         logits = torch.where(col < vocab, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = _logsumexp(logits)
     # the label's logit by a masked sum over the vocab, as the reference
     # picks it: it also works on vocab-sharded logits (under a mesh), and
     # adds exact zeros

@@ -13,8 +13,9 @@
 * On a mesh: one launch of 8 gloo processes (``sys.executable`` children
   that import torch and ``repro_torch`` only, one thread each, meeting
   through a ``FileStore`` under the test's temporary directory, at the
-  lowest CPU priority so that the machine's other test workers come
-  first) serves every multi-rank assert of this file.  No process group or
+  default CPU priority: at the lowest one they got only the CPU the
+  machine's other test workers left, and under the whole suite ran past
+  their time limit) serves every multi-rank assert of this file.  No process group or
   ``DeviceMesh`` is created in the pytest process.  On a (2, 4)
   ``(data, model)`` mesh the smoke qwen2-72b takes one AdamW step with
   params, optimizer state and batch distributed by ``param_pspecs(fsdp 0,
@@ -30,10 +31,18 @@
   ``make_batch_sharding`` gives the reference's axes, and the flash
   attention's wrapper on DTensors equals its result on whole tensors.
   qwen2-moe-a2.7b's smoke model serves on the mesh as it does unmeshed.
+  qwen2.5-32b's smoke model (5 query heads over ``model`` 4, run padded
+  to 8) and deepseek-v3-671b's with 3 MLA heads (padded to 4) take the
+  float32 step as they do unmeshed, and one
+  cross-entropy chunk on a vocab split over ``model`` (its log-sum-exp
+  on each device's shard) equals the unmeshed chunk.
   Rank 0 counts the collective bytes of the meshed training step, the
-  MoE prefill and decode step, and xlstm-125m's training step on real
-  tensors; each equals the dry run's partitioned pass of the same cell
-  on meta shards over a fake group of 8 ranks, by kind, exactly.
+  MoE prefill and decode step, xlstm-125m's training step (its mLSTM
+  replicated over ``model``, as the reference's) and the padded steps on
+  real tensors; each equals the dry
+  run's partitioned pass of the same cell on meta shards over a fake
+  group of 8 ranks, by kind, exactly.  That pass runs in a ninth process
+  beside the ranks; the launch has CHILD_TIMEOUT seconds from its start.
 """
 
 import dataclasses
@@ -41,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 import types
 
 import jax
@@ -74,7 +84,12 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 LAYOUTS = [(16, 16), (0, 16), (0, 4)]
 MESH_AXES = {"single": ("data", "model"), "multi": ("pod", "data", "model")}
 WORLD = 8
-CHILD_TIMEOUT = 240
+# the padded steps, as the child script's ``PADDED``: arch -> its query
+# heads (None: the smoke config's)
+PADDED = {"qwen2.5-32b": None, "deepseek-v3-671b": 3}
+# the whole launch's seconds: the children take ~40 s on an idle 8-core
+# machine and a few times that beside the whole suite's workers
+CHILD_TIMEOUT = 480
 
 
 def _is_p(x):
@@ -250,10 +265,17 @@ def test_placements_follow_the_spec():
 # --- on a mesh: 8 gloo processes ---------------------------------------------
 
 _CHILD = r'''
-import dataclasses, json, os, sys
+import dataclasses, json, os, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
+
+WORLD = 8
+AXES = ("data", "model")
+# the padded steps: arch -> its query heads (None: the smoke config's);
+# qwen2.5-32b's 5 GQA heads over ``model`` 4 pad to 8, deepseek-v3-671b's
+# MLA with 3 heads to 4
+PADDED = {"qwen2.5-32b": None, "deepseek-v3-671b": 3}
 
 
 def nest(flat):
@@ -269,47 +291,122 @@ def nest(flat):
     return tree
 
 
-WORLD = 8
+def whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def run(rank, out_dir, weights, moe_weights):
+def train_cell(weights, arch, dtype=None, heads=None):
+    # a smoke model's weights and batch (from ``weights``), its model,
+    # AdamW, the optimizer state and the trees' layouts on the mesh;
+    # ``heads``: the query heads, where the smoke config's are replaced
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.models import LM
+    from repro_torch.models.params import param_pspecs
+    from repro_torch.optim import adamw
+    flat = np.load(weights)
+    cfg = get_smoke_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads)
+    params = lm_params_from_numpy(nest(flat), cfg, device="cpu")
+    batch = {k: torch.from_numpy(flat["__" + k]).to(torch.int64)
+             for k in ("tokens", "labels")}
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
+    specs = (pps, opt_pspecs(state, pps),
+             batch_pspecs(batch, AXES, dp_total=2))
+    return cfg, LM(cfg), opt, (params, state, batch), specs
+
+
+def grads_step(model, opt):
+    # what the train step computes before its update: (loss, gradient
+    # norm, gradients), under mesh_ops
+    from repro_torch.distributed.sharding import mesh_ops
+    from repro_torch.train import loss_and_grads
+
+    def f(params, state, batch):
+        with mesh_ops():
+            loss, _, grads = loss_and_grads(model, params, batch)
+            _, _, om = opt.update(grads, state, params, 0)
+        return loss, om["grad_norm"], grads
+    return f
+
+
+def moe_cell(weights):
+    # qwen2-moe-a2.7b's smoke model at float32 activations, its weights
+    # cast for serving, the tokens, the prompt length, and the cache of
+    # an unmeshed prefill laid out by cache_pspecs (the dry run's decode
+    # cell)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.distributed.specs import cache_pspecs
+    from repro_torch.models import LM
+    from repro_torch.models.params import compute_params
+    flat = np.load(weights)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              dtype="float32")
+    params = compute_params(cfg, lm_params_from_numpy(nest(flat), cfg,
+                                                      device="cpu"))
+    toks = torch.from_numpy(flat["__tokens"]).to(torch.int64)
+    s = 12
+    model = LM(cfg)
+    cache, _ = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s + 8)
+    c_ps = cache_pspecs(cfg, cache, AXES, 4, toks.shape[0])
+    return cfg, model, params, toks, s, cache, c_ps
+
+
+def recurrent_cell():
+    # xlstm-125m's smoke training step, its trees and their layouts
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.models import LM, init_params
+    from repro_torch.models.params import param_pspecs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    cfg = get_smoke_config("xlstm-125m")
+    params = init_params(cfg, device="cpu")
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (8, 17),
+                         generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
+    specs = (pps, opt_pspecs(state, pps),
+             batch_pspecs(batch, AXES, dp_total=2))
+    return make_train_step(LM(cfg), opt), (params, state, batch), specs
+
+
+def run(rank, out_dir, weights, moe_weights, *pad_weights):
     from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                           distribute_tensor)
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_smoke_config
     from repro_torch.core.profiler import count_step
-    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import make_batch_sharding
     from repro_torch.distributed.compat import (current_mesh_axis_names,
                                                 enter_mesh)
     from repro_torch.distributed.sharding import (
         batch_axes, constrain, current_axis_names, distribute_tree,
         logical_to_mesh, mesh_ops)
-    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import LM
-    from repro_torch.models.params import leaves, map_tree, param_pspecs
-    from repro_torch.optim import adamw
+    from repro_torch.models import LM, layers
+    from repro_torch.models.params import leaves, map_tree
     from repro_torch.optim.base import apply_updates
     from repro_torch.train import loss_and_grads, make_train_step
 
-    out = {}
-    flat = np.load(weights)
-    cfg = get_smoke_config("qwen2-72b")
-    params = lm_params_from_numpy(nest(flat), cfg, device="cpu")
-    batch = {k: torch.from_numpy(flat["__" + k]).to(torch.int64)
-             for k in ("tokens", "labels")}
-    model, opt = LM(cfg), adamw(1e-3)
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    cfg, model, opt, trees, specs = train_cell(weights, "qwen2-72b")
     step = make_train_step(model, opt)
-    mesh = make_test_mesh((2, 4), ("data", "model"))
+    mesh = make_test_mesh((2, 4), AXES)
     enter_mesh(mesh)
-    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
-    state = opt.init(params)
-    dparams = distribute_tree(params, pps, mesh)
-    dstate = distribute_tree(state, opt_pspecs(state, pps), mesh)
-    dbatch = distribute_tree(batch, batch_pspecs(batch, ("data", "model"),
-                                                 dp_total=2), mesh)
+    dparams, dstate, dbatch = (distribute_tree(t, sp, mesh)
+                               for t, sp in zip(trees, specs))
     seen = {"calls": 0}
     on_shards = ops._on_shards
 
@@ -319,36 +416,37 @@ def run(rank, out_dir, weights, moe_weights):
         return on_shards(q, k, v, **kw)
 
     ops._on_shards = spy
-    p2, s2, m2 = step(dparams, dstate, dbatch, 0)
+    lse_calls = layers._VocabParallelLSE.calls
+    # the step, counted on this rank's real tensors: its collective bytes
+    # by kind (rank 0's are held to the meta pass over a fake group)
+    counted = count_step(step, dparams, dstate, dbatch, 0)
     ops._on_shards = on_shards
-    # the same step counted on this rank's real tensors: its collective
-    # bytes by kind (rank 0's are held to the meta pass over a fake group)
-    out["step_collectives"] = count_step(step, dparams, dstate, dbatch,
-                                         0).collectives
+    p2, s2, m2 = counted.out
+    out["step_collectives"] = counted.collectives
+    out["vocab_parallel_lse_in_step"] = (layers._VocabParallelLSE.calls
+                                         - lse_calls)
     out["axes_in_step"] = seen.get("axes")
     out["attention_on_shards"] = seen["calls"]
     out["loss_meshed"] = float(m2["loss"])
+    walls["step"] = time.perf_counter() - t0
 
-    # the same step with float32 activations, where the mesh changes only
-    # the order of sums: its gradient norm and updated params, whole
-    # (every rank gathers; rank 0 keeps them)
-    # the same step with float32 activations, where the mesh changes only
-    # the order of sums: its loss and gradient norm; its gradients, whole
-    # (every rank gathers; rank 0 keeps them); and AdamW's update on the
-    # DTensors against the same update on the gathered trees
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = LM(cfg32)
-    _, _, m32 = make_train_step(model32, opt)(dparams, dstate, dbatch, 0)
-    out["loss_meshed_f32"] = float(m32["loss"])
-    out["grad_norm_meshed_f32"] = float(m32["grad_norm"])
+    # the step's gradients with float32 activations, where the mesh
+    # changes only the order of sums: its loss and gradient norm; its
+    # gradients, whole (every rank gathers; rank 0 keeps them); and
+    # AdamW's update on the DTensors against the same update on the
+    # gathered trees
+    t0 = time.perf_counter()
+    model32 = LM(dataclasses.replace(cfg, dtype="float32"))
     with mesh_ops():
-        g32 = loss_and_grads(model32, dparams, dbatch)[2]
-        upd, _, _ = opt.update(g32, dstate, dparams, 0)
+        l32, _, g32 = loss_and_grads(model32, dparams, dbatch)
+        upd, _, om = opt.update(g32, dstate, dparams, 0)
         got = apply_updates(dparams, upd)
-    whole = lambda tree: map_tree(lambda t: t.full_tensor(), tree)
-    g32, got = whole(g32), whole(got)
-    wparams = whole(dparams)
-    upd, _, _ = opt.update(g32, whole(dstate), wparams, 0)
+    out["loss_meshed_f32"] = float(whole(l32))
+    out["grad_norm_meshed_f32"] = float(whole(om["grad_norm"]))
+    full = lambda tree: map_tree(lambda t: t.full_tensor(), tree)
+    g32, got = full(g32), full(got)
+    wparams = full(dparams)
+    upd, _, _ = opt.update(g32, full(dstate), wparams, 0)
     want = apply_updates(wparams, upd)
     out["update_err"] = max(float((a - b).abs().max()
                                   / b.abs().max().clamp(min=1e-30))
@@ -366,7 +464,9 @@ def run(rank, out_dir, weights, moe_weights):
     out["sharded_leaves"] = sum(
         any(isinstance(pl, Shard) for pl in t.placements)
         for _, t in leaves(p2))
+    walls["step_f32"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     bmesh, bpl = make_batch_sharding(mesh)
     out["batch_sharding_axes"] = [mesh.mesh_dim_names[i]
                                   for i, pl in enumerate(bpl)
@@ -433,56 +533,90 @@ def run(rank, out_dir, weights, moe_weights):
         and torch.equal(restored["b"].to_local(), tree["b"][2 * m:2 * m + 2]))
     out["ckpt_whole_equal"] = all(
         torch.equal(restored[k].full_tensor(), tree[k]) for k in tree)
-    moe = moe_serving(rank, mesh, out, out_dir, moe_weights)
-    rec = recurrent_step(mesh, out)
+    ce_chunk(mesh, out)
+    walls["helpers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_serving(rank, mesh, out, out_dir, moe_weights)
+    walls["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recurrent_step(mesh, out)
+    walls["recurrent"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch, w in zip(PADDED, pad_weights):
+        padded_step(rank, mesh, out, out_dir, w, arch)
+    walls["padded"] = time.perf_counter() - t0
     enter_mesh(None)
     out["axes_after_leaving"] = list(current_mesh_axis_names())
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
-    return (params, state, batch), moe, rec
+    return out, walls
+
+
+def ce_chunk(mesh, out):
+    # one cross-entropy chunk at float32 on vocab-split logits (the head
+    # split over ``model``, padded vocab columns, ignored labels) against
+    # the same chunk unmeshed: its loss and the gradients of the hidden
+    # state and the head; the chunk's collectives by kind, counted
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core.profiler import count_step
+    from repro_torch.distributed.sharding import mesh_ops
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 6, 16, generator=g)
+    hw = torch.randn(24, 16, generator=g)
+    lab = torch.randint(0, 21, (4, 6), generator=g)
+    lab[1, 2] = lab[3, 0] = -1
+    leaf = [t.clone().requires_grad_() for t in (x, hw)]
+    tot, cnt = layers._ce_chunk(leaf[0], lab, leaf[1], 21)
+    tot.backward()
+    dx = distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_()
+    dhw = distribute_tensor(hw, mesh, [Replicate(), Shard(0)]
+                            ).requires_grad_()
+    dl = distribute_tensor(lab, mesh, [Shard(0), Replicate()])
+    calls = layers._VocabParallelLSE.calls
+    with mesh_ops():
+        counted = count_step(layers._ce_chunk, dx, dl, dhw, 21)
+        got, n = counted.out
+        whole(got).backward()
+    out["ce_vocab_parallel_calls"] = layers._VocabParallelLSE.calls - calls
+    out["ce_collectives"] = counted.collectives
+    out["ce_loss"] = [float(whole(got)), float(tot)]
+    out["ce_count"] = [float(whole(n)), float(cnt)]
+    out["ce_grad_err"] = max(
+        float((a.grad.full_tensor() - b.grad).abs().max()
+              / b.grad.abs().max()) for a, b in zip((dx, dhw), leaf))
 
 
 def moe_serving(rank, mesh, out, out_dir, weights):
-    """qwen2-moe-a2.7b's smoke model at float32 activations: a prefill of
-    32 x 12 tokens and 3 decode steps, unmeshed and on the mesh (params,
-    tokens and cache DTensors); rank 0 keeps the meshed logits.  The
-    meshed prefill, and a decode step from the prefill's cache laid out
-    by ``cache_pspecs`` (the dry run's decode cell), counted: their
-    collective bytes by kind.  Returns what the meta pass needs."""
+    # qwen2-moe-a2.7b's smoke model at float32 activations: a prefill of
+    # 32 x 12 tokens and 3 decode steps, unmeshed and on the mesh (params,
+    # tokens and cache DTensors); rank 0 keeps the meshed logits.  The
+    # meshed prefill, and a decode step from the prefill's cache laid out
+    # by cache_pspecs (the dry run's decode cell), counted: their
+    # collective bytes by kind.
     from torch.distributed.tensor import DTensor
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core.profiler import count_step
     from repro_torch.distributed.sharding import distribute_tree
-    from repro_torch.distributed.specs import batch_pspecs, cache_pspecs
-    from repro_torch.models import LM
-    from repro_torch.models.params import (compute_params, leaves,
-                                           param_pspecs)
+    from repro_torch.distributed.specs import batch_pspecs
+    from repro_torch.models.params import leaves, param_pspecs
 
-    flat = np.load(weights)
-    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
-                              dtype="float32")
-    params = compute_params(cfg, lm_params_from_numpy(nest(flat), cfg,
-                                                      device="cpu"))
-    toks = torch.from_numpy(flat["__tokens"]).to(torch.int64)
-    s, steps = 12, toks.shape[1] - 12
-    model = LM(cfg)
+    cfg, model, params, toks, s, cache0, c_ps = moe_cell(weights)
+    steps = toks.shape[1] - s
 
     def serve(p, t):
-        cache, lg = model.prefill(p, {"tokens": t[:, :s]}, max_len=s + 8)
+        counted = count_step(model.prefill, p, {"tokens": t[:, :s]},
+                             max_len=s + 8)
+        cache, lg = counted.out
         logits = [lg]
         for i in range(steps):
             lg, cache = model.decode_step(p, cache, t[:, s + i:s + i + 1])
             logits.append(lg)
-        return logits, cache
+        return logits, cache, counted.collectives
 
-    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
-    want, want_cache = serve(params, toks)
+    want, want_cache, _ = serve(params, toks)
     dparams = distribute_tree(params, param_pspecs(cfg, fsdp_size=0,
                                                    tp_size=4), mesh)
     dtoks = distribute_tree({"tokens": toks}, batch_pspecs(
-        {"tokens": toks}, ("data", "model")), mesh)["tokens"]
-    got, got_cache = serve(dparams, dtoks)
+        {"tokens": toks}, AXES), mesh)["tokens"]
+    got, got_cache, out["moe_prefill_collectives"] = serve(dparams, dtoks)
     got = [whole(g) for g in got]
     out["moe_logits_err"] = max(float((g - w).abs().max() / w.abs().max())
                                 for g, w in zip(got, want))
@@ -495,101 +629,99 @@ def moe_serving(rank, mesh, out, out_dir, weights):
     if rank == 0:
         np.save(os.path.join(out_dir, "moe_logits.npy"),
                 torch.stack(got).numpy())
-
-    out["moe_prefill_collectives"] = count_step(
-        model.prefill, dparams, {"tokens": dtoks[:, :s]},
-        max_len=s + 8).collectives
-    cache, _ = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s + 8)
-    c_ps = cache_pspecs(cfg, cache, ("data", "model"), 4, toks.shape[0])
     out["moe_decode_collectives"] = count_step(
-        model.decode_step, dparams, distribute_tree(cache, c_ps, mesh),
+        model.decode_step, dparams, distribute_tree(cache0, c_ps, mesh),
         dtoks[:, s:s + 1]).collectives
-    return cfg, params, cache, c_ps, toks, s
 
 
 def recurrent_step(mesh, out):
-    """xlstm-125m's smoke training step on the mesh, counted: its
-    collective bytes by kind.  Its time loops run step by step here; on
-    ``meta`` one step stands for the rest (``core.profiler.repeated``).
-    Returns what the meta pass needs."""
-    from repro_torch.configs import get_smoke_config
+    # xlstm-125m's smoke training step on the mesh (the mLSTM's weights
+    # replicated, as the reference's), counted: its collective bytes by
+    # kind.  Its
+    # time loops run step by step here; on ``meta`` one step stands for
+    # the rest (``core.profiler.repeated``).
     from repro_torch.core.profiler import count_step
     from repro_torch.distributed.sharding import distribute_tree
-    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
-    from repro_torch.models import LM, init_params
-    from repro_torch.models.params import param_pspecs
-    from repro_torch.optim import adamw
-    from repro_torch.train import make_train_step
-
-    cfg = get_smoke_config("xlstm-125m")
-    params = init_params(cfg, device="cpu")
-    opt = adamw(1e-3)
-    state = opt.init(params)
-    toks = torch.randint(0, cfg.vocab_size, (8, 17),
-                         generator=torch.Generator().manual_seed(3))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
-    specs = (pps, opt_pspecs(state, pps),
-             batch_pspecs(batch, ("data", "model"), dp_total=2))
-    args = [distribute_tree(t, sp, mesh)
-            for t, sp in zip((params, state, batch), specs)]
-    out["recurrent_collectives"] = count_step(
-        make_train_step(LM(cfg), opt), *args, 0).collectives
-    return cfg, params, state, batch, specs
+    step, trees, specs = recurrent_cell()
+    args = [distribute_tree(t, sp, mesh) for t, sp in zip(trees, specs)]
+    out["recurrent_collectives"] = count_step(step, *args, 0).collectives
 
 
-def meta_counts(out_dir, train, moe, rec):
-    """The counted steps' collective bytes by kind from the dry run's
-    partitioned pass: the same steps and layouts on meta shards over a
-    fake group of the same 8 ranks, rank 0's view."""
+def padded_step(rank, mesh, out, out_dir, weights, arch):
+    # ``arch``'s smoke model (``PADDED``) at float32 activations, its
+    # query heads over ``model`` 4 padded; the gradients of its train
+    # step counted (collective bytes by kind) and gathered whole (rank 0
+    # keeps them)
+    from repro_torch.core.profiler import count_step
+    from repro_torch.distributed import sharding
+    from repro_torch.models.params import leaves, map_tree
+    cfg, model, opt, trees, specs = train_cell(weights, arch, "float32",
+                                               PADDED[arch])
+    args = [sharding.distribute_tree(t, sp, mesh)
+            for t, sp in zip(trees, specs)]
+    pads = sharding._PadHeads.calls
+    counted = count_step(grads_step(model, opt), *args)
+    loss, norm, grads = counted.out
+    out["padded/" + arch] = {
+        "pad_calls": sharding._PadHeads.calls - pads,
+        "collectives": counted.collectives,
+        "loss_f32": float(whole(loss)),
+        "grad_norm_f32": float(whole(norm))}
+    grads = map_tree(lambda t: t.full_tensor(), grads)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"padded_grads_{arch}.npz"),
+                 **{"/".join(path): t.numpy() for path, t in leaves(grads)})
+
+
+def meta_counts(out_dir, weights, moe_weights, *pad_weights):
+    # the counted steps' collective bytes by kind from the dry run's
+    # partitioned pass: the same steps and layouts on meta shards over a
+    # fake group of the same 8 ranks, rank 0's view; in a process of its
+    # own, beside the ranks
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.distributed.specs import batch_pspecs, opt_pspecs
+    from repro_torch.distributed.specs import batch_pspecs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import LM
     from repro_torch.models.params import map_tree, param_pspecs
-    from repro_torch.optim import adamw
     from repro_torch.train import make_train_step
 
-    params, state, batch = train
-    cfg = get_smoke_config("qwen2-72b")
-    opt = adamw(1e-3)
     on_meta = lambda tree: map_tree(lambda t: torch.empty(
         t.shape, dtype=t.dtype, device="meta"), tree)
-    pps = param_pspecs(cfg, fsdp_size=0, tp_size=4)
-    cells = {"train": dryrun.Cell(
-        make_train_step(LM(cfg), opt),
-        (on_meta(params), on_meta(state), on_meta(batch), 0),
-        (pps, opt_pspecs(state, pps),
-         batch_pspecs(batch, ("data", "model"), dp_total=2), None),
-        None, (0, 1), None, None, 1)}
 
-    mcfg, mparams, cache, c_ps, toks, s = moe
-    model = LM(mcfg)
+    def cell(fn, trees, specs, *step):
+        # ``step``: the train step's step number, an argument no spec lays
+        return dryrun.Cell(fn, tuple(on_meta(t) for t in trees) + step,
+                           tuple(specs) + (None,) * len(step), None, (0, 1),
+                           None, None, 1)
+
+    _, model, opt, trees, specs = train_cell(weights, "qwen2-72b")
+    cells = {"train": cell(make_train_step(model, opt), trees, specs, 0)}
+    for arch, w in zip(PADDED, pad_weights):
+        _, pmodel, popt, ptrees, pspecs = train_cell(w, arch, "float32",
+                                                     PADDED[arch])
+        cells["padded/" + arch] = cell(grads_step(pmodel, popt), ptrees,
+                                       pspecs)
+    step, rtrees, rspecs = recurrent_cell()
+    cells["recurrent"] = cell(step, rtrees, rspecs, 0)
+
+    mcfg, mmodel, mparams, toks, s, cache, c_ps = moe_cell(moe_weights)
     mpps = param_pspecs(mcfg, fsdp_size=0, tp_size=4)
-    tok_ps = batch_pspecs({"tokens": toks}, ("data", "model"))["tokens"]
+    tok_ps = batch_pspecs({"tokens": toks}, AXES)["tokens"]
     cells["moe_prefill"] = dryrun.Cell(
-        lambda p, b: model.prefill(p, b, max_len=s + 8),
+        lambda p, b: mmodel.prefill(p, b, max_len=s + 8),
         (on_meta(mparams), {"tokens": on_meta(toks[:, :s])}),
         (mpps, {"tokens": tok_ps}), None, (), None, None, 1)
     cells["moe_decode"] = dryrun.Cell(
-        model.decode_step,
+        mmodel.decode_step,
         (on_meta(mparams), on_meta(cache), on_meta(toks[:, s:s + 1])),
         (mpps, c_ps, tok_ps), None, (1,), None, None, 1)
-
-    rcfg, rparams, rstate, rbatch, specs = rec
-    cells["recurrent"] = dryrun.Cell(
-        make_train_step(LM(rcfg), adamw(1e-3)),
-        (on_meta(rparams), on_meta(rstate), on_meta(rbatch), 0),
-        specs + (None,), None, (0, 1), None, None, 1)
 
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=WORLD)
     try:
-        mesh = make_test_mesh((2, 4), ("data", "model"))
-        got = {name: dryrun.partitioned_count(cell, mesh).collectives
-               for name, cell in cells.items()}
+        mesh = make_test_mesh((2, 4), AXES)
+        got = {name: dryrun.partitioned_count(c, mesh).collectives
+               for name, c in cells.items()}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, "meta_counts.json"), "w") as f:
@@ -597,18 +729,23 @@ def meta_counts(out_dir, train, moe, rec):
 
 
 def main():
-    rank, world = int(sys.argv[1]), int(sys.argv[2])
-    store, out_dir, weights, moe_weights = sys.argv[3:7]
-    os.nice(19)       # the machine's other test workers come first
+    t0 = time.perf_counter()
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
+    if sys.argv[1] == "meta":
+        meta_counts(*sys.argv[2:])
+        return
+    rank = int(sys.argv[1])
+    store, out_dir, *weights = sys.argv[2:]
+    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD),
+                            rank=rank, world_size=WORLD)
     try:
-        trees = run(rank, out_dir, weights, moe_weights)
+        out, walls = run(rank, out_dir, *weights)
     finally:
         dist.destroy_process_group()
-    if rank == 0:
-        meta_counts(out_dir, *trees)
+    walls["total"] = time.perf_counter() - t0
+    out["walls"] = walls
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 main()
@@ -625,10 +762,42 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _reference_loss(jcfg, params, batch) -> float:
+    """The reference's one-device train-step loss."""
+    opt = jadamw(1e-3)
+    step = jax.jit(jmake_train_step(JLM(jcfg), opt))
+    return float(step(params, opt.init(params),
+                      {k: jnp.asarray(v) for k, v in batch.items()},
+                      jnp.asarray(0, jnp.int32))[2]["loss"])
+
+
+def _port_step(arch, dtype, params, batch, heads=None) -> dict:
+    """The port's unmeshed train step of ``arch``'s smoke config at
+    ``dtype`` activations (``heads`` query heads, where not None) on the
+    reference's weights: its loss, gradient norm and gradients."""
+    tcfg = dataclasses.replace(tcfgs.get_smoke_config(arch), dtype=dtype)
+    if heads is not None:
+        tcfg = dataclasses.replace(tcfg, n_heads=heads)
+    tparams_ = lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+    topt = adamw(1e-3)
+    tbatch = {k: torch.from_numpy(v).to(torch.int64)
+              for k, v in batch.items()}
+    m = make_train_step(LM(tcfg), topt)(tparams_, topt.init(tparams_),
+                                        tbatch, 0)[2]
+    grads = {"/".join(path): t.numpy() for path, t in
+             leaves(loss_and_grads(LM(tcfg), tparams_, tbatch)[2])}
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": grads}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The 8 ranks' results, the reference's one-device loss and the
-    port's unmeshed loss, on the same weights and batch."""
+    """The 8 ranks' results, the reference's one-device losses and the
+    port's unmeshed steps, on the same weights and batches, and the meta
+    pass's counts.  The ranks and the meta pass (a ninth process over a
+    fake group) run side by side; the launch has CHILD_TIMEOUT seconds
+    in all."""
     d = tmp_path_factory.mktemp("mesh")
     cfg = jcfgs.get_smoke_config("qwen2-72b")
     params = jinit(cfg, jax.random.PRNGKey(0))
@@ -642,46 +811,58 @@ def ranks(tmp_path_factory):
     mparams = jinit(mcfg, jax.random.PRNGKey(1))
     mtoks = rng.integers(0, mcfg.vocab_size, (32, 15)).astype(np.int32)
     np.savez(d / "moe.npz", **_flat(mparams), __tokens=mtoks)
+    padded = {}
+    for i, (arch, heads) in enumerate(PADDED.items()):
+        pcfg = dataclasses.replace(jcfgs.get_smoke_config(arch),
+                                   dtype="float32")
+        if heads is not None:
+            pcfg = dataclasses.replace(pcfg, n_heads=heads)
+        pparams = jinit(pcfg, jax.random.PRNGKey(2 + i))
+        ptoks = rng.integers(0, pcfg.vocab_size, (8, 17)).astype(np.int32)
+        pbatch = {"tokens": ptoks[:, :-1], "labels": ptoks[:, 1:]}
+        np.savez(d / f"padded_{arch}.npz", **_flat(pparams),
+                 **{"__" + k: v for k, v in pbatch.items()})
+        padded[arch] = (pcfg, pparams, pbatch)
     script = d / "child.py"
     script.write_text(_CHILD)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                OMP_NUM_THREADS="1")
+    npz = [str(d / f) for f in ("weights.npz", "moe.npz",
+                                *(f"padded_{a}.npz" for a in PADDED))]
+    argvs = [[str(r), str(d / "store"), str(d)] + npz for r in range(WORLD)]
+    argvs.append(["meta", str(d)] + npz)
     procs, logs = [], []
     threads = torch.get_num_threads()
     torch.set_num_threads(1)      # this process too, while the ranks run
+    t0 = time.monotonic()
     try:
-        for r in range(WORLD):
-            log = open(d / f"rank{r}.log", "w")
+        for i, argv in enumerate(argvs):
+            log = open(d / f"child{i}.log", "w")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, str(script), str(r), str(WORLD),
-                 str(d / "store"), str(d), str(d / "weights.npz"),
-                 str(d / "moe.npz")],
+                [sys.executable, str(script), *argv],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
-        # both one-device steps while the ranks run
-        opt = jadamw(1e-3)
-        step = jax.jit(jmake_train_step(JLM(cfg), opt))
-        ref_loss = float(step(params, opt.init(params),
-                              {k: jnp.asarray(v) for k, v in batch.items()},
-                              jnp.asarray(0, jnp.int32))[2]["loss"])
+        # the one-device steps while the ranks run
+        ref_loss = _reference_loss(cfg, params, batch)
         tcfg = tcfgs.get_smoke_config("qwen2-72b")
+        topt = adamw(1e-3)
         tparams_ = lm_params_from_numpy(
             jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
-        topt = adamw(1e-3)
         tbatch = {k: torch.from_numpy(v).to(torch.int64)
                   for k, v in batch.items()}
         port = {"loss": float(make_train_step(LM(tcfg), topt)(
             tparams_, topt.init(tparams_), tbatch, 0)[2]["loss"])}
-        model32 = LM(dataclasses.replace(tcfg, dtype="float32"))
-        m32 = make_train_step(model32, topt)(
-            tparams_, topt.init(tparams_), tbatch, 0)[2]
-        port.update(loss_f32=float(m32["loss"]),
-                    grad_norm_f32=float(m32["grad_norm"]),
-                    grads_f32={"/".join(path): t.numpy() for path, t in
-                               leaves(loss_and_grads(model32, tparams_,
-                                                     tbatch)[2])})
+        f32 = _port_step("qwen2-72b", "float32", params, batch)
+        port.update(loss_f32=f32["loss"], grad_norm_f32=f32["grad_norm"],
+                    grads_f32=f32["grads"])
+        for arch, (pcfg, pparams, pbatch) in padded.items():
+            port["padded/" + arch] = _port_step(
+                arch, "float32", pparams, pbatch, PADDED[arch])
+            port["padded/" + arch]["ref_loss"] = _reference_loss(
+                pcfg, pparams, pbatch)
         port["moe_reference"] = _reference_serving(mcfg, mparams, mtoks)
-        codes = [p.wait(timeout=CHILD_TIMEOUT) for p in procs]
+        codes = [p.wait(timeout=max(CHILD_TIMEOUT - (time.monotonic() - t0),
+                                    1)) for p in procs]
     finally:
         torch.set_num_threads(threads)
         for p in procs:
@@ -692,12 +873,16 @@ def ranks(tmp_path_factory):
             log.close()
     if any(codes):
         bad = codes.index(next(c for c in codes if c))
-        raise AssertionError((codes, (d / f"rank{bad}.log").read_text()
+        raise AssertionError((codes, (d / f"child{bad}.log").read_text()
                               [-4000:]))
     outs = [json.loads((d / f"rank{r}.json").read_text())
             for r in range(WORLD)]
     with np.load(d / "meshed_grads.npz") as f:
         port["meshed_grads_f32"] = {k: f[k] for k in f.files}
+    for arch in PADDED:
+        with np.load(d / f"padded_grads_{arch}.npz") as f:
+            port["padded/" + arch]["meshed_grads"] = {k: f[k]
+                                                      for k in f.files}
     port["moe_meshed"] = np.load(d / "moe_logits.npy")
     port["meta_counts"] = json.loads((d / "meta_counts.json").read_text())
     return outs, ref_loss, port
@@ -843,3 +1028,58 @@ def test_meshed_moe_serving_matches_unmeshed_and_reference(ranks):
     got, want = port["moe_meshed"], port["moe_reference"]
     assert got.shape == want.shape == (4, 32, want.shape[-1])
     assert np.abs(got - want).max() <= 5e-2, np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("arch", list(PADDED))
+def test_meshed_padded_head_step_matches_unmeshed_and_reference(ranks,
+                                                                arch):
+    """At float32 on the (2, 4) mesh, where ``model`` 4 does not divide
+    the query heads, they run padded (``sharding.split_heads``):
+    qwen2.5-32b's smoke config (5 query heads, 1 KV head) padded to 8,
+    two a device; deepseek-v3-671b's with 3 MLA heads (each with its own
+    K and V: q, k and v padded alike) to 4, one a device.  Its loss
+    within rel 1e-6 of the port's unmeshed step, its gradient norm within
+    rel 1e-5 and every gradient within 1e-5 of its leaf's largest (the
+    bounds of the qwen2-72b case); its loss within 5e-2 of the
+    reference's one-device step; rank 0's collectives by kind equal to
+    the meta pass's, exactly (a device whose heads are pads receives
+    less in the all-to-alls)."""
+    outs, _, port = ranks
+    want = port["padded/" + arch]
+    for out in outs:
+        got = out["padded/" + arch]
+        assert got["pad_calls"] > 0
+        assert got["loss_f32"] == pytest.approx(want["loss"], rel=1e-6)
+        assert got["grad_norm_f32"] == pytest.approx(want["grad_norm"],
+                                                     rel=1e-5)
+        assert abs(got["loss_f32"] - want["ref_loss"]) < 5e-2
+    got = want["meshed_grads"]
+    assert sorted(got) == sorted(want["grads"])
+    for k, w in want["grads"].items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+    coll = outs[0]["padded/" + arch]["collectives"]
+    assert coll.get("all-to-all", 0) > 0
+    assert coll == port["meta_counts"]["padded/" + arch]
+
+
+def test_vocab_parallel_ce_chunk_matches_unmeshed(ranks):
+    """One cross-entropy chunk at float32 on logits whose vocab the mesh
+    splits over ``model`` (padded columns masked, ignored labels): the
+    log-sum-exp runs on each device's shard with two all-reduces and no
+    gather; its loss within rel 1e-6 of the unmeshed chunk's and its
+    gradients within 1e-5 of each one's largest (the meshed step's
+    bounds).  The meshed step takes the same path."""
+    outs = ranks[0]
+    for out in outs:
+        assert out["ce_vocab_parallel_calls"] == 1
+        assert out["vocab_parallel_lse_in_step"] > 0
+        got, want = out["ce_loss"]
+        assert got == pytest.approx(want, rel=1e-6)
+        assert out["ce_count"][0] == out["ce_count"][1] == 22
+        assert out["ce_grad_err"] <= 1e-5, out["ce_grad_err"]
+        coll = out["ce_collectives"]
+        assert coll.get("all-gather", 0) == 0, coll
+        # the row max and the row sum: 2 x (2 rows x 6 positions) x 4 B
+        # over ``model``, beside the label pick's partial sum
+        assert coll.get("all-reduce", 0) >= 2 * 2 * 6 * 4, coll
