@@ -103,11 +103,14 @@ and read just after:
   to its plain version at that shape; the step's wall and peak memory
   beside the unmeshed step's; and the dry run
   (``python -m repro_torch.launch.dryrun``) of stablelm-1.6b ``train_4k``
-  on both production meshes and qwen2-moe-a2.7b ``decode_32k`` on 16x16,
-  in a subprocess: each record's global counts, its partitioned pass on
-  meta DTensors (FLOPs, bytes and collective bytes a device) and its
-  roofline row at the H100's constants, and one cross-entropy chunk's
-  vocab gather counted beside its shape arithmetic;
+  on both production meshes, qwen2-moe-a2.7b ``decode_32k``, and
+  qwen2.5-32b's and llava-next-34b's ``train_4k`` (padded heads) on
+  16x16, in a subprocess: each record's global counts, every configured
+  microbatch counted, its partitioned pass on meta DTensors (FLOPs,
+  bytes and collective bytes a device, a Shard-to-Shard redistribute as
+  the all-to-all the card sends) and its roofline row at the H100's
+  constants, one cross-entropy chunk's collectives beside their shape
+  arithmetic, and the padded cells' x split;
 * the mesh's serving and the roofline against the card: qwen2-moe-a2.7b
   at full width and depth, a prefill of 1024 tokens and 16 greedy decode
   steps unmeshed and on the (1, 1) mesh with params, tokens and cache
@@ -181,14 +184,12 @@ DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 300
 # the dry run's cells: (arch, shape, meshes), the training cell of the
 # mesh's model on both production meshes, the MoE decode cell on 16x16,
-# and a training cell whose query heads ``model`` (16) does not divide,
-# which runs on padded head splits (llava-next-34b's is counted on the
-# CPU only: the card's torch 2.11 cannot cat its patches to a
-# vocab-sharded embedding's masked partial on meta, having no meta kernel
-# for aten::equal)
+# and the two training cells whose query heads ``model`` (16) does not
+# divide, which run on padded head splits
 DRYRUN_CELLS = (("stablelm-1.6b", "train_4k", "both"),
                 ("qwen2-moe-a2.7b", "decode_32k", "single"),
-                ("qwen2.5-32b", "train_4k", "single"))
+                ("qwen2.5-32b", "train_4k", "single"),
+                ("llava-next-34b", "train_4k", "single"))
 # the padded cell's x split (a device's FLOPs over the global FLOPs over
 # its devices) without kernel 6's charged work stays in the band of the
 # production cells whose heads ``model`` divides (their dry-run records:
@@ -2928,8 +2929,9 @@ def phase_dryrun(card: str) -> dict:
     device) and its roofline row at the H100's constants; one
     cross-entropy chunk's collectives beside their shape arithmetic (no
     vocab gather, the log-sum-exp's two all-reduces); the x split of the
-    cell whose heads run padded against the padding arithmetic
-    (``padded_attention_work``)."""
+    cells whose heads run padded against the padding arithmetic
+    (``padded_attention_work``); every record's microbatches all counted
+    and its Shard-to-Shard redistributes counted as all-to-all."""
     import os
     import shutil
     from repro_torch import configs
@@ -2961,6 +2963,18 @@ def phase_dryrun(card: str) -> dict:
                   and set(coll) <= set(COLLECTIVE_KINDS)
                   and rec["collective_bytes_total"] == sum(coll.values()) > 0,
                   f"dry-run record {rec['cell']}")
+            # every configured microbatch counted (rows the data devices
+            # do not divide run padded), and each Shard-to-Shard
+            # redistribute as the all-to-all the card sends: no collective
+            # counted inside DTensor's CPU route (an all-gather)
+            s2s = rec["shard_to_shard"]
+            check(rec["accum_counted"] == rec["accum_steps"]
+                  and s2s["fallback_collectives"] == 0
+                  and s2s["bytes"] <= coll.get("all-to-all", 0.0),
+                  f"{rec['cell']}: {rec['accum_counted']} of "
+                  f"{rec['accum_steps']} microbatches counted, "
+                  f"Shard-to-Shard {s2s}, all-to-all "
+                  f"{coll.get('all-to-all', 0.0)}")
             row = roofline_row(rec)
             keep = {k: rec[k] for k in (
                 "devices", "argument_bytes_per_device",
@@ -2969,7 +2983,8 @@ def phase_dryrun(card: str) -> dict:
                 "flops", "flops_by_category_per_device", "bytes_accessed",
                 "bytes_min", "partition", "accum_steps", "accum_counted",
                 "collective_bytes", "collective_bytes_total",
-                "ce_chunk_collective_bytes", "count_s", "partition_s")}
+                "ce_chunk_collective_bytes", "shard_to_shard", "count_s",
+                "partition_s")}
             keep.update(analytic_memory_per_device=mem, roofline=row)
             print(f"  dry run {rec['cell']} ({rec['devices']} devices): "
                   f"argument bytes per device "
@@ -2986,7 +3001,9 @@ def phase_dryrun(card: str) -> dict:
                   + f" (count {rec['count_s']} s, partitioned "
                   f"{rec['partition_s']} s, counted as {rec['partition']}, "
                   f"{rec['accum_counted']} of {rec['accum_steps']} "
-                  "microbatches)")
+                  f"microbatches; {s2s['calls']} Shard-to-Shard "
+                  f"redistributes counted as {s2s['bytes']:,.0f} B of "
+                  f"all-to-all)")
             print(f"    roofline at the H100's constants: compute "
                   f"{row['compute_s']:.4e} s, memory {row['memory_s']:.4e} s, "
                   f"collective {row['collective_s']:.4e} s (eager traffic "
@@ -4144,7 +4161,10 @@ def check_examples(rt, od, dev) -> dict:
           f"offload example sharded step: {sh}")
     check(tr["scheduler-held"]["occupancy"]
           > tr["drain-on-flush"]["occupancy"], f"trickle step: {tr}")
-    check(max(oo["tiled"]["dispatched_tile_sizes"]) == oo["tiled"]["tile_k"],
+    tiles, tile_k = oo["tiled"]["dispatched_tile_sizes"], oo["tiled"]["tile_k"]
+    check(max(tiles) <= tile_k
+          and max(tiles) == min(tile_k, optical_offload.IMAGES)
+          and sum(k * v for k, v in tiles.items()) == optical_offload.IMAGES,
           f"tiled step: {oo['tiled']}")
     ch, res = oo["chaos"], oo["residency"]
     check(ch["all_retired"] and ch["faults_total"] > 0

@@ -33,8 +33,13 @@ bytes per device, and the bytes of every ``_c10d_functional``
 collective by kind (:func:`count_step`), each counted as max(result,
 operand), the reference's rule for its partitioned HLO
 (``repro.launch.dryrun.collective_bytes``).  A collective and its
-``wait_tensor`` count once.  The ops DTensor runs on ``FakeTensor``s to
-propagate shapes are not the step's work and count nothing.  On plain
+``wait_tensor`` count once.  A Shard-to-Shard redistribute (DTensor's
+``shard_dim_alltoall``) counts as one all-to-all of max(operand, result),
+whatever its process group does beneath it: on a ``cpu`` mesh (gloo, the
+fake group of the dry run) DTensor falls back to an all-gather and a
+local chunk, which are not counted, where NCCL sends the all-to-all.
+The ops DTensor runs on ``FakeTensor``s to propagate shapes are not the
+step's work and count nothing.  On plain
 tensors nothing of this applies and every count is what it was.
 
 The port's hand-written kernels launch through ``ctypes`` and dispatch no
@@ -51,7 +56,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import math
+import sys
 import time
 from typing import Any, Callable, Iterable
 
@@ -269,6 +276,75 @@ def _bytes(tensors: Iterable) -> float:
                      if t.dim()))
 
 
+def _counting_alltoall(orig: Callable) -> Callable:
+    """DTensor's ``shard_dim_alltoall`` as each active counter counts it:
+    one all-to-all of max(operand, result) bytes, and nothing of what
+    ``orig`` runs beneath it (an all-gather and a chunk on a ``cpu``
+    mesh, the all-to-all op under NCCL).  ``orig`` itself runs as it
+    would."""
+    @functools.wraps(orig)
+    def shard_dim_alltoall(input, *args, **kwargs):
+        from torch.utils._python_dispatch import \
+            _get_current_dispatch_mode_stack
+        counters = [c for c in _get_current_dispatch_mode_stack()
+                    if isinstance(c, _Counter) and not c._paused]
+        for c in counters:
+            c._paused += 1
+        try:
+            out = orig(input, *args, **kwargs)
+        finally:
+            for c in counters:
+                c._paused -= 1
+        for c in counters:
+            moved = c.trips * max(_bytes([input]), _bytes([out]))
+            c.collectives["all-to-all"] += moved
+            c.shard_to_shard["calls"] += c.trips
+            c.shard_to_shard["bytes"] += moved
+        return out
+    shard_dim_alltoall.counting = True
+    return shard_dim_alltoall
+
+
+# the modules that call DTensor's Shard-to-Shard all-to-all by name
+_ALLTOALL_CALLERS = ("torch.distributed.tensor.placement_types",
+                     "torch.distributed.tensor._collective_utils")
+
+
+def _in_shard_dim_alltoall() -> bool:
+    """Whether DTensor's own ``shard_dim_alltoall`` is on the Python stack:
+    a collective counted there is its CPU route's all-gather, which a
+    call that bypassed :func:`_counting_alltoall` would count."""
+    from torch.distributed.tensor import _collective_utils
+    fn = _collective_utils.shard_dim_alltoall
+    code = getattr(fn, "__wrapped__", fn).__code__
+    f = sys._getframe(1)
+    while f is not None:
+        if f.f_code is code:
+            return True
+        f = f.f_back
+    return False
+
+
+@contextlib.contextmanager
+def _alltoall_counted():
+    """DTensor's ``shard_dim_alltoall`` counted by :func:`_counting_alltoall`
+    in the modules that call it, while a count runs (a nested count
+    leaves the first one's in place)."""
+    import importlib
+    patched = []
+    for name in _ALLTOALL_CALLERS:
+        mod = importlib.import_module(name)
+        orig = getattr(mod, "shard_dim_alltoall", None)
+        if orig is not None and not getattr(orig, "counting", False):
+            mod.shard_dim_alltoall = _counting_alltoall(orig)
+            patched.append((mod, orig))
+    try:
+        yield
+    finally:
+        for mod, orig in patched:
+            mod.shard_dim_alltoall = orig
+
+
 class _Counter(TorchDispatchMode):
     """Counts FLOPs by category and bytes moved for every aten op.
 
@@ -280,6 +356,11 @@ class _Counter(TorchDispatchMode):
         self.flops: dict[str, float] = collections.defaultdict(float)
         self.bytes = 0.0
         self.collectives: dict[str, float] = collections.defaultdict(float)
+        # Shard-to-Shard redistributes counted as all-to-all, and
+        # collectives counted inside DTensor's own all-to-all (0 unless a
+        # caller bypassed ``_counting_alltoall``)
+        self.shard_to_shard = {"calls": 0, "bytes": 0.0,
+                               "fallback_collectives": 0}
         self._paused = 0
         self.trips = 1      # what one op counts for (``repeated``)
         self._wrappers = _wrapper_types()
@@ -297,6 +378,8 @@ class _Counter(TorchDispatchMode):
         outs = _tensors(out)
         kind = _collective_kind(func)
         if kind is not None:
+            if kind and _in_shard_dim_alltoall():
+                self.shard_to_shard["fallback_collectives"] += 1
             if kind:
                 self.collectives[kind] += self.trips * max(
                     _bytes(_tensors((args, kwargs))), _bytes(outs))
@@ -362,19 +445,25 @@ def repeated(trips: int):
 class Counts:
     """What one counted run of a function did (on DTensors: one device's
     share): FLOPs by category, bytes moved, collective bytes by kind
-    (empty on plain tensors), and the function's result."""
+    (empty on plain tensors), the function's result, and its
+    Shard-to-Shard redistributes (calls and bytes, counted as all-to-all;
+    ``fallback_collectives``: collectives counted inside DTensor's CPU
+    route for them, 0 when every call was counted as the card sends
+    it)."""
     flops: dict[str, float]
     bytes: float
     collectives: dict[str, float]
     out: Any
+    shard_to_shard: dict = dataclasses.field(default_factory=dict)
 
 
 def count_step(fn: Callable, *args, **kwargs) -> Counts:
     """One counted run of ``fn``."""
-    with _Counter() as counter:
+    with _alltoall_counted(), _Counter() as counter:
         out = fn(*args, **kwargs)
     return Counts(dict(counter.flops), counter.bytes,
-                  dict(counter.collectives), out)
+                  dict(counter.collectives), out,
+                  dict(counter.shard_to_shard))
 
 
 def traffic_bytes(fn: Callable, *args, **kwargs) -> float:

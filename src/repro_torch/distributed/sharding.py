@@ -21,6 +21,13 @@ over ``model`` and merge them back; where ``model`` does not divide the
 heads they run padded (:func:`head_pad`), re-laid out by all-to-alls, as
 XLA pads an uneven split.
 
+:func:`split_rows` splits a batch into its microbatches; where the
+data devices do not divide a microbatch's rows it runs padded
+(:func:`row_pad`), re-laid out by one all-to-all, as XLA pads the
+reference's scanned microbatches.  :func:`real_rows` tells the model
+which rows are pads, for the one reduction over rows that labels do not
+mask (the MoE load-balance loss).
+
 :func:`constrain` is the one entry point the model uses to pin an
 activation's layout: the identity on a plain tensor or off a mesh, and a
 ``redistribute`` to the filtered spec for a DTensor under a mesh.
@@ -46,7 +53,8 @@ __all__ = ["constrain", "batch_axes", "current_axis_names",
            "constrain_residual", "placements", "distribute_tree",
            "meta_tree", "local_shape", "like_param", "mesh_ops",
            "reshape", "split_heads", "merge_heads", "like_layout",
-           "on_local",
+           "on_local", "row_pad", "split_rows", "real_rows",
+           "row_weights",
            "gather_fsdp", "pin_residual", "shard_devices"]
 
 
@@ -252,8 +260,10 @@ def constrain(x: torch.Tensor, *spec: Any) -> torch.Tensor:
     """Pin ``x``'s layout to ``spec``: the identity on a plain tensor or
     off a mesh; a DTensor under a mesh is redistributed to the spec
     filtered for that mesh (differentiably).  A dim the mesh dims that
-    name it do not divide stays replicated on them (a microbatch of fewer
-    rows than data devices): DTensor's rules take no uneven split."""
+    name it do not divide stays replicated on them (a batch of one row,
+    ``long_500k``): DTensor's rules take no uneven split.  (A microbatch
+    whose rows the data devices do not divide arrives padded,
+    :func:`split_rows`.)"""
     resolved = logical_to_mesh(spec)
     if resolved is None or not isinstance(x, DTensor):
         return x
@@ -536,6 +546,144 @@ def merge_heads(y: torch.Tensor, heads: int, groups: int = 1
     m = y.device_mesh.size(md)
     return _UnpadHeads.apply(y, heads * hd, hd, md, m,
                              tuple(head_pad(heads, groups, m)))
+
+
+def row_pad(rows: int, d: int) -> int:
+    """The rows a microbatch of ``rows`` rows takes split evenly over
+    ``d`` data devices: the least multiple of d that is >= rows, its last
+    rows pads (XLA's padding of an uneven split): 8 rows over 16 take 16,
+    one a device; 3 over 2 take 4."""
+    return -(-rows // d) * d
+
+
+@functools.lru_cache(maxsize=None)
+def _row_plan(b: int, accum: int, d: int, k: int):
+    """Device k's part of laying a batch of b rows, split evenly over d
+    devices (n = b / d a device, in order), out as ``accum`` microbatches
+    of r = b / accum rows, each padded to ``row_pad(r, d)`` and split
+    evenly (q rows a device, the pads last).  Returns (send index, send
+    sizes, receive sizes, gather index): device k sends the rows ``send
+    index`` of its shard, ``send sizes[t]`` of them to device t, in t's
+    order, and receives ``receive sizes[s]`` from device s; ``gather
+    index`` builds its ``accum`` x q rows, microbatch by microbatch, from
+    what it received followed by one pad row."""
+    n, r = b // d, b // accum
+    q = row_pad(r, d) // d
+
+    def held(t):            # the rows device t holds, -1 a pad
+        return [i * r + j if j < r else -1
+                for i in range(accum) for j in range(t * q, (t + 1) * q)]
+
+    mine = held(k)
+    recv, recv_sizes = [], []
+    for src in range(d):
+        got = sorted(g for g in mine if g >= 0 and g // n == src)
+        recv += got
+        recv_sizes.append(len(got))
+    at = {g: i for i, g in enumerate(recv)}
+    gather = [at[g] if g >= 0 else len(recv) for g in mine]
+    send_idx, send_sizes = [], []
+    for t in range(d):
+        sent = sorted(g - k * n for g in held(t) if g >= 0 and g // n == k)
+        send_idx += sent
+        send_sizes.append(len(sent))
+    return (tuple(send_idx), tuple(send_sizes), tuple(recv_sizes),
+            tuple(gather))
+
+
+def _row_split(x: DTensor) -> tuple[list[int], int, int]:
+    """The mesh dims that split a DTensor's rows (dim 0), the devices
+    they make, and this device's index among them (the first mesh dim
+    major, as ``Shard`` orders a dim split over several)."""
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    coord = mesh.get_coordinate()
+    d, k = 1, 0
+    for i in split:
+        d *= mesh.size(i)
+        k = k * mesh.size(i) + coord[i]
+    return split, d, k
+
+
+def split_rows(x: torch.Tensor, accum: int, fill: float = 0
+               ) -> list[torch.Tensor]:
+    """``x``'s ``accum`` microbatches (``accum`` divides its B rows),
+    microbatch i its rows [i r, (i + 1) r), r = B / accum: a plain
+    tensor's chunks.  Of a
+    DTensor whose dim 0 the data devices split (d of them), each
+    microbatch as a DTensor of ``row_pad(r, d)`` rows split evenly over
+    them, its pad rows (``fill``) last, re-laid out from the batch's even
+    split by one all-to-all (the count sees it), as XLA re-lays out the
+    reference's scanned microbatches; every device then runs its own
+    rows, where DTensor's ``chunk`` would gather the batch and leave each
+    microbatch whole on every device.  Rows split over more than one mesh
+    dim are gathered first and split locally.  A DTensor whose dim 0 no
+    mesh dim splits is chunked as it is."""
+    b = x.shape[0]
+    if not isinstance(x, DTensor):
+        return list(x.chunk(accum))
+    mesh, pl = x.device_mesh, list(x.placements)
+    split, d, k = _row_split(x)
+    if d == 1:
+        return list(x.chunk(accum))
+    r = b // accum
+    q = row_pad(r, d) // d
+    shape = (row_pad(r, d), *x.shape[1:])
+    if len(split) == 1:
+        import torch.distributed._functional_collectives as funcol
+        send, send_sizes, recv_sizes, gather = _row_plan(b, accum, d, k)
+        xl = x.to_local()
+        got = funcol.all_to_all_single(
+            xl.index_select(0, _index(send, xl.device)).contiguous(),
+            list(recv_sizes), list(send_sizes), (mesh, split[0]))
+    else:
+        whole = [Replicate() if i in split else p for i, p in enumerate(pl)]
+        got = x.redistribute(mesh, whole).to_local()
+        gather = tuple(i * r + j if j < r else b
+                       for i in range(accum)
+                       for j in range(k * q, (k + 1) * q))
+    got = torch.cat([got, got.new_full((1, *got.shape[1:]), fill)])
+    local = got.index_select(0, _index(gather, got.device))
+    return [_wrap(local[i * q:(i + 1) * q], mesh, pl, shape)
+            for i in range(accum)]
+
+
+# (mask, real rows) of the microbatch whose rows are padded, while its
+# step runs (``real_rows``)
+_REAL_ROWS: list = [None]
+
+
+@contextlib.contextmanager
+def real_rows(mb: torch.Tensor, rows: int) -> Iterator[None]:
+    """While a padded microbatch's loss and gradients run: ``mb`` (any of
+    its DTensors from :func:`split_rows`) holds ``rows`` real rows, and
+    :func:`row_weights` gives their mask.  Nothing where ``mb`` has no
+    pad rows."""
+    if mb.shape[0] == rows:
+        yield
+        return
+    _, _, k = _row_split(mb)
+    q = mb.to_local().shape[0]
+    mask = (torch.arange(k * q, (k + 1) * q, device=mb.device) < rows
+            ).to(torch.float32)
+    prev = _REAL_ROWS[0]
+    rows_pl = [Shard(0) if p == Shard(0) else Replicate()
+               for p in mb.placements]
+    _REAL_ROWS[0] = (_wrap(mask, mb.device_mesh, rows_pl, (mb.shape[0],)),
+                     rows)
+    try:
+        yield
+    finally:
+        _REAL_ROWS[0] = prev
+
+
+def row_weights() -> tuple[torch.Tensor, int] | None:
+    """(a 1.0 / 0.0 mask of the rows that are real, laid out as the
+    rows; how many are real) while a padded microbatch runs
+    (:func:`real_rows`); None otherwise.  A reduction over rows that no
+    label masks (the MoE load-balance loss) weighs its rows by it, so
+    that the pads add nothing."""
+    return _REAL_ROWS[0]
 
 
 def like_layout(x: torch.Tensor, dims: dict[int, int]

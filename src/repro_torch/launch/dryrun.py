@@ -30,17 +30,20 @@ decode) at the config's full size and counts it twice, under
 On 2x16x16 the step is modelled, not partitioned whole: one pod's step on
 its 16x16 slice at the pod's half of the batch, plus the gradients'
 reduction across the pods (``"partition": "pod_slice+cross_pod_reduce"``;
-16x16 records say ``"mesh"``), in no more microbatches than leave a row
-for each data device: ``accum_counted`` is the count that ran,
-``accum_steps`` the configured one (nemotron-4-340b's ``--opt`` step
-counts 8 of its 16).
+16x16 records say ``"mesh"``), in all its configured microbatches
+(``accum_counted`` == ``accum_steps``): a microbatch whose rows the data
+devices do not divide runs padded (``sharding.split_rows``), as XLA pads
+the reference's (nemotron-4-340b's ``--opt`` step: 16 microbatches of 8
+rows on a pod's 16 data devices, each padded to 16).
 
 The production meshes are built over torch's fake process group (512
 ranks, no devices); its collectives return shapes only.  The meshes'
 device type is ``cpu``, so a Shard-to-Shard redistribute takes DTensor's
-CPU route, an all-gather and a local chunk, where NCCL would take an
-all-to-all.  The per-device bytes of the arguments and outputs also come
-from the spec trees.  Keys that only an XLA compile gives stay None:
+CPU route, an all-gather and a local chunk, where NCCL sends an
+all-to-all: the count takes it as the all-to-all the card sends
+(``core.profiler``; a record's ``shard_to_shard`` tallies them).  The
+per-device bytes of the arguments and outputs also come from the spec
+trees.  Keys that only an XLA compile gives stay None:
 ``temp_bytes_per_device`` (and so ``peak_bytes_per_device``),
 ``lower_s`` and ``compile_s``; ``"source": "meta"`` says so.  Beside the
 reference's ``fits_16gb`` the analytic memory model has
@@ -228,9 +231,8 @@ def build_cell(arch: str, shape_name, mesh, *, cfg=None,
     ``shape_name`` (a name of ``SHAPES`` or a ``Shape``) on ``mesh`` (a
     ``DeviceMesh`` or ``MeshDims``).  With ``pods`` > 1, one pod's step:
     the batch split over the pods where it divides, laid out as the whole
-    mesh lays it out, in no more microbatches than leave a row for each
-    data device (DTensor takes no uneven split: nemotron-4-340b's 16
-    microbatches under ``--opt`` run as 8 on 2x16x16)."""
+    mesh lays it out, in all its microbatches (rows that the data devices
+    do not divide run padded)."""
     cfg = cfg or cfgs.get_config(arch)
     if os.environ.get("REPRO_MOE_CF") and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -252,8 +254,6 @@ def build_cell(arch: str, shape_name, mesh, *, cfg=None,
     if sh.kind == "train":
         opt = adafactor(1e-4) if arch in ADAFACTOR_ARCHS else adamw(1e-4)
         accum = ACCUM.get(arch, 1)
-        if pods > 1:
-            accum = max(min(accum, sh.global_batch // dims.shape["data"]), 1)
         step_fn = make_train_step(model, opt, accum_steps=accum)
         batch_sds = cfgs.input_specs(cfg, sh)
         opt_sds = opt.init(p_sds)
@@ -384,8 +384,7 @@ def device_counts(arch: str, shape_name, mesh, *, cfg=None
     and the microbatches counted.  On a mesh with a ``pod`` dim: one
     pod's step on its ``(data, model)`` slice, plus the gradients'
     reduction across the pods, the only work the pod axis carries
-    (``launch.mesh``), in no more microbatches than ``build_cell``
-    leaves it."""
+    (``launch.mesh``)."""
     sh = (shape_name if isinstance(shape_name, cfgs.Shape)
           else cfgs.SHAPES[shape_name])
     dims = mesh_dims(mesh)
@@ -527,6 +526,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "collective_bytes_total": coll_total,
         "collective_bytes_corrected": coll_total,
         "ce_chunk_collective_bytes": ce,
+        "shard_to_shard": part.shard_to_shard,
         "argument_bytes_per_device": int(sum(args_b)),
         "output_bytes_per_device": int(sum(out_b)),
         "temp_bytes_per_device": None,

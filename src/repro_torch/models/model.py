@@ -65,6 +65,7 @@ import os
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -297,6 +298,14 @@ class LM:
             patches = batch["patches"].to(cfg.activation_dtype)
             patches = patches @ gather_fsdp(
                 params["frontend"]["adapter"]).to(patches.dtype)
+            if isinstance(x, DTensor) and any(p.is_partial()
+                                              for p in x.placements):
+                # the embedding's masked partial (a vocab split; torch
+                # 2.11 keeps it through the cast) reduced to the residual
+                # stream's layout before the cat, as the constrain below
+                # would reduce it: a cat of a masked partial reaches
+                # aten::equal, which has no meta kernel there
+                x = constrain(x, ("pod", "data"), None, None)
             x = torch.cat([patches, x], dim=1)
             if labels is not None:
                 pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,

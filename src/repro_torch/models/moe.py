@@ -40,7 +40,10 @@ their expert dim is split, and the experts' outputs, split over experts
 (``ep``) or over each expert's width (``tp``), are gathered whole over
 ``model`` on the way in: the all-gathers a device's rows need, which the
 dry run's count of collectives sees.  The three expert products stay
-DTensor ops on the parameters' layouts.
+DTensor ops on the parameters' layouts.  A microbatch padded over the
+data devices (``sharding.split_rows``) routes its pad rows among
+themselves (capacity is per row); the load-balance loss takes its means
+over the real rows only (``sharding.row_weights``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (constrain, like_layout,
-                                              on_local, reshape)
+                                              on_local, reshape, row_weights)
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["moe_apply", "capacity"]
@@ -88,8 +91,16 @@ def _router(cfg: ModelConfig, p: dict, x: torch.Tensor):
     e = m.n_routed
     experts = torch.arange(e, device=x.device)
     assign = (idx[..., None] == experts).to(torch.float32).sum(-2)  # (B,S,E)
-    frac = assign.mean(dim=(0, 1)) / m.top_k
-    prob = torch.softmax(logits, dim=-1).mean(dim=(0, 1))
+    probs = torch.softmax(logits, dim=-1)
+    padded = row_weights()
+    if padded is None:
+        frac = assign.mean(dim=(0, 1)) / m.top_k
+        prob = probs.mean(dim=(0, 1))
+    else:               # a padded microbatch: the means over its real rows
+        w, rows = padded
+        n = rows * x.shape[1]
+        frac = (assign * w[:, None, None]).sum(dim=(0, 1)) / n / m.top_k
+        prob = (probs * w[:, None, None]).sum(dim=(0, 1)) / n
     aux = m.aux_loss_coef * e * torch.sum(frac * prob)
     return top, idx, aux
 

@@ -14,18 +14,22 @@ DTensors, laid out by ``param_pspecs``, ``opt_pspecs`` and
 ``batch_pspecs``: the step runs under ``distributed.sharding.mesh_ops``,
 each gradient is brought to its parameter's placements (the sum over the
 data axes), so that the new parameters keep their layout, and the
-metrics come back as whole tensors.
+metrics come back as whole tensors.  A microbatch whose rows the data
+devices do not divide runs padded (``sharding.split_rows``), as XLA pads
+the reference's; its pads reach no sum (labels -1, and
+``sharding.real_rows`` masks them out of the MoE load-balance loss), and
+nothing of them leaves the step.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import like_param, mesh_ops
+from repro_torch.distributed.sharding import (like_param, mesh_ops,
+                                              real_rows, split_rows)
 from repro_torch.models.model import LM
 from repro_torch.models.params import leaves, map_tree
 from repro_torch.optim.base import Optimizer, apply_updates
@@ -34,29 +38,18 @@ __all__ = ["make_train_step", "make_eval_step", "loss_and_grads"]
 
 
 def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """The batch's ``accum`` microbatches (``sharding.split_rows``): on a
+    mesh whose data devices do not divide a microbatch's rows, each runs
+    padded, its pad rows zeros with labels -1, which add nothing to the
+    loss's sums."""
     for name, x in batch.items():
         if x.shape[0] % accum:
             raise ValueError(f"batch {name!r} of {x.shape[0]} rows does not "
                              f"split into {accum} microbatches")
-    batch = {name: _whole_rows(x, x.shape[0] // accum)
+    split = {name: split_rows(x, accum, -1 if name == "labels" else 0)
              for name, x in batch.items()}
-    return [{name: x.chunk(accum)[i] for name, x in batch.items()}
+    return [{name: xs[i] for name, xs in split.items()}
             for i in range(accum)]
-
-
-def _whole_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """``x`` with its batch dim gathered over the mesh dims that split it
-    when a microbatch of ``rows`` rows would not split evenly over them
-    (DTensor takes no uneven split): every such device then runs the whole
-    microbatch.  Anything else is returned as it is."""
-    if not isinstance(x, DTensor):
-        return x
-    mesh = x.device_mesh
-    split = [i for i, p in enumerate(x.placements) if p == Shard(0)]
-    if rows % math.prod(mesh.size(i) for i in split) == 0:
-        return x
-    return x.redistribute(mesh, [Replicate() if i in split else p
-                                 for i, p in enumerate(x.placements)])
 
 
 def _set_path(tree: dict, path: tuple[str, ...], value: Any) -> None:
@@ -105,8 +98,10 @@ def make_train_step(model: LM, optimizer: Optimizer, *, accum_steps: int = 1,
             gsum = map_tree(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             lsum = None
+            rows = next(iter(batch.values())).shape[0] // accum_steps
             for mb in _split_microbatches(batch, accum_steps):
-                l, _, g = loss_and_grads(model, params, mb, remat=remat)
+                with real_rows(next(iter(mb.values())), rows):
+                    l, _, g = loss_and_grads(model, params, mb, remat=remat)
                 gsum = map_tree(lambda a, b: a + b.to(torch.float32), gsum, g)
                 lsum = l if lsum is None else lsum + l
             grads = map_tree(lambda g: g / accum_steps, gsum)

@@ -29,9 +29,12 @@ the reference's ``repro.launch.dryrun``.
   config (train, prefill and decode) on a fake ``(data, model)`` (2, 4)
   mesh and a fake ``(pod, data, model)`` (2, 2, 2) mesh, the production
   meshes' names, in a subprocess over a fake group of 8 ranks (no
-  process group is made in the pytest process); ``repeated`` multiplies
-  the collectives it counts; on plain tensors the count has no
-  collectives and its FLOPs and bytes are ``counted``'s.
+  process group is made in the pytest process), every configured
+  microbatch counted (one a device's row that ``data`` does not divide
+  runs padded); ``repeated`` multiplies the collectives it counts; a
+  Shard-to-Shard redistribute counts as one all-to-all; on plain tensors
+  the count has no collectives and its FLOPs and bytes are
+  ``counted``'s.
 """
 
 import json
@@ -322,7 +325,67 @@ for arch in ("qwen2.5-32b", "nemotron-4-340b"):
         arch, cfgs.Shape("smoke", 16, 32, "train"), mesh,
         cfg=cfgs.get_smoke_config(arch))
     ops.gqa_flash_attention = plain
-    res[f"{arch}/padded"] = {"calls": calls, "ce": ce, "accum": accum}
+    res[f"{arch}/padded"] = {"calls": calls, "ce": ce, "accum": accum,
+                             "flops": c.flops}
+# nemotron-4-340b's smoke train step at its ``--opt`` 16 microbatches
+# (at its 8 above): on a pod's slice of (2, 2, 2) the pod's 16 rows in 16
+# microbatches of 1 row each, which ``data`` 2 does not divide
+dryrun.ACCUM["nemotron-4-340b"] = 16
+c, ce, accum = dryrun.device_counts(
+    "nemotron-4-340b", cfgs.Shape("smoke", 16, 32, "train"), mesh,
+    cfg=cfgs.get_smoke_config("nemotron-4-340b"))
+dryrun.ACCUM["nemotron-4-340b"] = 8
+res["uneven"] = {"accum": accum, "flops": c.flops,
+                 "collectives": c.collectives}
+if "pod" not in names:
+    # the Adafactor update of qwen2.5-32b's stacked FFN weight (its 64
+    # layers; 512 x 2048 for 5120 x 27648) laid out as its dry-run cell
+    # lays it (layers, FSDP over data, columns over model), where
+    # DTensor re-shards the FSDP split onto the layer dim and back:
+    # counted with DTensor's Shard-to-Shard all-to-all as the card sends
+    # it, and with the count of its CPU route (an all-gather and a
+    # chunk), the bytes of each call beside
+    import torch.distributed.tensor.placement_types as pt
+    from repro_torch.core import profiler
+    from repro_torch.distributed.compat import enter_mesh
+    from repro_torch.distributed.sharding import meta_tree, mesh_ops
+    from repro_torch.optim import adafactor
+    from repro_torch.optim.base import apply_updates
+    full = (64, 512, 2048)
+    opt = adafactor(1e-4)
+    spec = {"w": (None, "data", "model")}
+    p = meta_tree({"w": torch.empty(full, dtype=torch.bfloat16,
+                                    device="meta")}, spec, mesh)
+    g = meta_tree({"w": torch.empty(full, device="meta")}, spec, mesh)
+    st = meta_tree(opt.init({"w": torch.empty(full, device="meta")}),
+                   {"v": {"w": {"vr": (None, "data"),
+                                "vc": (None, "model")}}}, mesh)
+    calls = []
+    plain = pt.shard_dim_alltoall
+
+    def spy(x, gather_dim, shard_dim, m, mesh_dim):
+        out = plain(x, gather_dim, shard_dim, m, mesh_dim)
+        calls.append([x.numel() * x.element_size(),
+                      out.numel() * out.element_size(), m.size(mesh_dim)])
+        return out
+
+    def update():
+        with mesh_ops():
+            u, _, _ = opt.update(g, st, p, 0)
+            return apply_updates(p, u)
+
+    pt.shard_dim_alltoall = spy
+    enter_mesh(mesh)
+    counted = count_step(update)
+    callers, profiler._ALLTOALL_CALLERS = profiler._ALLTOALL_CALLERS, ()
+    counted_calls, calls = calls, []
+    fallback = count_step(update)
+    profiler._ALLTOALL_CALLERS = callers
+    enter_mesh(None)
+    pt.shard_dim_alltoall = plain
+    res["s2s"] = {"calls": counted_calls, "counted": counted.collectives,
+                  "fallback": fallback.collectives, "fallback_calls": calls,
+                  "tally": [counted.shard_to_shard, fallback.shard_to_shard]}
 x = DTensor.from_local(torch.empty(4, 8, device="meta"), mesh,
                        [Shard(0)] + [Replicate()] * (mesh.ndim - 1),
                        run_check=False)
@@ -392,8 +455,8 @@ def test_partitioned_pass_runs_every_family(partitioned, mesh):
             assert set(r["collectives"]) <= set(COLLECTIVE_KINDS)
             assert sum(r["collectives"].values()) > 0, (arch, kind)
             assert (r["ce"] is None) == (kind != "train")
-            assert 1 <= r["accum"] <= (tdry.ACCUM.get(arch, 1)
-                                       if kind == "train" else 1)
+            assert r["accum"] == (tdry.ACCUM.get(arch, 1)
+                                  if kind == "train" else 1)
         # the gradients' reduction across the pods
         if mesh == "pod_data_model":
             assert res[f"{arch}/train"]["collectives"]["all-reduce"] > 0
@@ -468,6 +531,56 @@ def test_ce_chunk_count_has_no_vocab_gather(partitioned, mesh):
                           * 4.0}, (key, ce)
         else:
             assert set(ce) == {"all-reduce"}, (key, ce)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES_SMALL))
+def test_partitioned_pass_counts_every_microbatch(partitioned, mesh):
+    """nemotron-4-340b's smoke train step (32 rows of 16) at 8 and 16
+    microbatches counts every one.  On (2, 4) a device runs 16 rows
+    either way (2 a microbatch or 1), so the matmul FLOPs are equal; on
+    a pod's slice of (2, 2, 2) the pod's 16 rows in 16 microbatches of 1
+    row, which ``data`` 2 does not divide, run padded to 2
+    (``sharding.split_rows``), one row a device, twice the rows of the 8
+    microbatches of 2: twice the matmul FLOPs, as XLA's padded split
+    computes.  The batch is re-laid out by all-to-alls.  (The count at 8
+    is the padded-heads case's.)"""
+    at8 = partitioned[mesh]["nemotron-4-340b/padded"]
+    at16 = partitioned[mesh]["uneven"]
+    assert (at8["accum"], at16["accum"]) == (8, 16)
+    ratio = at16["flops"]["matmul"] / at8["flops"]["matmul"]
+    assert ratio == (1.0 if mesh == "data_model" else 2.0)
+    assert at16["collectives"].get("all-to-all", 0) > 0
+
+
+def test_shard_to_shard_counts_as_all_to_all(partitioned):
+    """The Adafactor update of qwen2.5-32b's stacked FFN weight (64
+    layers, at 512 x 2048 for 5120 x 27648; the FSDP split over ``data``,
+    the columns over ``model``) on the fake (2, 4) mesh, where DTensor
+    re-lays out the FSDP split onto the layer dim and back (three calls a
+    stacked FFN weight: the 9 Shard-to-Shard redistributes of each of
+    qwen2.5-32b's and llava-next-34b's ``train_4k`` cells): each counts
+    one all-to-all of max(operand, result), as NCCL sends it.  Counted
+    as DTensor's CPU route runs it (the profiler's rule switched off),
+    each was an all-gather of the mesh dim's whole (m x the operand) and
+    a chunk."""
+    r = partitioned["data_model"]["s2s"]
+    calls, counted, fallback = r["calls"], r["counted"], r["fallback"]
+    assert len(calls) == 3 and r["fallback_calls"] == calls
+    moved = sum(max(a, b) for a, b, _ in calls)
+    gathered = sum(m * a for a, _, m in calls)
+    assert counted["all-to-all"] - fallback.get("all-to-all", 0) == moved
+    assert fallback["all-gather"] - counted.get("all-gather", 0) == gathered
+    assert {k: v for k, v in counted.items()
+            if k not in ("all-to-all", "all-gather")} == {
+        k: v for k, v in fallback.items()
+        if k not in ("all-to-all", "all-gather")}
+    # the count's tally (a dry-run record's ``shard_to_shard``): the calls
+    # and their bytes, and no collective counted inside DTensor's CPU
+    # route, which the route's own count shows, one all-gather a call
+    assert r["tally"][0] == {"calls": 3, "bytes": moved,
+                             "fallback_collectives": 0}
+    assert r["tally"][1] == {"calls": 0, "bytes": 0.0,
+                             "fallback_collectives": 3}
 
 
 def test_plain_count_has_no_collectives():

@@ -182,13 +182,34 @@ def test_offload_sharded_step(offload_run):
     assert sh["sharded_modeled_s"] < sh["single_modeled_s"]
 
 
-def test_offload_tiled_step(offload_run):
-    t = offload_run[0]["tiled"]
-    budget = texample.MemoryBudget.detect(CPU)
-    assert (t["budget_bytes"], t["budget_source"]) == (budget.bytes_limit,
-                                                       budget.source)
-    assert max(t["dispatched_tile_sizes"]) == t["tile_k"]
-    assert sum(k * v for k, v in t["dispatched_tile_sizes"].items()) == 8
+# a last-level cache that budgets the 512x512 fft group into tiles of 4
+PINNED_LLC_BYTES = 64 * 2 ** 20
+
+
+@pytest.mark.parametrize("budget", ["detected", "pinned"])
+def test_offload_tiled_step(offload_run, budget, monkeypatch):
+    """Step 7 under the budget detected for this host's CPU (its
+    last-level cache; a large one leaves the group of 8 frames one tile)
+    and under a budget pinned to a 64 MiB cache, which makes the router
+    tile the group whatever the host: what the router promises, every
+    dispatched tile at most ``tile_k``, the tiles summing to the 8
+    frames, the largest ``min(tile_k, 8)``."""
+    if budget == "detected":
+        t = offload_run[0]["tiled"]
+    else:
+        from repro_torch.runtime import tiling
+        monkeypatch.setattr(tiling, "_llc_bytes", lambda: PINNED_LLC_BYTES)
+        imgs, _ = texample.inputs(CPU)
+        with redirect_stdout(io.StringIO()):
+            t = texample.run_tiled_demo(imgs, device=CPU)
+        assert t["tile_k"] < texample.IMAGES
+    want = texample.MemoryBudget.detect(CPU)
+    assert (t["budget_bytes"], t["budget_source"]) == (want.bytes_limit,
+                                                       want.source)
+    tiles = t["dispatched_tile_sizes"]
+    assert max(tiles) <= t["tile_k"]
+    assert sum(k * v for k, v in tiles.items()) == texample.IMAGES == 8
+    assert max(tiles) == min(t["tile_k"], texample.IMAGES)
     assert t["bytes_per_frame"] > 0
 
 

@@ -145,7 +145,9 @@ def test_roofline_rows_equal_reference_at_its_constants(ref):
 def test_port_records_show_bound_traffic_and_how_counted():
     """A port record's memory term is its must-move bytes, its eager
     traffic stands apart, and a 2x16x16 record says it was a pod's slice
-    with its microbatches counted / configured."""
+    with its microbatches counted / configured.  The capped count (8 of
+    16) is synthetic, a case of the renderer: no real record is capped
+    any more, every one counts all its microbatches."""
     cells = [dict(c, bytes_min=c["bytes_accessed"] / 7,
                   partition=("mesh" if c["mesh"] == "single"
                              else "pod_slice+cross_pod_reduce"),

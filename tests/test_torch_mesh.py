@@ -35,11 +35,16 @@
   to 8) and deepseek-v3-671b's with 3 MLA heads (padded to 4) take the
   float32 step as they do unmeshed, and one
   cross-entropy chunk on a vocab split over ``model`` (its log-sum-exp
-  on each device's shard) equals the unmeshed chunk.
+  on each device's shard) equals the unmeshed chunk.  A float32 step of
+  6 rows in 2 microbatches, which ``data`` 2 does not divide, runs padded
+  as the unmeshed step runs it whole (qwen2-72b, and qwen2-moe-a2.7b
+  whose load-balance loss leaves the pads out); rows split over (pod,
+  data) of a (2, 2, 2) mesh pad alike; a Shard-to-Shard redistribute
+  counts as one all-to-all.
   Rank 0 counts the collective bytes of the meshed training step, the
   MoE prefill and decode step, xlstm-125m's training step (its mLSTM
-  replicated over ``model``, as the reference's) and the padded steps on
-  real tensors; each equals the dry
+  replicated over ``model``, as the reference's), the padded steps and
+  the uneven-microbatch steps on real tensors; each equals the dry
   run's partitioned pass of the same cell on meta shards over a fake
   group of 8 ranks, by kind, exactly.  That pass runs in a ninth process
   beside the ranks; the launch has CHILD_TIMEOUT seconds from its start.
@@ -87,6 +92,10 @@ WORLD = 8
 # the padded steps, as the child script's ``PADDED``: arch -> its query
 # heads (None: the smoke config's)
 PADDED = {"qwen2.5-32b": None, "deepseek-v3-671b": 3}
+# the uneven-microbatch steps, as the child script's ``UNEVEN``: 6 rows in
+# 2 microbatches of 3 over ``data`` 2
+UNEVEN = ("qwen2-72b", "qwen2-moe-a2.7b")
+UNEVEN_ROWS, UNEVEN_ACCUM = 6, 2
 # the whole launch's seconds: the children take ~40 s on an idle 8-core
 # machine and a few times that beside the whole suite's workers
 CHILD_TIMEOUT = 480
@@ -276,6 +285,9 @@ AXES = ("data", "model")
 # qwen2.5-32b's 5 GQA heads over ``model`` 4 pad to 8, deepseek-v3-671b's
 # MLA with 3 heads to 4
 PADDED = {"qwen2.5-32b": None, "deepseek-v3-671b": 3}
+# the steps whose 6 rows in 2 microbatches of 3 ``data`` 2 does not
+# divide: a dense and a MoE smoke model
+UNEVEN = ("qwen2-72b", "qwen2-moe-a2.7b")
 
 
 def nest(flat):
@@ -381,7 +393,7 @@ def recurrent_cell():
     return make_train_step(LM(cfg), opt), (params, state, batch), specs
 
 
-def run(rank, out_dir, weights, moe_weights, *pad_weights):
+def run(rank, out_dir, weights, moe_weights, *rest):
     from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                           distribute_tensor)
     from repro_torch.checkpoint import CheckpointManager
@@ -542,9 +554,16 @@ def run(rank, out_dir, weights, moe_weights, *pad_weights):
     recurrent_step(mesh, out)
     walls["recurrent"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    pad_weights, uneven_weights = rest[:len(PADDED)], rest[len(PADDED):]
     for arch, w in zip(PADDED, pad_weights):
         padded_step(rank, mesh, out, out_dir, w, arch)
     walls["padded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch, w in zip(UNEVEN, uneven_weights):
+        uneven_step(rank, mesh, out, out_dir, w, arch)
+    shard_to_shard(mesh, out)
+    rows_over_pods(out)
+    walls["uneven"] = time.perf_counter() - t0
     enter_mesh(None)
     out["axes_after_leaving"] = list(current_mesh_axis_names())
     return out, walls
@@ -673,7 +692,75 @@ def padded_step(rank, mesh, out, out_dir, weights, arch):
                  **{"/".join(path): t.numpy() for path, t in leaves(grads)})
 
 
-def meta_counts(out_dir, weights, moe_weights, *pad_weights):
+def spied(opt, seen):
+    # ``opt`` whose update keeps the gradients it is handed in ``seen``
+    from repro_torch.optim.base import Optimizer
+
+    def update(grads, state, params, step):
+        seen["grads"] = grads
+        return opt.update(grads, state, params, step)
+    return Optimizer(opt.init, update)
+
+
+def uneven_step(rank, mesh, out, out_dir, weights, arch):
+    # ``arch``'s smoke model (``UNEVEN``) at float32 activations on 6
+    # rows in 2 microbatches of 3, which ``data`` 2 does not divide (each
+    # padded to 4): the train step counted (collective bytes by kind), its
+    # loss and gradient norm, and the gradients it hands the optimizer
+    # gathered whole (rank 0 keeps them)
+    from repro_torch.core.profiler import count_step
+    from repro_torch.distributed import sharding
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.train import make_train_step
+    cfg, model, opt, trees, specs = train_cell(weights, arch, "float32")
+    seen = {}
+    step = make_train_step(model, spied(opt, seen), accum_steps=2)
+    args = [sharding.distribute_tree(t, sp, mesh)
+            for t, sp in zip(trees, specs)]
+    counted = count_step(step, *args, 0)
+    m = counted.out[2]
+    out["uneven/" + arch] = {
+        "collectives": counted.collectives,
+        "rows": [list(mb.to_local().shape) for mb in
+                 sharding.split_rows(args[2]["tokens"], 2)],
+        "loss_f32": float(whole(m["loss"])),
+        "grad_norm_f32": float(whole(m["grad_norm"]))}
+    grads = map_tree(lambda t: t.full_tensor(), seen["grads"])
+    if rank == 0:
+        np.savez(os.path.join(out_dir, f"uneven_grads_{arch}.npz"),
+                 **{"/".join(path): t.numpy() for path, t in leaves(grads)})
+
+
+def shard_to_shard(mesh, out):
+    # a Shard-to-Shard redistribute over ``model`` (rows to columns),
+    # counted: one all-to-all of the shard (DTensor's gloo route is an
+    # all-gather and a chunk, which the count does not see)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.core.profiler import count_step
+    x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    dx = distribute_tensor(x, mesh, [Replicate(), Shard(0)])
+    counted = count_step(dx.redistribute, mesh, [Replicate(), Shard(1)])
+    out["s2s_collectives"] = counted.collectives
+    out["s2s_placements"] = [str(p) for p in counted.out.placements]
+    out["s2s_equal"] = bool(torch.equal(counted.out.full_tensor(), x))
+
+
+def rows_over_pods(out):
+    # a batch of 12 rows split over (pod, data) of a (2, 2, 2) mesh, in 2
+    # and in 4 microbatches of 6 and 3 rows (padded to 8 and 4 over the 4
+    # data devices): each microbatch's rows, the pads -1, gathered whole
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed.sharding import split_rows
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+    x = torch.arange(36).reshape(12, 3)
+    dx = distribute_tensor(x, mesh, [Shard(0), Shard(0), Replicate()])
+    out["rows_over_pods"] = {
+        accum: [[list(m.to_local().shape), m.full_tensor().tolist()]
+                for m in split_rows(dx, accum, -1)] for accum in (2, 4)}
+
+
+def meta_counts(out_dir, weights, moe_weights, *rest):
     # the counted steps' collective bytes by kind from the dry run's
     # partitioned pass: the same steps and layouts on meta shards over a
     # fake group of the same 8 ranks, rank 0's view; in a process of its
@@ -694,8 +781,13 @@ def meta_counts(out_dir, weights, moe_weights, *pad_weights):
                            tuple(specs) + (None,) * len(step), None, (0, 1),
                            None, None, 1)
 
+    pad_weights, uneven_weights = rest[:len(PADDED)], rest[len(PADDED):]
     _, model, opt, trees, specs = train_cell(weights, "qwen2-72b")
     cells = {"train": cell(make_train_step(model, opt), trees, specs, 0)}
+    for arch, w in zip(UNEVEN, uneven_weights):
+        _, umodel, uopt, utrees, uspecs = train_cell(w, arch, "float32")
+        cells["uneven/" + arch] = cell(
+            make_train_step(umodel, uopt, accum_steps=2), utrees, uspecs, 0)
     for arch, w in zip(PADDED, pad_weights):
         _, pmodel, popt, ptrees, pspecs = train_cell(w, arch, "float32",
                                                      PADDED[arch])
@@ -722,6 +814,13 @@ def meta_counts(out_dir, weights, moe_weights, *pad_weights):
         mesh = make_test_mesh((2, 4), AXES)
         got = {name: dryrun.partitioned_count(c, mesh).collectives
                for name, c in cells.items()}
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from repro_torch.core.profiler import count_step
+        x = DTensor.from_local(torch.empty(2, 8, device="meta"), mesh,
+                               [Replicate(), Shard(0)], run_check=False,
+                               shape=torch.Size((8, 8)), stride=(8, 1))
+        got["s2s"] = count_step(x.redistribute, mesh,
+                                [Replicate(), Shard(1)]).collectives
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, "meta_counts.json"), "w") as f:
@@ -762,31 +861,40 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _reference_loss(jcfg, params, batch) -> float:
-    """The reference's one-device train-step loss."""
+def _reference_loss(jcfg, params, batch, accum: int = 1) -> float:
+    """The reference's one-device train-step loss (``accum``
+    microbatches)."""
     opt = jadamw(1e-3)
-    step = jax.jit(jmake_train_step(JLM(jcfg), opt))
+    step = jax.jit(jmake_train_step(JLM(jcfg), opt, accum_steps=accum))
     return float(step(params, opt.init(params),
                       {k: jnp.asarray(v) for k, v in batch.items()},
                       jnp.asarray(0, jnp.int32))[2]["loss"])
 
 
-def _port_step(arch, dtype, params, batch, heads=None) -> dict:
+def _port_step(arch, dtype, params, batch, heads=None,
+               accum: int = 1) -> dict:
     """The port's unmeshed train step of ``arch``'s smoke config at
-    ``dtype`` activations (``heads`` query heads, where not None) on the
-    reference's weights: its loss, gradient norm and gradients."""
+    ``dtype`` activations (``heads`` query heads, where not None;
+    ``accum`` microbatches) on the reference's weights: its loss,
+    gradient norm and the gradients it hands the optimizer."""
+    from repro_torch.optim.base import Optimizer
     tcfg = dataclasses.replace(tcfgs.get_smoke_config(arch), dtype=dtype)
     if heads is not None:
         tcfg = dataclasses.replace(tcfg, n_heads=heads)
     tparams_ = lm_params_from_numpy(
         jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
     topt = adamw(1e-3)
+    seen = {}
+
+    def update(grads, state, p, step):
+        seen["grads"] = grads
+        return topt.update(grads, state, p, step)
     tbatch = {k: torch.from_numpy(v).to(torch.int64)
               for k, v in batch.items()}
-    m = make_train_step(LM(tcfg), topt)(tparams_, topt.init(tparams_),
-                                        tbatch, 0)[2]
-    grads = {"/".join(path): t.numpy() for path, t in
-             leaves(loss_and_grads(LM(tcfg), tparams_, tbatch)[2])}
+    m = make_train_step(LM(tcfg), Optimizer(topt.init, update),
+                        accum_steps=accum)(tparams_, topt.init(tparams_),
+                                           tbatch, 0)[2]
+    grads = {"/".join(path): t.numpy() for path, t in leaves(seen["grads"])}
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "grads": grads}
 
@@ -823,12 +931,23 @@ def ranks(tmp_path_factory):
         np.savez(d / f"padded_{arch}.npz", **_flat(pparams),
                  **{"__" + k: v for k, v in pbatch.items()})
         padded[arch] = (pcfg, pparams, pbatch)
+    uneven = {}
+    for arch, (ucfg, uparams) in zip(UNEVEN, ((cfg, params),
+                                              (mcfg, mparams))):
+        utoks = rng.integers(0, ucfg.vocab_size,
+                             (UNEVEN_ROWS, 17)).astype(np.int32)
+        ubatch = {"tokens": utoks[:, :-1], "labels": utoks[:, 1:]}
+        np.savez(d / f"uneven_{arch}.npz", **_flat(uparams),
+                 **{"__" + k: v for k, v in ubatch.items()})
+        uneven[arch] = (dataclasses.replace(ucfg, dtype="float32"), uparams,
+                        ubatch)
     script = d / "child.py"
     script.write_text(_CHILD)
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
                OMP_NUM_THREADS="1")
     npz = [str(d / f) for f in ("weights.npz", "moe.npz",
-                                *(f"padded_{a}.npz" for a in PADDED))]
+                                *(f"padded_{a}.npz" for a in PADDED),
+                                *(f"uneven_{a}.npz" for a in UNEVEN))]
     argvs = [[str(r), str(d / "store"), str(d)] + npz for r in range(WORLD)]
     argvs.append(["meta", str(d)] + npz)
     procs, logs = [], []
@@ -860,6 +979,11 @@ def ranks(tmp_path_factory):
                 arch, "float32", pparams, pbatch, PADDED[arch])
             port["padded/" + arch]["ref_loss"] = _reference_loss(
                 pcfg, pparams, pbatch)
+        for arch, (ucfg, uparams, ubatch) in uneven.items():
+            port["uneven/" + arch] = _port_step(
+                arch, "float32", uparams, ubatch, accum=UNEVEN_ACCUM)
+            port["uneven/" + arch]["ref_loss"] = _reference_loss(
+                ucfg, uparams, ubatch, accum=UNEVEN_ACCUM)
         port["moe_reference"] = _reference_serving(mcfg, mparams, mtoks)
         codes = [p.wait(timeout=max(CHILD_TIMEOUT - (time.monotonic() - t0),
                                     1)) for p in procs]
@@ -882,6 +1006,10 @@ def ranks(tmp_path_factory):
     for arch in PADDED:
         with np.load(d / f"padded_grads_{arch}.npz") as f:
             port["padded/" + arch]["meshed_grads"] = {k: f[k]
+                                                      for k in f.files}
+    for arch in UNEVEN:
+        with np.load(d / f"uneven_grads_{arch}.npz") as f:
+            port["uneven/" + arch]["meshed_grads"] = {k: f[k]
                                                       for k in f.files}
     port["moe_meshed"] = np.load(d / "moe_logits.npy")
     port["meta_counts"] = json.loads((d / "meta_counts.json").read_text())
@@ -1083,3 +1211,69 @@ def test_vocab_parallel_ce_chunk_matches_unmeshed(ranks):
         # the row max and the row sum: 2 x (2 rows x 6 positions) x 4 B
         # over ``model``, beside the label pick's partial sum
         assert coll.get("all-reduce", 0) >= 2 * 2 * 6 * 4, coll
+
+
+@pytest.mark.parametrize("arch", UNEVEN)
+def test_meshed_uneven_microbatch_step_matches_unmeshed_and_reference(
+        ranks, arch):
+    """At float32 on the (2, 4) mesh, 6 rows in 2 microbatches of 3, which
+    ``data`` 2 does not divide: each microbatch runs padded to 4 rows,
+    two a device (``sharding.split_rows``), as XLA pads the reference's;
+    a dense (qwen2-72b) and a MoE (qwen2-moe-a2.7b, whose load-balance
+    loss takes its means over the real rows) smoke model.  Its loss
+    within rel 1e-6 of the port's unmeshed step (which runs the 3 rows),
+    its gradient norm within rel 1e-5 and every gradient it hands the
+    optimizer within 1e-5 of its leaf's largest; its loss within 5e-2 of
+    the reference's one-device step of 2 microbatches; rank 0's
+    collectives by kind equal to the meta pass's, exactly, the batch
+    re-laid out by all-to-alls."""
+    outs, _, port = ranks
+    want = port["uneven/" + arch]
+    for out in outs:
+        got = out["uneven/" + arch]
+        assert got["rows"] == [[2, 16], [2, 16]]
+        assert got["loss_f32"] == pytest.approx(want["loss"], rel=1e-6)
+        assert got["grad_norm_f32"] == pytest.approx(want["grad_norm"],
+                                                     rel=1e-5)
+        assert abs(got["loss_f32"] - want["ref_loss"]) < 5e-2
+    got = want["meshed_grads"]
+    assert sorted(got) == sorted(want["grads"])
+    for k, w in want["grads"].items():
+        np.testing.assert_allclose(got[k], w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+    coll = outs[0]["uneven/" + arch]["collectives"]
+    assert coll.get("all-to-all", 0) > 0
+    assert coll == port["meta_counts"]["uneven/" + arch]
+
+
+def test_shard_to_shard_counts_one_all_to_all(ranks):
+    """A Shard-to-Shard redistribute over ``model`` (an (8, 8) float32
+    tensor's rows split 4 ways, to its columns): on gloo DTensor takes
+    an all-gather and a chunk, the count one all-to-all of the 2 x 8
+    shard, 64 B, and no all-gather, as the meta pass over a fake group
+    counts it and as NCCL would send it; the values are the tensor's."""
+    outs, _, port = ranks
+    for out in outs:
+        assert out["s2s_collectives"] == {"all-to-all": 2 * 8 * 4.0}
+        assert out["s2s_placements"] == ["R", "S(1)"]
+        assert out["s2s_equal"]
+    assert port["meta_counts"]["s2s"] == {"all-to-all": 2 * 8 * 4.0}
+
+
+def test_microbatch_rows_over_pods_run_padded(ranks):
+    """A batch whose rows (pod, data) split together, on a (2, 2, 2)
+    mesh: 12 rows in 2 microbatches of 6 and in 4 of 3, each padded to a
+    multiple of the 4 data devices (8 and 4 rows, 2 and 1 a device), its
+    rows those of the batch in order and its pads -1 at the end, on
+    every rank."""
+    x = np.arange(36).reshape(12, 3)
+    for out in ranks[0]:
+        for accum, q in (("2", 2), ("4", 1)):
+            mbs = out["rows_over_pods"][accum]
+            r = 12 // int(accum)
+            assert len(mbs) == int(accum)
+            for i, (local, whole) in enumerate(mbs):
+                want = np.full((4 * q, 3), -1)
+                want[:r] = x[i * r:(i + 1) * r]
+                assert local == [q, 3]
+                assert np.array_equal(np.array(whole), want)
