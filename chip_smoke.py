@@ -118,7 +118,19 @@ and read just after:
   times on the tensor-core route through the DTensor path, both runs'
   walls; and two one-card roofline rows, phase 6's training step and
   phase 5's decode step counted on ``meta`` here, beside their measured
-  walls and device busy times, no wall below its bound.
+  walls and device busy times, no wall below its bound;
+* training the MoE, MLA and hybrid families at their published widths:
+  qwen2-moe-a2.7b on 4 of 24 layers (4 x 1024 tokens), deepseek-v3-671b's
+  3 dense MLA layers (2 x 1024) and recurrentgemma-9b on 5 of 38 layers
+  (2 x 4096, so that its 2048 window masks), each taking 6 donated AdamW
+  steps of the train CLI's ``MarkovTask``: losses finite and falling,
+  every gradient leaf finite, kernel 6's forward and backward only on
+  the tensor-core route at the model's one shape, and a repeated
+  ``loss_and_grads`` + AdamW step bit-equal in loss, gradients and
+  parameters (the MoE layer's gathers have a fixed-order backward); each
+  step's wall, tokens/s, model FLOP/s and peak memory, one profiled step
+  by kernel kind, and kernel 6's backward at each shape beside its plain
+  version, SDPA and its bound.
 
 It times each kernel beside its plain version, a library call and its
 bound, and prints as its last line
@@ -698,6 +710,29 @@ def phase_main_path(rt, od, dev) -> dict:
             "profiled_flush": profiled}
 
 
+KERNEL_CATEGORIES = (("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas",
+                               "sm90_", "sm80_")),
+                     ("gather/scatter/index", ("gather", "scatter", "index",
+                                               "embedding")),
+                     ("sort", ("sort", "radix")),
+                     ("reduce", ("reduce", "norm", "softmax")),
+                     ("copy/cast", ("copy", "cat", "fill")),
+                     ("elementwise", ("elementwise", "vectorized")))
+
+
+def kernel_category(name: str) -> str:
+    """A device kernel's kind, read off its name: kernel 6, GEMM,
+    gather/scatter/index, sort, reduction, copy or cast, elementwise or
+    other."""
+    if is_kernel6(name):
+        return "kernel6"
+    low = name.lower()
+    for cat, keys in KERNEL_CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
 def profile_flush(flush, what: str = "flush") -> dict:
     """One run of ``flush`` (which returns its host wall in ms) under
     torch.profiler: device busy time by kernel name against the wall."""
@@ -712,15 +747,23 @@ def profile_flush(flush, what: str = "flush") -> dict:
     k6_ms = sum(e.self_device_time_total for e in device
                 if is_kernel6(e.key)) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    by_category: dict[str, float] = {}
+    for e in device:
+        cat = kernel_category(e.key)
+        by_category[cat] = by_category.get(cat, 0.0) \
+            + e.self_device_time_total / 1e3
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-           "kernel6_ms": k6_ms,
+           "kernel6_ms": k6_ms, "by_category_ms": by_category,
            "top": [{"name": e.key[:60], "count": e.count,
                     "ms": e.self_device_time_total / 1e3} for e in top]}
     print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms" + ("" if busy_ms else " (profiler reported no "
                                 "device time: not measured)")
           + f", kernel 6 {k6_ms:.3f} ms of it")
+    print("    by kind: " + ", ".join(
+        f"{cat} {ms:.3f} ms" for cat, ms in sorted(
+            by_category.items(), key=lambda kv: -kv[1])))
     for t in out["top"]:
         print(f"    {t['ms']:.4f} ms x{t['count']}  {t['name']}")
     return out
@@ -1346,7 +1389,8 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
                                                  is_causal=causal,
                                                  enable_gqa=True)
     t = [median_ms(kern), median_ms(plain), median_ms(plain), median_ms(kern)]
-    if window and window < l:
+    banded = bool(window and window < l)
+    if banded:
         # SDPA's causal mask has no window: the band as a boolean mask, on
         # KV heads expanded to the query heads (made before timing)
         band = la._mask(l, l, True, window, dev)
@@ -1365,7 +1409,7 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
            "max_abs_err": err, "ms": statistics.mean((t[0], t[3])),
            "plain_ms": statistics.mean((t[1], t[2])),
            "library_ms": median_ms(lib),
-           "library_mask": ("band" if window and window < l
+           "library_mask": ("band" if banded
                             else "causal" if causal else "no"),
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": nbytes}
@@ -1403,9 +1447,14 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         p_out = la.local_flash_attention_plain(qp, kp, vp, **kw)
         q4g, k4g, v4g = (x.unsqueeze(0).detach().requires_grad_()
                          for x in (q, k, v))
-        l_out = F.scaled_dot_product_attention(q4g, k4g, v4g,
-                                               is_causal=causal,
-                                               enable_gqa=True)
+        if banded:   # the band mask on KV heads expanded in the graph
+            l_out = F.scaled_dot_product_attention(
+                q4g, k4g.repeat_interleave(g, dim=1),
+                v4g.repeat_interleave(g, dim=1), attn_mask=band)
+        else:
+            l_out = F.scaled_dot_product_attention(q4g, k4g, v4g,
+                                                   is_causal=causal,
+                                                   enable_gqa=True)
         plain_b = lambda: torch.autograd.grad(p_out, (qp, kp, vp), dout,
                                               retain_graph=True)
         lib_b = lambda: torch.autograd.grad(l_out, (q4g, k4g, v4g),
@@ -1420,9 +1469,8 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
         row["backward"] = {
             "max_abs_err": max(errs), "ms": statistics.mean((tb[0], tb[3])),
             "plain_ms": statistics.mean((tb[1], tb[2])),
-            "library_ms": (None if window and window < l
-                           else median_ms(lib_b)),
-            "bound_ms": bb_ms, "bound_by": bb_by}
+            "library_ms": median_ms(lib_b), "bound_ms": bb_ms,
+            "bound_by": bb_by}
     print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}"
           f"{f', Lk {lk}' if lk != l else ''}, D {d}"
           f"{f', Dv {dv}' if dv != d else ''}) bf16 "
@@ -1436,7 +1484,8 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
           f"{err:.3e}" + ("" if not backward else
                           f"; backward {row['backward']['ms']:.4f} ms, plain "
                           f"{row['backward']['plain_ms']:.4f}, SDPA "
-                          f"{row['backward']['library_ms']}, bound "
+                          f"{row['backward']['library_ms']:.4f} "
+                          f"({row['library_backend']}), bound "
                           f"{bb_ms:.4f} ({bb_by})"))
     return row
 
@@ -3308,6 +3357,259 @@ def card_roofline(training: dict, serving: dict, card: str) -> dict:
     return out
 
 
+# --- phase 17: training the MoE, MLA and hybrid families ---------------------
+
+# (arch, the layers kept, batch, sequence), each at its published widths
+# and with its depth cut to what one card holds beside AdamW's state (12
+# bytes a parameter on the donated step): qwen2-moe-a2.7b's first 4 of 24
+# layers (all MoE), deepseek-v3-671b's 3 dense-prefix layers of 61 (MLA,
+# d_ff 18432; one MoE layer alone is 11.3 B parameters), recurrentgemma-
+# 9b's 5 of 38 (one (rglru, rglru, attn) super-block and the 2-layer
+# tail) at 4096 tokens, so that its 2048 window masks; embed and head
+# untied in all three
+FAMILY_TRAINING = (("qwen2-moe-a2.7b", 4, 4, 1024),
+                   ("deepseek-v3-671b", 3, 2, 1024),
+                   ("recurrentgemma-9b", 5, 2, 4096))
+FAMILY_STEPS = 6
+# the train CLI's ``--lr``: at its default, 3e-3, these widths overshoot
+# after two updates (1.9 x 3e-3 of summed learning rate) and the loss
+# climbs back above its start; the schedule's five updates at 1e-3 sum to
+# 3.2e-3
+FAMILY_LR = 1e-3
+
+
+def family_widths(la, cfg) -> tuple[int, int]:
+    """Assert ``cfg``'s published widths (the phase 12a and 13 tuples) and
+    kernel 6's tensor-core route; returns its (head dim, V width)."""
+    if cfg.moe is not None:
+        m = cfg.moe
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.vocab_size, cfg.d_ff, cfg.dense_prefix, m.n_routed,
+               m.top_k, m.d_expert, m.n_shared) == MOE_WIDTHS[cfg.name],
+              f"{cfg.name} is not at its published width and depth")
+    else:
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.head_dim_, cfg.d_ff, cfg.vocab_size, cfg.local_window,
+               cfg.lru_width) == RG_WIDTHS,
+              f"{cfg.name} is not at its published width and depth")
+    if cfg.mla is not None:
+        a = cfg.mla
+        check((a.q_lora_rank, a.kv_lora_rank, a.qk_nope_head_dim,
+               a.qk_rope_head_dim, a.v_head_dim) == MLA_WIDTHS,
+              f"{cfg.name}'s MLA is not at its published width")
+        d, dv = a.qk_head_dim, a.v_head_dim
+    else:
+        d = dv = cfg.head_dim_
+    check(la.route(cfg.activation_dtype, d) == "tensor_core",
+          f"{cfg.name}'s attention (D {d}) is not on kernel 6's tensor-core "
+          "route")
+    return d, dv
+
+
+def repeat_step(model, opt, cfg, batch, dev, step: int) -> dict:
+    """The repeat check: from the same params (``init_params`` of SEED)
+    and the same batch, ``loss_and_grads`` and one donated AdamW step,
+    twice.  The loss, every gradient leaf and every updated parameter must
+    be ``torch.equal``.  The first run's gradients and new parameters stay
+    on the card while the second runs (16 bytes a parameter at most); the
+    second run, its params and state made before, is profiled as one
+    training step.  Returns the loss, the leaves compared and the
+    profile."""
+    from repro_torch.models import init_params
+    from repro_torch.models.params import leaves
+    from repro_torch.train import loss_and_grads
+
+    def fresh() -> tuple:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        return params, opt.init(params)
+
+    def run(params, state) -> tuple:
+        loss, _, grads = loss_and_grads(model, params, batch)
+        opt.update_(grads, state, params, step)
+        return loss, grads, params
+
+    first = run(*fresh())
+    second = []
+    start = fresh()
+    torch.cuda.synchronize()
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        second.extend(run(*start))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    profiled = profile_flush(timed, f"{cfg.name} step (loss_and_grads + "
+                             "donated AdamW)")
+    check(torch.equal(first[0], second[0]), f"{cfg.name} repeat: loss "
+          f"{float(first[0])!r} then {float(second[0])!r}")
+    out = {"loss": float(first[0]), "profiled_step": profiled}
+    for name, a_tree, b_tree in (("gradient", first[1], second[1]),
+                                 ("updated parameter", first[2], second[2])):
+        pairs = list(zip(leaves(a_tree), leaves(b_tree)))
+        differ = [("/".join(k), float((a.float() - b.float()).abs().max()))
+                  for (k, a), (_, b) in pairs if not torch.equal(a, b)]
+        check(not differ, f"{cfg.name} repeat: {name} leaves differ (leaf, "
+              f"max |diff|): {differ}")
+        out[f"{name.split()[-1]}_leaves"] = len(pairs)
+    return out
+
+
+def train_family(la, dev, card: str, arch: str, layers: int, batch: int,
+                 seq: int) -> dict:
+    """One family's training run (``phase_family_training``)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import MarkovTask
+    from repro_torch.models import LM, init_params, param_counts
+    from repro_torch.models.params import leaves
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import loss_and_grads, make_train_step
+
+    full = configs.get_config(arch)
+    d, dv = family_widths(la, full)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    n_params, active = param_counts(cfg)
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k == "attn" for k in kinds)
+    plan = cfg.layer_plan()
+    n_remat = plan.n_super * plan.super_block.count("attn")
+    moe_layers = sum(cfg.uses_moe_at(i) and k == "attn"
+                     for i, k in enumerate(kinds))
+    tokens = batch * seq
+    print(f"  {arch}: depth cut to {layers} of {full.n_layers} layers at "
+          f"full width ({', '.join(kinds)}; {moe_layers} MoE); "
+          f"{n_params:,} of {param_counts(full)[0]:,} parameters "
+          f"({active:,} active); batch {batch} x {seq} tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    model = LM(cfg)
+    task = MarkovTask(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=SEED)
+    opt = adamw(lambda s: warmup_cosine(
+        s, peak_lr=FAMILY_LR, warmup_steps=FAMILY_STEPS // 10 + 1,
+        total_steps=FAMILY_STEPS))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, donate=True)
+    la.reset_launches()
+    losses, walls = [], []
+    t_run = time.perf_counter()
+    for step in range(FAMILY_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state,
+                                         task.batch(step, dev), step)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    run_s = time.perf_counter() - t_run
+    fwd = dict(la.local_flash_attention.launches_by_route)
+    bwd = dict(la.local_flash_attention.backward_launches_by_route)
+    fwd_by_shape = dict(la.local_flash_attention.launches_by_shape)
+    bwd_by_shape = dict(la.local_flash_attention.backward_launches_by_shape)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{arch} training losses {losses}: not finite and falling")
+    n = n_attn * FAMILY_STEPS
+    # the stacked blocks are rematerialized (their attention forward runs
+    # twice); the prefix and the tail are not, as in the reference
+    n_fwd = (n_attn + n_remat) * FAMILY_STEPS
+    check(bwd == {"tensor_core": n, "fma": 0}
+          and fwd == {"tensor_core": n_fwd, "fma": 0},
+          f"{arch} training: kernel 6 forward {fwd}, backward {bwd}, want "
+          f"{n_fwd} and {n} on the tensor-core route")
+    h, hkv = batch * cfg.n_heads, batch * cfg.n_kv_heads
+    key = la.shape_key(h, hkv, seq, seq, d, True, cfg.local_window)
+    check(bwd_by_shape == {key: n} and fwd_by_shape == {key: n_fwd},
+          f"{arch} training: kernel 6 forward at {fwd_by_shape}, backward at "
+          f"{bwd_by_shape}, want {n_fwd} and {n} at {key}")
+
+    # every gradient leaf finite at the trained params, on the batch of
+    # step 1, the first at a nonzero learning rate (the warm-up's step 0
+    # has lr 0 and leaves the params as they were): losses[1] is its loss
+    # at the initial params
+    seen = task.batch(1, dev)
+    loss, _, grads = loss_and_grads(model, params, seen)
+    bad = ["/".join(k) for k, g in leaves(grads)
+           if not bool(torch.isfinite(g).all())]
+    check(bool(torch.isfinite(loss)) and not bad,
+          f"{arch}: non-finite loss {float(loss)} or gradient leaves {bad}")
+    n_leaves = len(list(leaves(grads)))
+    del grads, params, state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    repeat = repeat_step(model, opt, cfg, seen, dev, FAMILY_STEPS - 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(repeat["loss"] == losses[1], f"{arch}: step 1's batch at the "
+          f"initial params gives {repeat['loss']!r}, the training run's step "
+          f"1 read {losses[1]!r}")
+    check(float(loss) < losses[1], f"{arch}: the loss on step 1's batch "
+          f"did not fall: {losses[1]} at the initial params, {float(loss)} "
+          f"after {FAMILY_STEPS} steps")
+
+    step_s = statistics.median(walls[1:])
+    flops = 6 * active * tokens
+    print(f"  {arch}: loss on step 1's batch at the initial params "
+          f"{repeat['loss']:.4f} (as the training run read it), after "
+          f"{FAMILY_STEPS} steps {float(loss):.4f}")
+    out = {"arch": arch, "layers": layers, "full_layers": full.n_layers,
+           "layer_kinds": list(kinds), "moe_layers": moe_layers,
+           "rematerialized_attention_layers": n_remat,
+           "params": n_params, "active_params": active,
+           "full_params": param_counts(full)[0], "batch": batch, "seq": seq,
+           "steps": FAMILY_STEPS, "lr": FAMILY_LR, "losses": losses,
+           "trained_batch_loss": float(loss),
+           "step_wall_s": walls, "step_wall_s_median": step_s,
+           "run_wall_s": run_s, "tokens_per_s": tokens / step_s,
+           "model_flops_per_step": flops,
+           "model_tflops": flops / step_s / 1e12,
+           "mfu_bf16": flops / step_s / PEAK_BF16_FLOPS,
+           "peak_memory_gb": peak_gb, "held_before_gb": held_gb,
+           "gradient_leaves_finite": n_leaves,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "forward_by_shape": fwd_by_shape,
+           "backward_by_shape": bwd_by_shape, "repeat": repeat}
+    print(f"  [{card}] {arch}: losses {', '.join(f'{x:.4f}' for x in losses)}"
+          f"; step walls (s) {', '.join(f'{w:.4f}' for w in walls)}; median "
+          f"of steps 2-{FAMILY_STEPS} {step_s:.4f} s, "
+          f"{out['tokens_per_s']:.1f} tokens/s; model FLOP/s (6 N_active T) "
+          f"{out['model_tflops']:.2f} TFLOP/s, "
+          f"{100 * out['mfu_bf16']:.2f} % of 989 TFLOP/s bf16; peak memory "
+          f"{peak_gb:.2f} GB ({held_gb:.2f} GB held before)")
+    print(f"  {arch}: kernel 6 forward {fwd}, backward {bwd} at {key}; all "
+          f"{n_leaves} gradient leaves finite; repeat step bit-equal (loss, "
+          f"{repeat['gradient_leaves']} gradient leaves, "
+          f"{repeat['parameter_leaves']} updated parameters)")
+    out["kernel6_backward"] = held_at_path(
+        la, bwd_by_shape, {
+            f"local_flash_attention_backward_{arch}": (attention_case(
+                la, dev, h, hkv, seq, d, dv=dv, window=cfg.local_window,
+                backward=True), n)},
+        f"{arch} training")
+    return out
+
+
+def phase_family_training(la, dev, card: str) -> dict:
+    """qwen2-moe-a2.7b, deepseek-v3-671b's dense MLA prefix and
+    recurrentgemma-9b at their published widths, depth cut as
+    ``FAMILY_TRAINING`` says, one after the other, each taking
+    FAMILY_STEPS AdamW steps (``make_train_step(donate=True)``, every
+    stacked block rematerialized) of the train CLI's ``MarkovTask`` at
+    ``--lr FAMILY_LR``: losses finite and falling, and step 1's batch's
+    loss after the run below its value at the initial params, every
+    gradient leaf finite, kernel 6's forward and backward on the
+    tensor-core route at the one shape each model trains at (the forward
+    twice for a stacked layer, once for a prefix or tail one), the repeat
+    step bit-equal; kernel 6's backward at that shape beside its plain
+    version, SDPA and its bound."""
+    return {arch: train_family(la, dev, card, arch, layers, batch, seq)
+            for arch, layers, batch, seq in FAMILY_TRAINING}
+
+
 # --- phase 7: the converter boundary -------------------------------------------
 
 
@@ -4451,16 +4753,41 @@ def main() -> int:
     print("phase 16c: one-card roofline rows against the card")
     roof = card_roofline(training, serving, card)
     print(f"  [{card}] phase wall {time.perf_counter() - t0:.2f} s")
+    print("phase 17: training the MoE, MLA and hybrid families")
+    t0 = time.perf_counter()
+    families = phase_family_training(la, dev, card)
+    print(f"  [{card}] phase wall {time.perf_counter() - t0:.2f} s")
+    for arch, run in families.items():
+        for name, k6 in run["kernel6_backward"].items():
+            rows.append({
+                "name": name, "route": "cuda", "source": ATTN_SOURCE,
+                "replaces": REPLACES["local_flash_attention_backward"],
+                "launches": k6["launches"],
+                **{k: k6["backward"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                **{k: k6[k] for k in ("shape", "lk", "dv", "dtype", "causal",
+                                      "window", "kernel_route", "shape_key",
+                                      "library_backend", "library_mask")},
+                "forward": {k: k6[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "forward_launches": run["forward_launches"]["tensor_core"],
+                "path": f"phase 17 training {arch}"})
     attn_row["launches_by_path"]["meshed_training"] = \
         meshed["launches"]["forward"]
     attn_row["launches_by_path"]["meshed_serving"] = \
         mesh_moe["launches"]["forward"]
+    attn_row["launches_by_path"]["family_training"] = sum(
+        run["forward_launches"]["tensor_core"] for run in families.values())
     attn_row["launches"] = sum(attn_row["launches_by_path"].values())
     attn_row["at_meshed_training"] = meshed["kernel6"]
     attn_row["at_meshed_serving"] = mesh_moe["kernel6"]
     bwd_row["launches_by_path"] = {
         "training": bwd_row["launches"],
-        "meshed_training": meshed["launches"]["backward"]}
+        "meshed_training": meshed["launches"]["backward"],
+        "family_training": sum(run["backward_launches"]["tensor_core"]
+                               for run in families.values())}
     bwd_row["launches"] = sum(bwd_row["launches_by_path"].values())
     print(json.dumps({"main_path": main_run}))
     print(json.dumps({"sharded": sharded}))
@@ -4475,6 +4802,7 @@ def main() -> int:
     print(json.dumps({"multimodal": mm}))
     print(json.dumps({"mesh": meshed, "dryrun": dryrun}))
     print(json.dumps({"mesh_serving": mesh_moe, "card_roofline": roof}))
+    print(json.dumps({"family_training": families}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

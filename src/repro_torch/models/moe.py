@@ -26,7 +26,13 @@ differ from jax's:
   order (and so a bf16 sum) changes from run to run; here each (token,
   j) gathers its slot's output (0 when dropped) and the k terms are
   summed in ascending expert order, the reference's order, the same bits
-  on every run;
+  on every run.  The backward is atomic-free too: ``torch.gather``'s
+  autograd is a ``scatter_add_``, so each gather with a gradient (the
+  slots' tokens, their router weights, the combine) is a
+  :class:`_Routed` map whose backward is the transposed map, a gather
+  that adds each row's readers in a fixed order (a token's k slots in
+  ascending expert order, as XLA's transpose of the reference's gather
+  adds them);
 * the sort and ``searchsorted`` are the stable and left-sided ones the
   reference calls.
 
@@ -125,7 +131,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor):
         functools.partial(_dispatch, s=s, e=e, cap=cap), (idx, top),
         (rows, rows), (rows, rows, rows))
     gx = on_local(functools.partial(_gather_slots, e=e, cap=cap),
-                  (x, slot_tok), (rows, rows), rows)       # (B,E,C,D)
+                  (x, slot_tok, slot_of, idx), (rows,) * 4, rows)  # (B,E,C,D)
     if m.shard_mode == "ep":
         gx = constrain(gx, ("pod", "data"), "model", None, None)
 
@@ -149,13 +155,9 @@ def _dispatch(idx: torch.Tensor, top: torch.Tensor, *, s: int, e: int,
     b, _, k = idx.shape
     dev = idx.device
     flat_e = idx.reshape(b, s * k)                        # expert of each slot
-    flat_t = torch.arange(s, device=dev).repeat_interleave(k).expand(b, -1)
-    flat_p = top.reshape(b, s * k)
 
-    order = torch.argsort(flat_e, dim=-1, stable=True)
+    order = torch.argsort(flat_e, dim=-1, stable=True)    # (token, j) = t*k+j
     se = torch.gather(flat_e, -1, order)
-    st = torch.gather(flat_t, -1, order)
-    sp = torch.gather(flat_p, -1, order)
     # position within expert segment
     starts = torch.searchsorted(
         se, torch.arange(e, device=dev).expand(b, -1).contiguous(),
@@ -164,25 +166,37 @@ def _dispatch(idx: torch.Tensor, top: torch.Tensor, *, s: int, e: int,
     keep = pos_in_e < cap
     dest = torch.where(keep, se * cap + pos_in_e, e * cap)  # overflow: E*C
 
-    # token and weight of each (expert, capacity) slot; S = padding token.
-    # Dropped slots all write the overflow slot (the same values), which is
+    # the (token, j) of each (expert, capacity) slot, S*k for an empty one.
+    # Dropped slots all write the overflow slot (the same value), which is
     # sliced off.
-    slot_tok = torch.full((b, e * cap + 1), s, dtype=torch.int64, device=dev)
-    slot_w = torch.zeros((b, e * cap + 1), dtype=torch.float32, device=dev)
-    slot_tok.scatter_(1, dest, torch.where(keep, st, s))
-    slot_w.scatter_(1, dest, torch.where(keep, sp, 0.0))
+    slot_src = torch.full((b, e * cap + 1), s * k, dtype=torch.int64,
+                          device=dev)
+    slot_src = slot_src.scatter_(1, dest, torch.where(keep, order, s * k))
+    slot_src = slot_src[:, :-1]
     # the slot of each (token, j), E*C where dropped; the inverse of
     # ``order`` is a permutation, so no two writes meet
     slot_of = torch.empty_like(dest).scatter_(1, order, dest)   # (B, S*k)
-    return slot_tok[:, :-1], slot_w[:, :-1], slot_of.reshape(b, s, k)
+    # each slot's weight, 0 for an empty one; its backward reads each
+    # (token, j)'s slot
+    slot_w = _Routed.apply(top.reshape(b, s * k, 1), slot_src[..., None],
+                           slot_of[..., None])[..., 0]
+    return slot_src // k, slot_w, slot_of.reshape(b, s, k)
 
 
-def _gather_slots(x: torch.Tensor, slot_tok: torch.Tensor, *, e: int,
+def _by_expert(slot_of: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The slots of each token (B, S, k) in ascending expert order (a
+    token's top-k experts are distinct), E*C for a dropped one."""
+    return torch.gather(slot_of, 2, torch.argsort(idx, dim=-1))
+
+
+def _gather_slots(x: torch.Tensor, slot_tok: torch.Tensor,
+                  slot_of: torch.Tensor, idx: torch.Tensor, *, e: int,
                   cap: int) -> torch.Tensor:
-    """The token of each slot, zeros for an empty one: (B, E, C, D)."""
+    """The token of each slot, zeros for an empty one: (B, E, C, D).  The
+    backward sums each token's k slot gradients in ascending expert order
+    (a dropped slot adds 0), with no atomics."""
     b, _, d = x.shape
-    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    gx = torch.gather(xp, 1, slot_tok[..., None].expand(b, e * cap, d))
+    gx = _Routed.apply(x, slot_tok[..., None], _by_expert(slot_of, idx))
     return gx.reshape(b, e, cap, d)
 
 
@@ -194,14 +208,55 @@ def _combine(eo: torch.Tensor, slot_of: torch.Tensor,
     expert.  The k terms are added one by one in ascending expert order,
     as the reference's scatter-add adds them (a token's top-k experts are
     distinct), so a low-precision sum has the reference's bits on every
-    call.  Returns (B, S, D)."""
-    b, s, k = idx.shape
-    d = eo.shape[-1]
-    eo = torch.cat([eo, eo.new_zeros((b, 1, d))], dim=1)
-    by_expert = torch.gather(slot_of, 2, torch.argsort(idx, dim=-1))
-    per_j = torch.gather(eo, 1, by_expert.reshape(b, s * k, 1).expand(
-        b, s * k, d)).reshape(b, s, k, d)
-    out = per_j[:, :, 0]
+    call.  The backward reads each slot's token gradient (0 for an empty
+    slot).  Returns (B, S, D)."""
+    by_expert = _by_expert(slot_of, idx)
+    return _Routed.apply(eo, by_expert, _readers(by_expert, eo.shape[1]))
+
+
+def _route(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """out[b, i] = src[b, index[b, i, 0]] + src[b, index[b, i, 1]] + ...,
+    added one by one in that order; an index of N (src's rows) reads a
+    zero row.  src: (B, N, D); index: (B, M, k).  Returns (B, M, D)."""
+    b, m, k = index.shape
+    d = src.shape[-1]
+    src = torch.cat([src, src.new_zeros((b, 1, d))], dim=1)
+    rows = torch.gather(src, 1, index.reshape(b, m * k, 1).expand(
+        b, m * k, d)).reshape(b, m, k, d)
+    out = rows[:, :, 0]
     for j in range(1, k):
-        out = out + per_j[:, :, j]
+        out = out + rows[:, :, j]
     return out
+
+
+def _readers(index: torch.Tensor, n: int) -> torch.Tensor:
+    """For an ``index`` (B, M, k) into n rows that reads each row at most
+    once: the row of ``index`` that reads each of the n rows, M where none
+    does, (B, n, 1).  Only reads of the zero row n meet, and it is sliced
+    off."""
+    b, m, k = index.shape
+    reader = torch.arange(m, device=index.device).repeat_interleave(k)
+    out = torch.full((b, n + 1), m, dtype=torch.int64, device=index.device)
+    out = out.scatter_(1, index.reshape(b, m * k), reader.expand(b, -1))
+    return out[:, :n, None]
+
+
+class _Routed(torch.autograd.Function):
+    """``_route(src, index)`` with the transposed map as its backward:
+    ``readers`` (B, N, k') lists, for each of src's N rows, the rows of
+    the output that read it (M, the output's zero row, for none), in the
+    order their gradients are to be added.  ``torch.gather``'s own
+    backward is a ``scatter_add_``, which on CUDA adds colliding rows with
+    atomics in an order that changes from run to run; this one is a
+    gather and adds in a fixed order, so the gradient has the same bits
+    on every run."""
+
+    @staticmethod
+    def forward(ctx, src, index, readers):
+        ctx.save_for_backward(index, readers)
+        return _route(src, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, readers = ctx.saved_tensors
+        return _Routed.apply(g, readers, index), None, None

@@ -85,7 +85,15 @@ def _whole(metrics: dict) -> dict:
 
 
 def make_train_step(model: LM, optimizer: Optimizer, *, accum_steps: int = 1,
-                    remat: bool = True) -> Callable:
+                    remat: bool = True, donate: bool = False) -> Callable:
+    """With ``donate`` the step takes over ``params`` and ``opt_state``, as
+    the reference's jitted step takes its donated buffers: it writes the
+    new ones into them (``optimizer.update_``, the same bits) and returns
+    them, so that a step holds one copy of the parameters and the state,
+    not two.  The caller must not read the old values after the call."""
+    if donate and optimizer.update_ is None:
+        raise ValueError("this optimizer has no donated update (update_)")
+
     def train_step(params, opt_state, batch, step: int):
         with mesh_ops():
             return _train_step(params, opt_state, batch, step)
@@ -107,10 +115,14 @@ def make_train_step(model: LM, optimizer: Optimizer, *, accum_steps: int = 1,
             grads = map_tree(lambda g: g / accum_steps, gsum)
             loss = lsum / accum_steps
             metrics = {}
-        updates, new_opt, opt_metrics = optimizer.update(
-            grads, opt_state, params, step)
-        del grads       # not needed beside the new parameters
-        new_params = apply_updates(params, updates)
+        if donate:
+            opt_metrics = optimizer.update_(grads, opt_state, params, step)
+            new_params, new_opt = params, opt_state
+        else:
+            updates, new_opt, opt_metrics = optimizer.update(
+                grads, opt_state, params, step)
+            del grads       # not needed beside the new parameters
+            new_params = apply_updates(params, updates)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

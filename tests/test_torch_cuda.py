@@ -894,6 +894,36 @@ def test_moe_combine_is_deterministic_on_the_card(cuda_device):
     assert bool(torch.isfinite(first).all())
 
 
+def test_moe_backward_is_bit_equal_on_the_card(cuda_device):
+    """Two backward passes of ``moe_apply`` at qwen2-moe-a2.7b's published
+    widths (60 experts of 1408, top 4, 4 shared, d_model 2048), bf16, 4 x
+    1024 tokens, give bit-equal gradients to x and every parameter: the
+    slot gathers' backward adds each token's slots in expert order, with
+    no atomics."""
+    from repro_torch.models.moe import moe_apply
+    cfg = dataclasses.replace(tcfgs.get_config("qwen2-moe-a2.7b"),
+                              n_layers=1)
+    params = compute_params(cfg, init_params(cfg, device=cuda_device))
+    p = {k: v[0].detach() for k, v in
+         params["stack"]["0_attn"]["mlp"].items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn((4, 1024, cfg.d_model), generator=gen,
+                    device=cuda_device, dtype=torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves_ = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in p.values()]
+        out, aux = moe_apply(cfg, dict(zip(p, leaves_[1:])), leaves_[0])
+        runs.append(torch.autograd.grad((out * g).float().sum() + aux,
+                                        leaves_))
+    for name, a, b in zip(["x", *p], *runs):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
+    assert float(runs[0][0].float().abs().max()) > 0
+
+
 def test_gqa_wrapper_gradient_reaches_q_k_v(cuda_device):
     q = torch.randn(2, 8, 333, 64, device=cuda_device, dtype=torch.bfloat16,
                     requires_grad=True)

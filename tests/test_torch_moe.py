@@ -20,7 +20,10 @@ drawn with numpy from a seed.  Tolerances, and why:
   to bf16 at its own places, so logits are held to the reference's own
   decode-equivalence bound, rtol/atol 5e-2 (``tests/test_models.py``);
 * greedy tokens and parameter counts: exactly equal (the engines in
-  float32, as ``test_torch_models.py`` explains).
+  float32, as ``test_torch_models.py`` explains);
+* the layer's gathers against ``torch.gather`` in the port alone:
+  forward and backward bit-equal (the fixed-order backward adds a
+  token's slots in the order the CPU's ``scatter_add_`` adds them).
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jcfgs
 from repro.models import LM as JLM
@@ -271,6 +275,139 @@ def test_combine_adds_in_expert_order():
     # the order matters: the other way round, token 0 would be 1 + 2^-7
     bf = torch.tensor([tiny, tiny, one], dtype=torch.bfloat16)
     assert float((bf[0] + bf[1]) + bf[2]) == 1.0078125
+
+
+def _routed(arch, cf, seed=1):
+    """(port cfg, the first stacked block's MoE params, x (2, 16, D) a
+    float32 leaf, top, idx and the dispatch (slot_tok, slot_w, slot_of) of
+    x through the router, the capacity)."""
+    _, tcfg, _, tb = _moe_layer(arch, cf)
+    x = _t(np.random.default_rng(seed).standard_normal(
+        (2, 16, tcfg.d_model))).requires_grad_()
+    top, idx, _ = tmoe._router(tcfg, tb, x)
+    cap = tmoe.capacity(tcfg, 16)
+    disp = tmoe._dispatch(idx, top, s=16, e=tcfg.moe.n_routed, cap=cap)
+    return tcfg, tb, x, top, idx, disp, cap
+
+
+def _gathered(src, index):
+    """``tmoe._route`` through ``torch.gather``, whose autograd is a
+    ``scatter_add_``: the rows of src (B, N, D) padded with a zero row at
+    index[b, i, j] (B, M, k), summed over j in that order."""
+    b, m, k = index.shape
+    d = src.shape[-1]
+    src = torch.cat([src, src.new_zeros((b, 1, d))], dim=1)
+    rows = torch.gather(src, 1, index.reshape(b, m * k, 1).expand(
+        b, m * k, d)).reshape(b, m, k, d)
+    out = rows[:, :, 0]
+    for j in range(1, k):
+        out = out + rows[:, :, j]
+    return out
+
+
+def _grad(out, leaf, seed):
+    g = _t(np.random.default_rng(seed).standard_normal(tuple(out.shape)))
+    return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cf", [None, 0.5, 0.25])
+def test_slot_gathers_backward_is_bit_equal_to_gathers_autograd(arch, cf):
+    """The MoE layer's three gathers with a gradient, the slots' tokens
+    (``_gather_slots``), their router weights (``_dispatch``) and the
+    combine, against ``torch.gather`` on the same indices in float32 on
+    the CPU: forward and backward bit-equal.  ``torch.gather``'s backward
+    is a ``scatter_add_``, which on the CPU adds a token's slots in slot
+    order, i.e. by ascending expert, the order the fixed-order backward
+    adds them in.  At capacity factor 1.25 (the configs') the rows have
+    empty slots; at 0.5 and 0.25 slots drop."""
+    tcfg, _, x, top, idx, (slot_tok, slot_w, slot_of), cap = _routed(arch, cf)
+    b, s, k = idx.shape
+    e = tcfg.moe.n_routed
+    dropped = int((slot_of == e * cap).sum())
+    empty = int((slot_tok == s).sum())
+    assert (dropped > 0) if cf is not None else (empty > 0 and dropped < 8)
+    by_expert = tmoe._by_expert(slot_of, idx)
+    # the slots' tokens
+    gx = tmoe._gather_slots(x, slot_tok, slot_of, idx, e=e, cap=cap)
+    want = _gathered(x, slot_tok[..., None]).reshape(gx.shape)
+    assert torch.equal(gx, want)
+    assert torch.equal(_grad(gx, x, 3), _grad(want, x, 3))
+    # the slots' weights: the (token, j) each slot holds, S*k when empty
+    src = torch.full((b, e * cap + 1), s * k)
+    src.scatter_(1, slot_of.reshape(b, s * k),
+                 torch.arange(s * k).expand(b, -1))
+    want_w = _gathered(top.reshape(b, s * k, 1), src[:, :-1, None])[..., 0]
+    assert torch.equal(slot_w, want_w)
+    assert torch.equal(_grad(slot_w, top, 4), _grad(want_w, top, 4))
+    # the combine, on outputs that depend on x
+    eo = (gx.reshape(b, e * cap, -1) * 1.5).detach().requires_grad_()
+    out = tmoe._combine(eo, slot_of, idx)
+    want_o = _gathered(eo, by_expert)
+    assert torch.equal(out, want_o)
+    assert torch.equal(_grad(out, eo, 5), _grad(want_o, eo, 5))
+
+
+class _AtenLog(TorchDispatchMode):
+    """Records every aten op with its arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ops.append((func, args, kwargs))
+        return func(*args, **kwargs)
+
+
+def _accumulating(ops) -> list[str]:
+    """The ops that add colliding writes: scatter_add, index_add,
+    scatter_reduce, scatter with a reduce, index_put with accumulate."""
+    hits = []
+    for func, args, kwargs in ops:
+        name = func._schema.name.split("::")[-1].rstrip("_")
+        if name in ("scatter_add", "index_add", "scatter_reduce"):
+            hits.append(str(func))
+        elif name == "scatter" and ("reduce" in kwargs
+                                    or "reduce" in func._overloadname):
+            hits.append(str(func))
+        elif name in ("index_put", "_index_put_impl") and kwargs.get(
+                "accumulate", len(args) > 3 and bool(args[3])):
+            hits.append(str(func))
+    return hits
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cf", [None, 0.25])
+def test_moe_backward_calls_no_accumulating_scatter(arch, cf):
+    """``moe_apply``'s backward (to x and every parameter, the router's
+    included) runs no ``scatter_add``, ``index_add``, ``scatter_reduce``
+    or ``index_put_(accumulate=True)``: the ops whose CUDA kernels add
+    colliding rows with atomics.  The recorder sees ``torch.gather``'s own
+    backward as a ``scatter_add``."""
+    tcfg, tb, x, *_ = _routed(arch, cf)
+    params = {k: v.detach().requires_grad_() for k, v in tb.items()}
+    out, aux = tmoe.moe_apply(tcfg, params, x)
+    loss = (out * _t(np.random.default_rng(6).standard_normal(
+        tuple(out.shape)))).sum() + aux
+    log = _AtenLog()
+    with log:
+        grads = torch.autograd.grad(loss, [x, *params.values()])
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads)
+    assert float(grads[0].abs().max()) > 0
+    assert float(grads[1 + list(params).index("router")].abs().max()) > 0
+    names = {str(f) for f, _, _ in log.ops}
+    assert any("gather" in n for n in names), names
+    assert _accumulating(log.ops) == []
+    # the recorder sees an accumulating scatter where one runs
+    probe = torch.zeros(3, 2, requires_grad=True)
+    picked = torch.gather(probe, 0, torch.tensor([[0, 1], [0, 0]]))
+    control = _AtenLog()
+    with control:
+        torch.autograd.grad(picked.sum(), probe)
+    assert _accumulating(control.ops)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

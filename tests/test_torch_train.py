@@ -284,6 +284,52 @@ def test_train_step_matches_reference(accum):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("arch,accum", [
+    ("stablelm-1.6b", 1), ("qwen2-moe-a2.7b", 2), ("recurrentgemma-9b", 1),
+    ("deepseek-v3-671b", 1)])
+def test_donated_step_is_bit_equal_to_the_pure_step(monkeypatch, arch, accum):
+    """``make_train_step(donate=True)`` writes the new parameters and
+    AdamW state into the old ones and returns those objects, with the
+    pure step's bits over three steps (at the CLI's schedule); with a
+    piece of 1000 elements, so that every large leaf is updated piece by
+    piece."""
+    from repro_torch.optim import base
+    monkeypatch.setattr(base, "CHUNK_ELEMENTS", 1000)
+    cfg = tcfgs.get_smoke_config(arch)
+    model = LM(cfg)
+    task = MarkovTask(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                      seed=0)
+    opt = adamw(lambda s: warmup_cosine(s, peak_lr=3e-3, warmup_steps=1,
+                                        total_steps=3))
+    runs = []
+    for donate in (False, True):
+        params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
+        state = opt.init(params)
+        step_fn = make_train_step(model, opt, accum_steps=accum,
+                                  donate=donate)
+        losses = []
+        for i in range(3):
+            new, new_state, metrics = step_fn(params, state,
+                                              task.batch(i, CPU), i)
+            assert (new is params and new_state is state) == donate
+            params, state = new, new_state
+            losses.append(float(metrics["loss"]))
+        runs.append((params, state, losses))
+    (p0, s0, l0), (p1, s1, l1) = runs
+    assert l0 == l1
+    assert any(p.numel() > 1000 for _, p in leaves(p0))
+    for (path, a), (_, b) in zip(leaves({"p": p0, "s": s0}),
+                                 leaves({"p": p1, "s": s1})):
+        assert torch.equal(a, b), "/".join(path)
+
+
+def test_donated_step_needs_a_donated_update():
+    from repro_torch.optim import adafactor
+    cfg = tcfgs.get_smoke_config("stablelm-1.6b")
+    with pytest.raises(ValueError):
+        make_train_step(LM(cfg), adafactor(1e-3), donate=True)
+
+
 def test_accumulated_gradients_match_the_full_batch():
     cfg = dataclasses.replace(tcfgs.get_smoke_config("stablelm-1.6b"),
                               dtype="float32")
