@@ -72,11 +72,11 @@ and read just after:
   cut to 5 of 61 layers (its 3 dense layers and 2 MoE ones of 256
   experts top-8, MLA; 53.3 GB), one at a time, each serving the serving
   path's 8 requests with aux fft frames, every prefill's attention on
-  kernel 6's tensor-core route (D 128; MLA at D 192 with V padded from
-  128), tokens against an offline greedy loop, the share of routed slots
-  each prefill drops for capacity; kernel 6 at each model's prefill
-  shape against its plain version, forward and backward, and V narrower
-  than q and k in f32 and bf16;
+  kernel 6's tensor-core route (D 128; MLA at D 192 with V of 128
+  columns, unpadded), tokens against an offline greedy loop, the share
+  of routed slots each prefill drops for capacity; kernel 6 at each
+  model's prefill shape against its plain version, forward and
+  backward, and V narrower than q and k in f32 and bf16;
 * the encoder-decoder and vision families at full width and depth:
   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 8.16 GB of
   float32 weights) and llava-next-34b (60 layers, 68.9 GB of bf16), one
@@ -145,6 +145,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -311,16 +312,23 @@ def is_kernel6(name: str) -> bool:
 
 def ptxas_report(log: str, kernels: tuple[str, ...]) -> list[dict]:
     """Registers and spill bytes of the named kernels (each template
-    instance, with its head dim ``d`` where it has one), from the
-    compiler's ``-Xptxas -v`` report of their library."""
+    instance, with its head dim ``d`` and V width ``dv`` where it has
+    them: the first two integer template arguments), from the compiler's
+    ``-Xptxas -v`` report of their library."""
     rows, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = next(({"kernel": k, "entry": name,
-                           "d": (int(name.split(k + "ILi")[1].split("E")[0])
-                                 if k + "ILi" in name else None)}
-                          for k in kernels if k in name), None)
+            entry = None
+            for k in kernels:
+                if k not in name:
+                    continue
+                ints = [int(x) for x in re.findall(
+                    r"Li(\d+)E", name.split(k, 1)[1].split("EE")[0] + "E")]
+                entry = {"kernel": k, "entry": name,
+                         "d": ints[0] if ints else None,
+                         "dv": ints[1] if len(ints) > 1 else None}
+                break
         elif entry is not None and "spill stores" in line:
             words = line.replace(",", "").split()
             entry["spill_bytes"] = (int(words[words.index("spill") - 2]) +
@@ -328,6 +336,8 @@ def ptxas_report(log: str, kernels: tuple[str, ...]) -> list[dict]:
         elif entry is not None and "Used" in line and "registers" in line:
             words = line.replace(",", "").split()
             entry["registers"] = int(words[words.index("registers") - 1])
+            entry["stack_bytes"] = (int(words[words.index("cumulative") - 2])
+                                    if "cumulative" in words else 0)
             rows.append(entry)
             entry = None
     return rows
@@ -1353,14 +1363,16 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
                    backward: bool = False) -> dict:
     """Kernel 6 at one (1, h, l, d) bf16 attention on hkv KV heads of
     ``lk`` keys (l when None; Lq != Lk only without ``causal``, whose
-    masks assume aligned positions), V of ``dv`` columns (d when None; the
-    wrapper pads V to d on the card): held to its plain version (forward
-    at rtol 1e-2 / atol 1e-3, the backward within 2e-2 * max|plain| and
-    bit-equal on a repeat), then timed beside the plain version and one
+    masks assume aligned positions), V of ``dv`` columns (d when None;
+    the tensor-core route takes it unpadded, which the launch's shape key
+    must show): held to its plain version (forward at rtol 1e-2 / atol
+    1e-3, the backward within 2e-2 * max|plain| and bit-equal on a
+    repeat), then timed beside the plain version and one
     ``scaled_dot_product_attention(..., is_causal=causal,
     enable_gqa=True)`` call (the library yardstick; the port never calls
     it), with the bound from this shape's visible pairs and its true V
-    width."""
+    width.  At Dv < D the backward is timed through the wrapper
+    (``autograd.grad``, as PR 30 timed it) and as the direct launch."""
     import torch.nn.functional as F
     lk = l if lk is None else lk
     check(lk == l or not causal, "a causal case needs Lq == Lk")
@@ -1375,12 +1387,15 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
     want = la.local_flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    key = la.shape_key(h, hkv, l, lk, d, causal, window, dv)
     check(la.local_flash_attention.launches_by_route ==
           {"tensor_core": 1, "fma": 0} and got.shape == want.shape
+          and la.local_flash_attention.launches_by_shape == {key: 1}
           and max_violation(got.float(), want.float(), 1e-2, 1e-3) <= 0.0,
           f"attention ({h}/{hkv}, {l}, Lk {lk}, {d}, Dv {dv}) bf16: route "
-          f"{la.local_flash_attention.launches_by_route}, max |err| "
-          f"{err:.3e} outside rtol 1e-2 / atol 1e-3")
+          f"{la.local_flash_attention.launches_by_route}, shapes "
+          f"{la.local_flash_attention.launches_by_shape} (want {key}), max "
+          f"|err| {err:.3e} outside rtol 1e-2 / atol 1e-3")
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
     scale = d ** -0.5
     kern = lambda: la.local_flash_attention(q, k, v, **kw)
@@ -1413,19 +1428,16 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
                             else "causal" if causal else "no"),
            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
            "bytes": nbytes}
-    if dv != d:   # the work the kernel does on V padded to d columns
-        row["padded_bound_ms"] = bound(4 * vis * h * d,
-                                       4 * (l * h + lk * hkv) * d)[0]
     row["library_backend"], row["library_kernels"] = sdpa_backend(lib)
     if backward:
         dout = torch.from_numpy(rng.standard_normal(want.shape).astype(
             np.float32)).to(device=dev, dtype=torch.bfloat16)
-        if dv == d:
-            out, lse = la._forward(q, k, v, scale, window, causal, g,
-                                   with_lse=True)
-            kern_b = lambda: la._backward(q, k, v, out, lse, dout, scale,
-                                          window, causal, g)
-        else:   # through the wrapper, which pads V and slices the output
+        out, lse = la._forward(q, k, v, scale, window, causal, g,
+                               with_lse=True)
+        direct_b = lambda: la._backward(q, k, v, out, lse, dout, scale,
+                                        window, causal, g)
+        kern_b = direct_b
+        if dv != d:   # through the wrapper's autograd, as PR 30 timed it
             qk, kk, vk = (x.detach().requires_grad_() for x in (q, k, v))
             k_out = la.local_flash_attention(qk, kk, vk, **kw)
             kern_b = lambda: torch.autograd.grad(k_out, (qk, kk, vk), dout,
@@ -1471,6 +1483,8 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
             "plain_ms": statistics.mean((tb[1], tb[2])),
             "library_ms": median_ms(lib_b), "bound_ms": bb_ms,
             "bound_by": bb_by}
+        if dv != d:
+            row["backward"]["direct_ms"] = median_ms(direct_b)
     print(f"  kernel 6 at ({h} q / {hkv} KV heads, L {l}"
           f"{f', Lk {lk}' if lk != l else ''}, D {d}"
           f"{f', Dv {dv}' if dv != d else ''}) bf16 "
@@ -1479,14 +1493,16 @@ def attention_case(la, dev, h: int, hkv: int, l: int, d: int, *,
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
           f"{row['library_ms']:.4f} ({row['library_backend']}, "
           f"{row['library_mask']} mask), bound {b_ms:.4f} ({b_by})"
-          + (f", padded {row['padded_bound_ms']:.4f}" if dv != d else "")
           + f"; max |err| "
           f"{err:.3e}" + ("" if not backward else
                           f"; backward {row['backward']['ms']:.4f} ms, plain "
                           f"{row['backward']['plain_ms']:.4f}, SDPA "
                           f"{row['backward']['library_ms']:.4f} "
                           f"({row['library_backend']}), bound "
-                          f"{bb_ms:.4f} ({bb_by})"))
+                          f"{bb_ms:.4f} ({bb_by})"
+                          + (f", direct launch "
+                             f"{row['backward']['direct_ms']:.4f}"
+                             if dv != d else "")))
     return row
 
 
@@ -2199,11 +2215,13 @@ def drop_shares(moe, model, params, prompts, dev,
 
 def check_attention_dv(la, dev) -> float:
     """Kernel 6 with V narrower than q and k (``DV_CASES``) against its
-    plain version on the card, through the wrapper (which pads V to D and
-    slices the output back): the forward at 2e-5 in f32 and rtol 1e-2 /
-    atol 1e-3 in bf16, the gradients within 1e-4 (f32) and 2e-2 (bf16) of
-    max|plain|, each launch on its route, and dV of the caller's Dv
-    columns.  Returns the max forward |err| in f32."""
+    plain version on the card, through the wrapper (which takes Dv as it
+    is on the tensor-core route and pads V to D on the FMA route): the
+    forward at 2e-5 in f32 and rtol 1e-2 / atol 1e-3 in bf16, the
+    gradients within 1e-4 (f32) and 2e-2 (bf16) of max|plain|, each
+    launch on its route at the width ``launch_dv`` gives (the launch
+    counts by shape: no pad on the tensor-core route), and out and dV of
+    the caller's Dv columns.  Returns the max forward |err| in f32."""
     rng = np.random.default_rng(SEED + 11)
     err_f32 = 0.0
     for h, hkv, l, d, dv, dtype, causal in DV_CASES:
@@ -2224,6 +2242,16 @@ def check_attention_dv(la, dev) -> float:
               and la.local_flash_attention.backward_launches_by_route[path]
               == 1, f"attention Dv {dv} < D {d} {dtype}: not launched on "
               f"{path}: {la.local_flash_attention.launches_by_route}")
+        width = la.launch_dv(dtype, d, dv)
+        key = la.shape_key(h, hkv, l, l, d, causal, 0, width)
+        check((width == dv) == (path == "tensor_core")
+              and la.local_flash_attention.launches_by_shape == {key: 1}
+              and la.local_flash_attention.backward_launches_by_shape
+              == {key: 1},
+              f"attention Dv {dv} < D {d} {dtype}: launched at "
+              f"{la.local_flash_attention.launches_by_shape} and "
+              f"{la.local_flash_attention.backward_launches_by_shape}, want "
+              f"{key} (V {'unpadded' if width == dv else 'padded'})")
         check(got[0].shape == (h, l, dv) and got[3].shape == v.shape,
               f"attention Dv {dv} < D {d}: out {tuple(got[0].shape)}, dv "
               f"{tuple(got[3].shape)}")
@@ -2244,10 +2272,11 @@ def check_attention_dv(la, dev) -> float:
         if f32:
             err_f32 = max(err_f32, err)
     print(f"  kernel 6 at Dv < D: {len(DV_CASES)} cases ok (f32 on the FMA "
-          "route at 2e-5 forward and 1e-4 * max|plain| backward, max "
-          f"forward |err| {err_f32:.3e}; bf16 at D 192 / Dv 128 with GQA on "
-          "the tensor-core route at 1e-2 / 1e-3 and 2e-2 * max|plain|); "
-          "out and dV have the caller's Dv columns")
+          "route, V padded to D, at 2e-5 forward and 1e-4 * max|plain| "
+          f"backward, max forward |err| {err_f32:.3e}; bf16 at D 192 / Dv "
+          "128 with GQA on the tensor-core route, V unpadded, at 1e-2 / "
+          "1e-3 and 2e-2 * max|plain|); out and dV have the caller's Dv "
+          "columns")
     return err_f32
 
 
@@ -2652,7 +2681,7 @@ def held_at_path(la, by_shape: dict, cases: dict, what: str) -> dict:
     for name, (row, want) in cases.items():
         h, hkv, l, d = row["shape"]
         key = la.shape_key(h, hkv, l, row["lk"], d, row["causal"],
-                           row["window"])
+                           row["window"], row["dv"])
         rows[name] = {**row, "shape_key": key,
                       "launches": by_shape.get(key, 0),
                       "launches_want": want}
@@ -3522,7 +3551,7 @@ def train_family(la, dev, card: str, arch: str, layers: int, batch: int,
           f"{arch} training: kernel 6 forward {fwd}, backward {bwd}, want "
           f"{n_fwd} and {n} on the tensor-core route")
     h, hkv = batch * cfg.n_heads, batch * cfg.n_kv_heads
-    key = la.shape_key(h, hkv, seq, seq, d, True, cfg.local_window)
+    key = la.shape_key(h, hkv, seq, seq, d, True, cfg.local_window, dv)
     check(bwd_by_shape == {key: n} and fwd_by_shape == {key: n_fwd},
           f"{arch} training: kernel 6 forward at {fwd_by_shape}, backward at "
           f"{bwd_by_shape}, want {n_fwd} and {n} at {key}")
@@ -4562,10 +4591,13 @@ def main() -> int:
         print("  " + build.build_log(stem).strip().replace("\n", "\n  "))
     tc_build = ptxas_report(build.build_log("local_attention"), TC_KERNELS)
     for r in tc_build:
-        print(f"  ptxas: {r['kernel']}<{r['d']}>: {r['registers']} registers, "
-              f"{r['spill_bytes']} bytes spilled")
-    check(sorted((r["kernel"], r["d"]) for r in tc_build) ==
-          sorted((k, d) for k in TC_KERNELS for d in TC_HEAD_DIMS)
+        print(f"  ptxas: {r['kernel']}<{r['d']}, {r['dv']}>: "
+              f"{r['registers']} registers, {r['spill_bytes']} bytes "
+              f"spilled, {r['stack_bytes']} bytes of stack")
+    # every kernel at every (D, Dv <= D) of the route
+    check(sorted((r["kernel"], r["d"], r["dv"]) for r in tc_build) ==
+          sorted((k, d, dv) for k in TC_KERNELS for d in TC_HEAD_DIMS
+                 for dv in TC_HEAD_DIMS if dv <= d)
           and all(r["spill_bytes"] == 0 for r in tc_build),
           f"kernel 6's tensor-core kernels spill or are missing: {tc_build}")
     fma_build = ptxas_report(build.build_log("local_attention"),
@@ -4765,7 +4797,7 @@ def main() -> int:
                 "launches": k6["launches"],
                 **{k: k6["backward"][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")},
+                    "library_ms", "direct_ms") if k in k6["backward"]},
                 **{k: k6[k] for k in ("shape", "lk", "dv", "dtype", "causal",
                                       "window", "kernel_route", "shape_key",
                                       "library_backend", "library_mask")},

@@ -94,6 +94,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// Named barriers between warpgroups: ``n`` threads in all take part; the
+// arriving side does not wait, and its shared-memory writes before the
+// arrive are seen by the side that syncs.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
 // A wgmma shared-memory descriptor for a tile written by TMA with the
 // 128-byte swizzle: 128-byte rows (64 bf16 or 32 fp32), 8-row groups 1024
 // bytes apart (the stride byte offset).  A K-major operand steps along its
@@ -151,6 +161,16 @@ cudaError_t opt_in_smem(size_t smem) {
     opted_in[device].store(true, std::memory_order_relaxed);
   }
   return cudaSuccess;
+}
+
+// Makes the current device's primary context current on the calling
+// thread.  cuTensorMapEncodeTiled needs a current context, and a thread
+// that has made no runtime call that binds one, such as autograd's
+// backward worker, has none (CUDA_ERROR_INVALID_CONTEXT).
+inline cudaError_t bind_primary_context() {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  return err != cudaSuccess ? err : cudaSetDevice(device);
 }
 
 // cuTensorMapEncodeTiled, looked up at run time so that the library needs

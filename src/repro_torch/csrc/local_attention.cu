@@ -52,13 +52,9 @@
 //   compile without masks.  The TMA descriptors are 3-D, (D, L, heads),
 //   so the ragged last key tile of a head reads zeros, never the next
 //   head's keys; keys past Lk are still masked, since a zero key scores
-//   0, not -1e30.  The backward keeps the FMA route's structure (below)
-//   with every product on mma.sync.m16n8k16 bf16: operands through
-//   ldmatrix (.trans where a tile serves in the other role) from padded
-//   shared tiles, the streamed tiles double-buffered with cp.async, P
-//   and dS split hi/lo as in the forward.  Above D 128 its accumulators
-//   (dK and dV, 2 x 64 x D fp32 a CTA) would not fit 128 threads'
-//   registers, so eight warps split the columns (tcb_splits).
+//   0, not -1e30.  V, O and their products run at V's own width DV (64
+//   up to D in steps of 64: MLA's 128 at D 192), D / 64 and DV / 64
+//   sub-tiles alike.  The backward is built the same way (below).
 // * The FMA route (float32 and float16 at every head dim, bf16 at the
 //   rest): every product is an fp32 FMA on the CUDA cores
 //   (67 TFLOP/s peak), so that it meets the reference's f32 bound
@@ -104,7 +100,7 @@
 //
 // The backward (the JAX reference has none: it trains through its chunked
 // jnp path) is the standard recompute design, in three kernels:
-//   1. delta[bh, i] = sum_d dO . O per row (one warp per row);
+//   1. delta[bh, i] = sum_c dO . O per row (one warp per row);
 //   2. dK and dV: one block per (KV head, key tile).  It loops over the
 //      query tiles of every query head of its group that can see the tile,
 //      recomputes P = exp(s - lse), dP = dO . V and dS = P (dP - delta),
@@ -112,18 +108,76 @@
 //      over the group needs no atomics;
 //   3. dQ: one block per (batch*head, query tile), looping over the key
 //      tiles the forward visits, dQ += dS K.
-// The masks, the tile skips and the ragged edges are the forward's.  On
-// the FMA route all products are fp32 FMA, so the f32 path meets the
-// reference's f32 bounds; gradients are stored in the operands' dtype.
-// There are no float atomics and every sum has a fixed order, so the
-// backward is bit-for-bit deterministic.  It does 2.5x the forward's
-// products in the algorithm, and 3.5x here (S is recomputed in kernels 2
-// and 3); its bound is set out in chip_smoke.py.
+// The masks, the tile skips and the ragged edges are the forward's.  There
+// are no float atomics and every sum has a fixed order, so the backward is
+// bit-for-bit deterministic.  On the FMA route all products are fp32 FMA,
+// so the f32 path meets the reference's f32 bounds; gradients are stored
+// in the operands' dtype.
 //
+// On the tensor-core route kernels 2 and 3 take the forward's machinery:
+// TMA loads (3-D maps, so a head's ragged last tile reads zeros) of the
+// CTA's resident tiles once (K and V; Q and dO) and of the rest into a
+// ring of 2 to 4 stages (as many as fit, tcb_stages) with full and empty
+// mbarriers (Q and dO; K and V), and every product on wgmma from the
+// 128-byte swizzled tiles: S^T = K Q^T and dP^T = V dO^T (S and dP in
+// kernel 3) with both operands in shared memory, dV += P^T dO,
+// dK += dS^T Q and dQ += dS K with P or dS from registers (the
+// accumulator's layout read as A fragments, as the forward's P V) and
+// dO, Q or K as the MN-major operand.  The lse and delta rows are read
+// from global memory by the threads that need them, while a product
+// runs: a head's rows start at any 4-byte offset, and a TMA box must
+// start 16-byte aligned.  What bounds it: a visible pair costs
+// 2 (3D + 2DV) FLOP in the algorithm, and an MLA step at
+// (256 / 256, 1024, 192, Dv 128) is 2.2e11 FLOP against 0.67 GB (the
+// inputs, out, dout and lse read, the gradients written), 226 us against
+// 201 us at the card's rates, so the tensor rate bounds every training
+// shape, if narrowly (D 64: 43 us against 40 us at (128, 1024, 64)).
+// What the design does about it:
+// * No product is computed twice in a CTA.  The dK/dV kernel's 64 x D
+//   and 64 x DV fp32 accumulators would not both fit one warpgroup's
+//   registers above D 128, so its two warpgroups own the same 64 keys and
+//   split by role: warpgroup 0 computes S^T and P^T, passes P^T through
+//   shared memory in fp32 (two 16 KB buffers, so that it may run a step
+//   ahead; named barriers say written and read) and keeps dV; warpgroup 1
+//   computes dP^T and dS^T and keeps dK.  The two roles' products
+//   balance: D + 2DV against DV + 2D.  The dQ kernel gives each
+//   warpgroup 64 query rows, so S and dP are computed once in it;
+//   kernels 2 and 3 each recompute S and dP, as the recompute design
+//   does.
+// * Registers set the CTAs' shapes (tcb_q_consumers): at D 256 a thread
+//   of the dK role holds 128 fp32 of dK beside 64 x 64 scores and their
+//   hi/lo halves, about 200 registers, and a dQ thread at D 192 as many.
+//   ptxas compiles three warpgroups (or two and a producer warp, which it
+//   counts as three) at 168 registers a thread, and setmaxnreg moves
+//   registers at run time without letting ptxas allocate more, so the
+//   dK/dV kernel is two warpgroups (up to 255 registers) whose loads one
+//   thread of warpgroup 1 issues, refilling a stage once both have
+//   released it; the dQ kernel keeps a producer warp beside one consumer
+//   warpgroup (two at D 128).  At D 64 two CTAs of each kernel share an
+//   SM.  No kernel spills.
+// * P and dS are not bf16, so each is split into bf16 hi and lo, two
+//   products into one fp32 accumulator, as in the forward: the kernels do
+//   6D + 4DV products a visible pair against the bound's 3D + 2DV, so
+//   twice the bound is the least they could take (MLA's 0.45 ms at the
+//   shape above; 0.087 ms at (64 / 64, 1024, 128) and at (128, 1024, 64);
+//   1.04 ms at (32 / 2, 4096, 256) window 2048).  P^T crosses shared
+//   memory in fp32, so P and dS are rounded only by that split.
+// * The scores take the exp2 domain and interior tiles compile without
+//   masks, as in the forward; the ring's loads are in flight while the
+//   products run, so a warpgroup waits on a barrier only when it runs
+//   dry.
+// * What it leaves: each step's products wait on the one before within a
+//   warpgroup (a wgmma group, then the softmax or dS on its result, then
+//   the next group), so at small D a step is short and its latencies, not
+//   the tensor rate, set its time; and a CTA's key tile walks its query
+//   tiles alone, so a shape with few KV heads and long keys (GQA at batch
+//   1) fills few SMs.
+
 // C ABI: each entry point launches on the given stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().  It launches on the
 // calling thread's current device, which the Python wrapper selects; it
-// never changes it.
+// never changes it (the tensor-core route binds that device's primary
+// context to the thread, which encoding a TMA map needs).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -766,15 +820,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory of the forward, in bytes from a 1024-aligned base.  Each
-// tile is stored as D/64 sub-tiles of [rows][64] bf16, 128-byte swizzled.
-template <int D>
+// tile is stored as D/64 (V: DV/64) sub-tiles of [rows][64] bf16,
+// 128-byte swizzled.
+template <int D, int DV>
 struct TcFwdSmem {
   static constexpr int Q_BYTES = tc_bm(D) * D * 2;
-  static constexpr int KV_BYTES = TC_BN * D * 2;          // one K or V tile
+  static constexpr int K_BYTES = TC_BN * D * 2;           // one K tile
+  static constexpr int V_BYTES = TC_BN * DV * 2;          // one V tile
   static constexpr int Q = 0;
   static constexpr int K = Q + Q_BYTES;                    // K[stage]
-  static constexpr int V = K + TC_STAGES * KV_BYTES;       // V[stage]
-  static constexpr int BAR = V + TC_STAGES * KV_BYTES;     // q, full, empty
+  static constexpr int V = K + TC_STAGES * K_BYTES;        // V[stage]
+  static constexpr int BAR = V + TC_STAGES * V_BYTES;      // q, full, empty
   static constexpr int BYTES = BAR + 8 * (1 + 2 * TC_STAGES) + 1024;
 };
 
@@ -826,7 +882,7 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(tc_threads(D), 1)
 attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -834,10 +890,11 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                     int lq, int lk, int kv_groups, float scale, int causal,
                     int window) {
-  using L = TcFwdSmem<D>;
+  using L = TcFwdSmem<D, DV>;
   constexpr int BN = TC_BN;
   constexpr int NS = BN / 2;                // S registers a thread
-  constexpr int SUBS = D / 64;              // 64-column sub-tiles
+  constexpr int SUBS = D / 64;              // 64-column sub-tiles of Q, K
+  constexpr int VSUBS = DV / 64;            // of V and O
   constexpr int CONS = tc_consumers(D);
   constexpr int BM = tc_bm(D);
   extern __shared__ unsigned char smem_raw[];
@@ -880,15 +937,14 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % TC_STAGES, n = t / TC_STAGES;
         if (n > 0) mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_BYTES);
+        mbar_expect_tx(bar_full + 8 * s, L::K_BYTES + L::V_BYTES);
         const int k0 = k_begin + t * BN;
-        for (int h = 0; h < SUBS; ++h) {
-          const uint32_t off = s * L::KV_BYTES + h * BN * 128;
-          tma_load_3d(base + L::K + off, &tm_k, bar_full + 8 * s, h * 64, k0,
-                      g);
-          tma_load_3d(base + L::V + off, &tm_v, bar_full + 8 * s, h * 64, k0,
-                      g);
-        }
+        for (int h = 0; h < SUBS; ++h)
+          tma_load_3d(base + L::K + s * L::K_BYTES + h * BN * 128, &tm_k,
+                      bar_full + 8 * s, h * 64, k0, g);
+        for (int h = 0; h < VSUBS; ++h)
+          tma_load_3d(base + L::V + s * L::V_BYTES + h * BN * 128, &tm_v,
+                      bar_full + 8 * s, h * 64, k0, g);
       }
     }
   } else {
@@ -905,9 +961,9 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t q_tile = base + L::Q + 64 * wg * 128;
     const float scale_log2 = scale * LOG2E;
 
-    float o[SUBS][32];
+    float o[VSUBS][32];
 #pragma unroll
-    for (int h = 0; h < SUBS; ++h)
+    for (int h = 0; h < VSUBS; ++h)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[h][i] = 0.0f;
     float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};   // m in the log2 domain
@@ -917,8 +973,8 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % TC_STAGES, n = t / TC_STAGES;
       const int k0 = k_begin + t * BN;
-      const uint32_t k_tile = base + L::K + s * L::KV_BYTES;
-      const uint32_t v_tile = base + L::V + s * L::KV_BYTES;
+      const uint32_t k_tile = base + L::K + s * L::K_BYTES;
+      const uint32_t v_tile = base + L::V + s * L::V_BYTES;
       mbar_wait(bar_full + 8 * s, n & 1);
 
       // S = Q K^T over D in steps of 16.
@@ -949,7 +1005,7 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         online_softmax<false, NS>(sc, m, l, alpha, scale_log2, row0, k0,
                                   col0, lq, lk, causal, window);
 #pragma unroll
-      for (int h = 0; h < SUBS; ++h)
+      for (int h = 0; h < VSUBS; ++h)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[h][i] *= alpha[(i >> 1) & 1];
 
@@ -967,14 +1023,14 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // O += P_hi V + P_lo V over the tile's keys in steps of 16.
 #pragma unroll
-      for (int h = 0; h < SUBS; ++h) fence_regs<32>(o[h]);
+      for (int h = 0; h < VSUBS; ++h) fence_regs<32>(o[h]);
       fence_regs<BN / 4>(&phi[0][0]);
       fence_regs<BN / 4>(&plo[0][0]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-        for (int h = 0; h < SUBS; ++h) {
+        for (int h = 0; h < VSUBS; ++h) {
           const uint64_t dv = sw128_desc(
               v_tile + h * BN * 128 + kk * 16 * 128, 1024);
           wgmma_rs_n64_tb(o[h], phi[kk], dv);
@@ -983,7 +1039,7 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int h = 0; h < SUBS; ++h) fence_regs<32>(o[h]);
+      for (int h = 0; h < VSUBS; ++h) fence_regs<32>(o[h]);
       fence_regs<BN / 4>(&phi[0][0]);
       fence_regs<BN / 4>(&plo[0][0]);
 
@@ -998,9 +1054,9 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qi = row0 + 8 * r;
       if (qi >= lq) continue;
       const float inv = 1.0f / fmaxf(l[r], 1e-20f);
-      __nv_bfloat16* dst = out + (bh_rows + qi) * D;
+      __nv_bfloat16* dst = out + (bh_rows + qi) * DV;
 #pragma unroll
-      for (int h = 0; h < SUBS; ++h)
+      for (int h = 0; h < VSUBS; ++h)
 #pragma unroll
         for (int c = 0; c < 8; ++c)
           store_bf16x2(dst + 64 * h + 8 * c + col0,
@@ -1014,335 +1070,473 @@ attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // --- the tensor-core route: backward ------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+constexpr int TCB_BQ = 64;          // queries a dK/dV step
+constexpr int TCB_BN = 64;          // keys a dK/dV CTA owns, and a dQ step
+constexpr int SMEM_OPTIN = 232448;  // shared memory a block may opt in to
+
+// The depth of a backward kernel's ring: as many stages of ``stage``
+// bytes as fit beside ``fixed`` bytes of resident tiles in an SM's share
+// of ``ctas`` CTAs, 2 to 4.  The small head dims' steps are short, so
+// more loads in flight cover their latency; at D 256 two stages are all
+// that fit.
+__host__ __device__ constexpr int tcb_stages(int fixed, int stage, int ctas) {
+  const int n = (SMEM_OPTIN / ctas - 2048 - fixed) / stage;
+  return n < 2 ? 2 : (n > 4 ? 4 : n);
+}
+// The backward's CTA shapes follow the registers a thread needs (the
+// note's "Registers set the CTAs' shapes"): dK/dV is two warpgroups of up
+// to 255 registers, one thread of the dK warpgroup loading; dQ is a
+// producer warp beside one consumer warpgroup of 64 query rows (160
+// threads, up to 255 registers), or two at D 128 (288 threads, which
+// ptxas compiles at 168, enough for 64 fp32 of dQ beside S and dP).  At
+// D 64 a thread of either needs under 128 registers, so two CTAs fit an
+// SM and hide each other's short steps.
+constexpr int TCB_KV_THREADS = 2 * 128;
+__host__ __device__ constexpr int tcb_kv_ctas(int d) {
+  return d == 64 ? 2 : 1;
+}
+__host__ __device__ constexpr int tcb_q_consumers(int d) {
+  return d == 128 ? 2 : 1;
+}
+__host__ __device__ constexpr int tcb_q_ctas(int d) {
+  return d == 64 ? 2 : 1;
+}
+__host__ __device__ constexpr int tcb_q_bm(int d) {  // queries a dQ CTA
+  return 64 * tcb_q_consumers(d);
+}
+__host__ __device__ constexpr int tcb_q_threads(int d) {
+  return 128 * tcb_q_consumers(d) + 32;
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+// Shared memory of the dK/dV kernel, in bytes from a 1024-aligned base:
+// the CTA's K and V tiles, two buffers of P^T on its way from the dV
+// warpgroup to the dK warpgroup (fp32, [32 elements][128 threads], so
+// that each thread's element i is one conflict-free row; two, so that
+// the dV warpgroup may run a step ahead), and the ring of Q and dO.
+template <int D, int DV>
+struct TcbKvSmem {
+  static constexpr int Q_BYTES = TCB_BQ * D * 2;           // one Q tile
+  static constexpr int DO_BYTES = TCB_BQ * DV * 2;         // one dO tile
+  static constexpr int PT_BYTES = TCB_BN * TCB_BQ * 4;      // one P^T
+  static constexpr int ST =
+      tcb_stages(TCB_BN * (D + DV) * 2 + 2 * PT_BYTES, Q_BYTES + DO_BYTES,
+                 tcb_kv_ctas(D));
+  static constexpr int K = 0;
+  static constexpr int V = K + TCB_BN * D * 2;
+  static constexpr int PT = V + TCB_BN * DV * 2;            // P^T[2]
+  static constexpr int Q = PT + 2 * PT_BYTES;               // Q[stage]
+  static constexpr int DO = Q + ST * Q_BYTES;               // dO[stage]
+  static constexpr int BAR = DO + ST * DO_BYTES;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST) + 1024;
+  static_assert(BYTES <= SMEM_OPTIN, "shared memory");
+};
 
-// c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared memory of the dQ kernel: the CTA's Q and dO tiles, and the ring
+// of K and V tiles.
+template <int D, int DV>
+struct TcbQSmem {
+  static constexpr int BM = tcb_q_bm(D);
+  static constexpr int K_BYTES = TCB_BN * D * 2;
+  static constexpr int V_BYTES = TCB_BN * DV * 2;
+  static constexpr int ST = tcb_stages(BM * (D + DV) * 2, K_BYTES + V_BYTES,
+                                       tcb_q_ctas(D));
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + BM * D * 2;
+  static constexpr int K = DO + BM * DV * 2;                // K[stage]
+  static constexpr int V = K + ST * K_BYTES;                // V[stage]
+  static constexpr int BAR = V + ST * V_BYTES;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * ST) + 1024;
+  static_assert(BYTES <= SMEM_OPTIN, "shared memory");
+};
 
-// 16 bytes (or 4) from global to shared, zeros where ``in`` is false.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prev() {   // all but the last
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + rows) of a (.., L, D) bf16 plane into a padded shared
-// tile [rows][D + 8], zeros past row ``limit``; all ``THREADS`` threads.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* plane, int r0,
-                                          int limit) {
-  constexpr int CHUNKS = D / 8;            // 16-byte chunks per row
+// acc (64 x 64 fp32, the wgmma accumulator of a warpgroup) as the A
+// fragments of four k16 steps, split hi/lo: step kk's registers are
+// (chunk 2 kk, rows r / r + 8), (chunk 2 kk + 1, rows r / r + 8).
+__device__ __forceinline__ void acc_to_a(const float* acc, uint32_t (*hi)[4],
+                                         uint32_t (*lo)[4]) {
 #pragma unroll
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += THREADS) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    const bool in = r0 + r < limit;
-    cp_async16(smem_u32(tile + r * (D + 8) + c),
-               plane + static_cast<size_t>(in ? r0 + r : 0) * D + c, in);
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * (2 * kk + (j >> 1)) + 2 * (j & 1);
+      split_bf16x2(acc[i], acc[i + 1], hi[kk][j], lo[kk][j]);
+    }
+}
+
+// acc (64 x 64) += A (64 rows x KD, K-major) B^T (64 rows x KD, K-major),
+// both 64-column swizzled sub-tiles in shared memory, ``a_rows`` and
+// ``b_rows`` rows a sub-tile; issued, not waited on.
+template <int KD>
+__device__ __forceinline__ void wgmma_nt(float* acc, uint32_t a, int a_rows,
+                                         uint32_t b, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * a_rows * 128 + off, 0),
+                 sw128_desc(b + (kk / 4) * b_rows * 128 + off, 0), 1);
   }
 }
 
-// The A fragment (16 x 16) of rows [r0, r0 + 16), columns [c0, c0 + 16)
-// of a padded row-major tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* t,
-                                       int r0, int c0, int lane) {
-  ldsm_x4(a, smem_u32(t + (r0 + (lane & 15)) * (D + 8) + c0 +
-                      (lane >> 4) * 8));
+// acc[h] (64 x 64, h < N / 64) += (hi + lo) (64 x 64 from registers)
+// B (64 rows x N, MN-major: the 64 rows are the contraction), B's
+// sub-tiles ``b_rows`` rows each; issued, not waited on.
+template <int N>
+__device__ __forceinline__ void wgmma_split_nn(float (*acc)[32],
+                                               uint32_t (*hi)[4],
+                                               uint32_t (*lo)[4], uint32_t b,
+                                               int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < N / 64; ++h) {
+      const uint64_t db = sw128_desc(b + h * b_rows * 128 + kk * 16 * 128,
+                                     1024);
+      wgmma_rs_n64_tb(acc[h], hi[kk], db);
+      wgmma_rs_n64_tb(acc[h], lo[kk], db);
+    }
 }
 
-// B fragments of two 8-wide n chunks from a tile stored [n][k] (k
-// contiguous): n in [n0, n0 + 16), k in [k0, k0 + 16).  b[0..1] for the
-// first chunk, b[2..3] for the second.
-template <int D>
-__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* t,
-                                       int n0, int k0, int lane) {
-  ldsm_x4(b, smem_u32(t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * (D + 8) +
-                      k0 + ((lane >> 3) & 1) * 8));
+// Rows r, r + 8 of a warpgroup's accumulator acc[h] (h < N / 64) as bf16
+// times ``mul`` into rows ``dst0`` and ``dst0 + 8 * ld`` of a row-major
+// (.., ld) plane; ``rows_ok`` bit r says whether row r is stored.
+template <int N>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst0, int ld,
+                                          float (*acc)[32], float mul,
+                                          int col0, unsigned rows_ok) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!((rows_ok >> r) & 1u)) continue;
+    __nv_bfloat16* dst = dst0 + static_cast<size_t>(8 * r) * ld;
+#pragma unroll
+    for (int h = 0; h < N / 64; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        store_bf16x2(dst + 64 * h + 8 * c + col0,
+                     acc[h][4 * c + 2 * r] * mul,
+                     acc[h][4 * c + 2 * r + 1] * mul);
+  }
 }
 
-// The same from a tile stored [k][n] (n contiguous), through ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void load_b_t(uint32_t* b, const __nv_bfloat16* t,
-                                         int n0, int k0, int lane) {
-  ldsm_x4_t(b, smem_u32(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                        (D + 8) + n0 + (lane >> 4) * 8));
+template <int N>
+__device__ __forceinline__ void zero_acc(float (*acc)[32]) {
+#pragma unroll
+  for (int h = 0; h < N / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.0f;
 }
 
-// A fragments, split hi/lo, of the 16 x 16 block whose columns are the
-// accumulator chunks 2 kk and 2 kk + 1 (the m16n8 C layout read as the
-// m16k16 A layout).
-__device__ __forceinline__ void c_to_a(float (*acc)[4], int kk,
-                                       uint32_t* hi, uint32_t* lo) {
-  split_bf16x2(acc[2 * kk][0], acc[2 * kk][1], hi[0], lo[0]);
-  split_bf16x2(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
-  split_bf16x2(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
-  split_bf16x2(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+template <int N>
+__device__ __forceinline__ void fence_acc(float (*acc)[32]) {
+#pragma unroll
+  for (int h = 0; h < N / 64; ++h) fence_regs<32>(acc[h]);
 }
 
-constexpr int TCB_ROWS = 64;        // keys (dK/dV) or queries (dQ) a CTA owns
-
-// Column splits of the backward's accumulators: up to D 128 four warps own
-// 16 rows each and every column of them; above, the dK and dV rows alone
-// (2 x 64 x D fp32 a CTA) would pass the 255 registers a thread may hold,
-// so eight warps split the columns in two: warps w and w + 4 own the same
-// 16 rows, each half of the columns.  Both recompute the rows' S and dP
-// over all of D (the products are the cheap part of the budget); each
-// keeps and stores only its own columns, so nothing is summed across
-// warps and the order of every sum is the D <= 128 one.
-template <int D>
-__host__ __device__ constexpr int tcb_splits() { return D > 128 ? 2 : 1; }
-
-template <int D>
-__host__ __device__ constexpr int tcb_threads() {
-  return 128 * tcb_splits<D>();
-}
-
-// dK/dV: queries a step (a register budget: D = 128 takes 32).
-template <int D>
-__host__ __device__ constexpr int tcb_kv_bq() { return D == 64 ? 64 : 32; }
-
-template <int D>
-constexpr size_t tcb_kv_smem_bytes() {
-  return 2 * (D + 8) * (2 * TCB_ROWS + 4 * tcb_kv_bq<D>()) +
-         4 * 4 * tcb_kv_bq<D>();
-}
-
-// One CTA per (KV head g, 64-key tile); warp w owns keys 16 w .. 16 w + 15
-// and their dK and dV rows, over the query tiles of every query head of
-// the group that can see the tile (the FMA route's loop).  S^T = K Q^T and
-// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
-// straight from the accumulators; Q, dO, lse and delta stream through
-// two buffers.
-template <int D>
-__global__ void __launch_bounds__(tcb_threads<D>())
-attention_bwd_kv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ dout,
+// dK and dV: one CTA per (KV head g, 64-key tile), over the 64-query tiles
+// of every query head of the group that can see the tile, in a fixed order.
+// One thread of warpgroup 1 loads the CTA's K and V tiles once and the
+// first steps' Q and dO into a ring (TMA, tcb_stages deep, full and empty
+// mbarriers), and refills a stage as soon as both warpgroups have
+// released it.  The two warpgroups own the same 64 keys and split the
+// work by role, so that no product is computed twice:
+//   warpgroup 0: S^T = K Q^T, P^T = exp(S^T scale - lse) masked, P^T to
+//     shared memory for warpgroup 1, dV += P^T dO;
+//   warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q.
+// Each thread keeps one role's accumulator (64 x D or 64 x DV over the
+// warpgroup) and reads its 16 queries' lse or delta from global memory
+// while the step's first product runs.  Step t's P^T goes through buffer
+// t % 2: named barrier 1 + t % 2 says that it is written, 3 + t % 2 that
+// it is read.
+template <int D, int DV>
+__global__ void __launch_bounds__(TCB_KV_THREADS, tcb_kv_ctas(D))
+attention_bwd_kv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int lq, int lk,
                            int kv_groups, float scale, int causal,
                            int window) {
-  constexpr int BQT = tcb_kv_bq<D>();
-  constexpr int LD = D + 8;
-  constexpr int NT = tcb_threads<D>();
-  constexpr int DC = D / tcb_splits<D>();       // columns a warp keeps
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + TCB_ROWS * LD;
-  __nv_bfloat16* qs = vs + TCB_ROWS * LD;       // [2][BQT][LD]
-  __nv_bfloat16* dos = qs + 2 * BQT * LD;       // [2][BQT][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * BQT * LD);   // [2][BQT]
-  float* delta_s = lse_s + 2 * BQT;                              // [2][BQT]
+  using L = TcbKvSmem<D, DV>;
+  constexpr int BQ = TCB_BQ, BN = TCB_BN, ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bar_kv = base + L::BAR;
+  const uint32_t bar_full = bar_kv + 8;                   // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * ST;           // + 8 * stage
 
-  const int g = blockIdx.y;
-  const int k0 = blockIdx.x * TCB_ROWS;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int c_off = (threadIdx.x / 128) * DC;   // the warp's first column
-  const size_t kv_base = static_cast<size_t>(g) * lk * D;
-  load_rows<D, TCB_ROWS, NT>(ks, k + kv_base, k0, lk);
-  load_rows<D, TCB_ROWS, NT>(vs, v + kv_base, k0, lk);
-
+  const int g = blockIdx.x;
+  const int k0 = blockIdx.y * BN;       // causal: the heaviest tiles first
   // The query range that can see some key of this tile.
-  const int k_last = min(k0 + TCB_ROWS, lk) - 1;
-  const int q_begin = causal ? (k0 / BQT) * BQT : 0;
+  const int k_last = min(k0 + BN, lk) - 1;
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
   const int q_end = window > 0 ? min(lq, k_last + window) : lq;
-  const int n_qt = q_end > q_begin ? (q_end - q_begin + BQT - 1) / BQT : 0;
+  const int n_qt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
   const int items = kv_groups * n_qt;
+  // step t: query head g * kv_groups + t / n_qt, queries q0(t) ..
+  auto head_of = [&](int t) { return g * kv_groups + t / n_qt; };
+  auto q0_of = [&](int t) { return q_begin + (t % n_qt) * BQ; };
 
-  auto load_item = [&](int it, int buf) {
-    const int bh = g * kv_groups + it / n_qt;
-    const int q0 = q_begin + (it % n_qt) * BQT;
-    const size_t q_base = static_cast<size_t>(bh) * lq * D;
-    load_rows<D, BQT, NT>(qs + buf * BQT * LD, q + q_base, q0, lq);
-    load_rows<D, BQT, NT>(dos + buf * BQT * LD, dout + q_base, q0, lq);
-    if (threadIdx.x < BQT) {
-      const int qi = q0 + threadIdx.x;
-      const bool in = qi < lq;
-      const size_t r = static_cast<size_t>(bh) * lq + (in ? qi : 0);
-      cp_async4(smem_u32(lse_s + buf * BQT + threadIdx.x), lse + r, in);
-      cp_async4(smem_u32(delta_s + buf * BQT + threadIdx.x), delta + r, in);
-    }
+  const int wg = threadIdx.x / 128;
+  const bool loader = threadIdx.x == 128;
+  auto load_step = [&](int t) {         // the loader's TMA for step t
+    const int s = t % ST;
+    const uint32_t full = bar_full + 8 * s;
+    mbar_expect_tx(full, L::Q_BYTES + L::DO_BYTES);
+    for (int h = 0; h < D / 64; ++h)
+      tma_load_3d(base + L::Q + s * L::Q_BYTES + h * BQ * 128, &tm_q, full,
+                  h * 64, q0_of(t), head_of(t));
+    for (int h = 0; h < DV / 64; ++h)
+      tma_load_3d(base + L::DO + s * L::DO_BYTES + h * BQ * 128, &tm_do,
+                  full, h * 64, q0_of(t), head_of(t));
   };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);     // one arrive a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    mbar_expect_tx(bar_kv, BN * (D + DV) * 2);
+    for (int h = 0; h < D / 64; ++h)
+      tma_load_3d(base + L::K + h * BN * 128, &tm_k, bar_kv, h * 64, k0, g);
+    for (int h = 0; h < DV / 64; ++h)
+      tma_load_3d(base + L::V + h * BN * 128, &tm_v, bar_kv, h * 64, k0, g);
+    for (int t = 0; t < min(ST, items); ++t) load_step(t);
+  }
+  __syncwarp();   // the loader's warp converges before its warpgroup's wgmma
 
-  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
-#pragma unroll
-  for (int c = 0; c < DC / 8; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[c][e] = dv_acc[c][e] = 0.0f;
-
-  const int key0 = k0 + 16 * warp + lane / 4;   // rows key0 and key0 + 8
+  // A thread (warp w, lane) holds keys key0 and key0 + 8 and, in every
+  // 8-column chunk c, the columns 8 c + col0 + {0, 1} (element 4 c + e:
+  // key key0 + 8 (e / 2), column 8 c + col0 + e % 2).
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = threadIdx.x % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;
   const int col0 = 2 * (lane % 4);
   const float scale_log2 = scale * LOG2E;
-  if (items > 0) load_item(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < items; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < items) load_item(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    const int q0 = q_begin + (it % n_qt) * BQT;
-    const __nv_bfloat16* qb = qs + buf * BQT * LD;
-    const __nv_bfloat16* dob = dos + buf * BQT * LD;
-    const float* lse_b = lse_s + buf * BQT;
-    const float* delta_b = delta_s + buf * BQT;
-
-    float st[BQT / 8][4], dpt[BQT / 8][4];
+  float* const pts = reinterpret_cast<float*>(smem + L::PT);
+  const unsigned keys_ok = (key0 < lk ? 1u : 0u) | (key0 + 8 < lk ? 2u : 0u);
+  const size_t kv_row = static_cast<size_t>(g) * lk + key0;
+  // This thread's 16 query columns' row values (lse or delta) at step t:
+  // element i of the accumulator reads rows[2 (i / 4) + i % 2].
+  auto load_rows = [&](const float* src, int t, float* rows) {
+    const size_t off = static_cast<size_t>(head_of(t)) * lq;
 #pragma unroll
-    for (int c = 0; c < BQT / 8; ++c)
+    for (int c = 0; c < 8; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a<D>(ak, ks, 16 * warp, 16 * kk, lane);
-      load_a<D>(av, vs, 16 * warp, 16 * kk, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < BQT / 16; ++n2) {
-        uint32_t b[4];
-        load_b<D>(b, qb, 16 * n2, 16 * kk, lane);
-        mma_bf16(st[2 * n2], ak, b[0], b[1]);
-        mma_bf16(st[2 * n2 + 1], ak, b[2], b[3]);
-        load_b<D>(b, dob, 16 * n2, 16 * kk, lane);
-        mma_bf16(dpt[2 * n2], av, b[0], b[1]);
-        mma_bf16(dpt[2 * n2 + 1], av, b[2], b[3]);
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0_of(t) + 8 * c + col0 + e;
+        rows[2 * c + e] = qi < lq ? src[off + qi] : 0.0f;
       }
-    }
+  };
+  mbar_wait(bar_kv, 0);
 
-    // P^T and dS^T in place; masks only on tiles that need them.
-    const bool edge = k0 + TCB_ROWS > lk || q0 + BQT > lq ||
-                      (causal && q0 < k0 + TCB_ROWS - 1) ||
-                      (window > 0 && q0 + BQT - 1 - k0 >= window);
+  if (wg == 0) {
+    float acc[DV / 64][32];                 // dV
+    zero_acc<DV>(acc);
+    for (int t = 0; t < items; ++t) {
+      const int s = t % ST, n = t / ST;
+      const int q0 = q0_of(t);
+      const uint32_t q_tile = base + L::Q + s * L::Q_BYTES;
+      const uint32_t do_tile = base + L::DO + s * L::DO_BYTES;
+      mbar_wait(bar_full + 8 * s, n & 1);
+
+      float st[32];
 #pragma unroll
-    for (int c = 0; c < BQT / 8; ++c)
+      for (int i = 0; i < 32; ++i) st[i] = 0.0f;
+      fence_regs<32>(st);
+      wgmma_fence();
+      wgmma_nt<D>(st, base + L::K, BN, q_tile, BQ);
+      wgmma_commit();
+      float lse_r[16];
+      load_rows(lse, t, lse_r);
+      wgmma_wait_all();
+      fence_regs<32>(st);
+
+      // P^T, masked only on tiles that need it.
+      const bool edge = k0 + BN > lk || q0 + BQ > lq ||
+                        (causal && q0 < k0 + BN - 1) ||
+                        (window > 0 && q0 + BQ - 1 - k0 >= window);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = 8 * c + col0 + (e & 1);
-        float p = exp2_ftz(st[c][e] * scale_log2 - lse_b[il] * LOG2E);
-        if (edge && !visible(q0 + il, key0 + 8 * (e >> 1), lq, lk, causal,
-                             window))
+      for (int i = 0; i < 32; ++i) {
+        const int il = 8 * (i / 4) + col0 + (i & 1);
+        float p = exp2_ftz(st[i] * scale_log2 -
+                           lse_r[2 * (i / 4) + (i & 1)] * LOG2E);
+        if (edge && !visible(q0 + il, key0 + 8 * ((i >> 1) & 1), lq, lk,
+                             causal, window))
           p = 0.0f;
-        st[c][e] = p;
-        dpt[c][e] = p * (dpt[c][e] - delta_b[il]);
+        st[i] = p;
       }
+      const int b = t & 1;
+      float* const pt = pts + b * 32 * 128;
+      if (t > 1) named_sync(3 + b, 256);  // warpgroup 1 read step t - 2's
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pt[i * 128 + tid] = st[i];
+      named_arrive(1 + b, 256);
 
-    // dV += P^T dO and dK += dS^T Q over the step's queries.
+      // dV += P^T dO over the step's queries.
+      uint32_t hi[4][4], lo[4][4];
+      acc_to_a(st, hi, lo);
+      fence_acc<DV>(acc);
+      fence_regs<16>(&hi[0][0]);
+      fence_regs<16>(&lo[0][0]);
+      wgmma_fence();
+      wgmma_split_nn<DV>(acc, hi, lo, do_tile, BQ);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc<DV>(acc);
+      fence_regs<16>(&hi[0][0]);
+      fence_regs<16>(&lo[0][0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    store_acc<DV>(dv + kv_row * DV, DV, acc, 1.0f, col0, keys_ok);
+  } else {
+    float acc[D / 64][32];                  // dK
+    zero_acc<D>(acc);
+    for (int t = 0; t < items; ++t) {
+      const int s = t % ST, n = t / ST;
+      const uint32_t q_tile = base + L::Q + s * L::Q_BYTES;
+      const uint32_t do_tile = base + L::DO + s * L::DO_BYTES;
+      mbar_wait(bar_full + 8 * s, n & 1);
+
+      float dpt[32];
 #pragma unroll
-    for (int kq = 0; kq < BQT / 16; ++kq) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      c_to_a(st, kq, ph, pl);
-      c_to_a(dpt, kq, sh, sl);
+      for (int i = 0; i < 32; ++i) dpt[i] = 0.0f;
+      fence_regs<32>(dpt);
+      wgmma_fence();
+      wgmma_nt<DV>(dpt, base + L::V, BN, do_tile, BQ);
+      wgmma_commit();
+      float delta_r[16];
+      load_rows(delta, t, delta_r);
+      wgmma_wait_all();
+      fence_regs<32>(dpt);
+
+      // dS^T = P^T (dP^T - delta); P^T is 0 wherever a pair is masked.
+      const int b = t & 1;
+      const float* const pt = pts + b * 32 * 128;
+      named_sync(1 + b, 256);
 #pragma unroll
-      for (int n2 = 0; n2 < DC / 16; ++n2) {
-        uint32_t b[4];
-        load_b_t<D>(b, dob, c_off + 16 * n2, 16 * kq, lane);
-        mma_bf16(dv_acc[2 * n2], ph, b[0], b[1]);
-        mma_bf16(dv_acc[2 * n2], pl, b[0], b[1]);
-        mma_bf16(dv_acc[2 * n2 + 1], ph, b[2], b[3]);
-        mma_bf16(dv_acc[2 * n2 + 1], pl, b[2], b[3]);
-        load_b_t<D>(b, qb, c_off + 16 * n2, 16 * kq, lane);
-        mma_bf16(dk_acc[2 * n2], sh, b[0], b[1]);
-        mma_bf16(dk_acc[2 * n2], sl, b[0], b[1]);
-        mma_bf16(dk_acc[2 * n2 + 1], sh, b[2], b[3]);
-        mma_bf16(dk_acc[2 * n2 + 1], sl, b[2], b[3]);
+      for (int i = 0; i < 32; ++i)
+        dpt[i] = pt[i * 128 + tid] *
+                 (dpt[i] - delta_r[2 * (i / 4) + (i & 1)]);
+      if (t + 2 < items) named_arrive(3 + b, 256);
+
+      // dK += dS^T Q over the step's queries.
+      uint32_t hi[4][4], lo[4][4];
+      acc_to_a(dpt, hi, lo);
+      fence_acc<D>(acc);
+      fence_regs<16>(&hi[0][0]);
+      fence_regs<16>(&lo[0][0]);
+      wgmma_fence();
+      wgmma_split_nn<D>(acc, hi, lo, q_tile, BQ);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc<D>(acc);
+      fence_regs<16>(&hi[0][0]);
+      fence_regs<16>(&lo[0][0]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      // The stage is free once warpgroup 0 is done with it too (it
+      // usually is: it runs ahead); then it takes step t + ST.
+      if (loader && t + ST < items) {
+        mbar_wait(bar_empty + 8 * s, n & 1);
+        load_step(t + ST);
       }
+      __syncwarp();
     }
-    __syncthreads();   // the next prefetch overwrites this buffer
-  }
-  if (items == 0) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kj = key0 + 8 * r;
-    if (kj >= lk) continue;
-    const size_t off = kv_base + static_cast<size_t>(kj) * D + c_off;
-#pragma unroll
-    for (int c = 0; c < DC / 8; ++c) {
-      store_bf16x2(dk + off + 8 * c + col0, dk_acc[c][2 * r] * scale,
-                   dk_acc[c][2 * r + 1] * scale);
-      store_bf16x2(dv + off + 8 * c + col0, dv_acc[c][2 * r],
-                   dv_acc[c][2 * r + 1]);
-    }
+    store_acc<D>(dk + kv_row * D, D, acc, scale, col0, keys_ok);
   }
 }
 
-template <int D>
-constexpr size_t tcb_q_smem_bytes() {
-  return 2 * (D + 8) * (2 * TCB_ROWS + 4 * TCB_ROWS);
-}
-
-// dQ: one CTA per (batch*head, 64-query tile); warp w owns queries
-// 16 w .. 16 w + 15, over the key tiles the forward visits.  S = Q K^T and
-// dP = dO V^T, then dQ += dS K; K and V stream through two buffers.
-template <int D>
-__global__ void __launch_bounds__(tcb_threads<D>())
-attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
+// dQ: one CTA per (batch*head, tcb_q_bm(D)-query tile), the
+// heaviest causal tiles first, over the 64-key tiles the forward visits.
+// A producer warp loads the CTA's Q and dO once and streams K and V
+// through a ring (tcb_stages); each consumer warpgroup owns 64 query rows:
+// S = Q K^T and dP = dO V^T, dS = P (dP - delta), dQ += dS K.
+template <int D, int DV>
+__global__ void __launch_bounds__(tcb_q_threads(D), tcb_q_ctas(D))
+attention_bwd_q_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int lq, int lk,
                           int kv_groups, float scale, int causal,
                           int window) {
-  constexpr int LD = D + 8;
-  constexpr int BKT = TCB_ROWS;                 // keys a step
-  constexpr int NT = tcb_threads<D>();
-  constexpr int DC = D / tcb_splits<D>();       // columns a warp keeps
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + TCB_ROWS * LD;
-  __nv_bfloat16* ks = dos + TCB_ROWS * LD;      // [2][BKT][LD]
-  __nv_bfloat16* vs = ks + 2 * BKT * LD;        // [2][BKT][LD]
+  using L = TcbQSmem<D, DV>;
+  constexpr int BN = TCB_BN, ST = L::ST;
+  constexpr int CONS = tcb_q_consumers(D);
+  constexpr int BM = L::BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_full = bar_q + 8;                    // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * ST;           // + 8 * stage
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TCB_ROWS;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int c_off = (threadIdx.x / 128) * DC;   // the warp's first column
-  const size_t q_base = static_cast<size_t>(bh) * lq * D;
-  const size_t kv_base = static_cast<size_t>(bh / kv_groups) * lk * D;
-  load_rows<D, TCB_ROWS, NT>(qs, q + q_base, q0, lq);
-  load_rows<D, TCB_ROWS, NT>(dos, dout + q_base, q0, lq);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest first
+  const int q_last = min(q0 + BM, lq) - 1;
+  int k_end = lk;
+  if (causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  k_begin = (k_begin / BN) * BN;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
-  const int row0 = q0 + 16 * warp + lane / 4;   // rows row0 and row0 + 8
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * CONS);   // one arrive a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONS) {
+    // The producer warp: one thread starts every load of the CTA.
+    if (threadIdx.x == 128 * CONS) {
+      const int g = bh / kv_groups;
+      mbar_expect_tx(bar_q, BM * (D + DV) * 2);
+      for (int h = 0; h < D / 64; ++h)
+        tma_load_3d(base + L::Q + h * BM * 128, &tm_q, bar_q, h * 64, q0,
+                    bh);
+      for (int h = 0; h < DV / 64; ++h)
+        tma_load_3d(base + L::DO + h * BM * 128, &tm_do, bar_q, h * 64, q0,
+                    bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % ST, n = t / ST;
+        if (n > 0) mbar_wait(bar_empty + 8 * s, (n - 1) & 1);
+        const int kt0 = k_begin + t * BN;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, L::K_BYTES + L::V_BYTES);
+        for (int h = 0; h < D / 64; ++h)
+          tma_load_3d(base + L::K + s * L::K_BYTES + h * BN * 128, &tm_k,
+                      full, h * 64, kt0, g);
+        for (int h = 0; h < DV / 64; ++h)
+          tma_load_3d(base + L::V + s * L::V_BYTES + h * BN * 128, &tm_v,
+                      full, h * 64, kt0, g);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: query rows q0 + 64 wg .. + 63, in the
+  // accumulator layout of the forward.
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
   const int col0 = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+  const uint32_t q_tile = base + L::Q + 64 * wg * 128;
+  const uint32_t do_tile = base + L::DO + 64 * wg * 128;
   const float scale_log2 = scale * LOG2E;
   float row_lse2[2], row_delta[2];   // lse in the log2 domain
 #pragma unroll
@@ -1353,107 +1547,61 @@ attention_bwd_q_tc_kernel(const __nv_bfloat16* __restrict__ q,
     row_delta[r] = qi < lq ? delta[off] : 0.0f;
   }
 
-  // The forward's key range for this block.
-  const int q_last = min(q0 + TCB_ROWS, lq) - 1;
-  int k_end = lk;
-  if (causal) k_end = min(k_end, q_last + 1);
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BKT) * BKT;
-  const int n_kt = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
+  float acc[D / 64][32];                    // dQ
+  zero_acc<D>(acc);
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % ST, n = t / ST;
+    const int kt0 = k_begin + t * BN;
+    const uint32_t k_tile = base + L::K + s * L::K_BYTES;
+    const uint32_t v_tile = base + L::V + s * L::V_BYTES;
+    mbar_wait(bar_full + 8 * s, n & 1);
 
-  auto load_tile = [&](int t, int buf) {
-    const int kt0 = k_begin + t * BKT;
-    load_rows<D, BKT, NT>(ks + buf * BKT * LD, k + kv_base, kt0, lk);
-    load_rows<D, BKT, NT>(vs + buf * BKT * LD, v + kv_base, kt0, lk);
-  };
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    fence_regs<32>(sc);
+    fence_regs<32>(dp);
+    wgmma_fence();
+    wgmma_nt<D>(sc, q_tile, BM, k_tile, BN);
+    wgmma_nt<DV>(dp, do_tile, BM, v_tile, BN);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<32>(sc);
+    fence_regs<32>(dp);
 
-  float dq_acc[DC / 8][4];
+    const bool edge = kt0 + BN > lk || wg_first + 64 > lq ||
+                      (causal && kt0 + BN - 1 > wg_first) ||
+                      (window > 0 && wg_last - kt0 >= window);
 #pragma unroll
-  for (int c = 0; c < DC / 8; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[c][e] = 0.0f;
-
-  if (n_kt > 0) load_tile(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < n_kt; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_kt) load_tile(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    const int kt0 = k_begin + t * BKT;
-    const __nv_bfloat16* kb = ks + buf * BKT * LD;
-    const __nv_bfloat16* vb = vs + buf * BKT * LD;
-    float s[BKT / 8][4], dp[BKT / 8][4];
-#pragma unroll
-    for (int c = 0; c < BKT / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a<D>(aq, qs, 16 * warp, 16 * kk, lane);
-      load_a<D>(ado, dos, 16 * warp, 16 * kk, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < BKT / 16; ++n2) {
-        uint32_t b[4];
-        load_b<D>(b, kb, 16 * n2, 16 * kk, lane);
-        mma_bf16(s[2 * n2], aq, b[0], b[1]);
-        mma_bf16(s[2 * n2 + 1], aq, b[2], b[3]);
-        load_b<D>(b, vb, 16 * n2, 16 * kk, lane);
-        mma_bf16(dp[2 * n2], ado, b[0], b[1]);
-        mma_bf16(dp[2 * n2 + 1], ado, b[2], b[3]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2_ftz(sc[i] * scale_log2 - row_lse2[r]);
+      if (edge && !visible(row0 + 8 * r, kt0 + 8 * (i / 4) + col0 + (i & 1),
+                           lq, lk, causal, window))
+        p = 0.0f;
+      dp[i] = p * (dp[i] - row_delta[r]);
     }
-
-    const bool edge = kt0 + BKT > lk || q0 + TCB_ROWS > lq ||
-                      (causal && kt0 + BKT - 1 > q0) ||
-                      (window > 0 && q0 + TCB_ROWS - 1 - kt0 >= window);
-#pragma unroll
-    for (int c = 0; c < BKT / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = exp2_ftz(s[c][e] * scale_log2 - row_lse2[r]);
-        if (edge && !visible(row0 + 8 * r, kt0 + 8 * c + col0 + (e & 1), lq,
-                             lk, causal, window))
-          p = 0.0f;
-        dp[c][e] = p * (dp[c][e] - row_delta[r]);
-      }
 
     // dQ += dS K over the tile's keys.
-#pragma unroll
-    for (int kc = 0; kc < BKT / 16; ++kc) {
-      uint32_t sh[4], sl[4];
-      c_to_a(dp, kc, sh, sl);
-#pragma unroll
-      for (int n2 = 0; n2 < DC / 16; ++n2) {
-        uint32_t b[4];
-        load_b_t<D>(b, kb, c_off + 16 * n2, 16 * kc, lane);
-        mma_bf16(dq_acc[2 * n2], sh, b[0], b[1]);
-        mma_bf16(dq_acc[2 * n2], sl, b[0], b[1]);
-        mma_bf16(dq_acc[2 * n2 + 1], sh, b[2], b[3]);
-        mma_bf16(dq_acc[2 * n2 + 1], sl, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // the next prefetch overwrites this buffer
+    uint32_t hi[4][4], lo[4][4];
+    acc_to_a(dp, hi, lo);
+    fence_acc<D>(acc);
+    fence_regs<16>(&hi[0][0]);
+    fence_regs<16>(&lo[0][0]);
+    wgmma_fence();
+    wgmma_split_nn<D>(acc, hi, lo, k_tile, BN);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc<D>(acc);
+    fence_regs<16>(&hi[0][0]);
+    fence_regs<16>(&lo[0][0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
-  if (n_kt == 0) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = row0 + 8 * r;
-    if (qi >= lq) continue;
-    __nv_bfloat16* dst = dq + q_base + static_cast<size_t>(qi) * D + c_off;
-#pragma unroll
-    for (int c = 0; c < DC / 8; ++c)
-      store_bf16x2(dst + 8 * c + col0, dq_acc[c][2 * r] * scale,
-                   dq_acc[c][2 * r + 1] * scale);
-  }
+  store_acc<D>(dq + (static_cast<size_t>(bh) * lq + row0) * D, D, acc,
+               scale, col0,
+               (row0 < lq ? 1u : 0u) | (row0 + 8 < lq ? 2u : 0u));
 }
 
 // --- launches ----------------------------------------------------------------
@@ -1559,66 +1707,80 @@ bool encode_3d(CUtensorMap* map, const void* base, int planes, int rows,
 }
 
 // The forward's three maps: Q boxes of a CTA's queries, K and V boxes of a
-// tile.
+// tile (V at its own width dv).
 bool encode_qkv(const void* q, const void* k, const void* v, const Problem& p,
-                int d, CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv) {
+                int d, int dv, CUtensorMap* tq, CUtensorMap* tk,
+                CUtensorMap* tv) {
   const int bhkv = p.bh / p.kv_groups;
   return encode_3d(tq, q, p.bh, p.lq, d, tc_bm(d)) &&
          encode_3d(tk, k, bhkv, p.lk, d, TC_BN) &&
-         encode_3d(tv, v, bhkv, p.lk, d, TC_BN);
+         encode_3d(tv, v, bhkv, p.lk, dv, TC_BN);
 }
 
-template <int D>
+template <int D, int DV>
 int launch_forward_tc(const void* q, const void* k, const void* v, void* out,
                       void* lse, const Problem& p, cudaStream_t stream) {
+  cudaError_t err = bind_primary_context();
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
-  if (!encode_qkv(q, k, v, p, D, &tq, &tk, &tv))
+  if (!encode_qkv(q, k, v, p, D, DV, &tq, &tk, &tv))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = TcFwdSmem<D>::BYTES;
-  cudaError_t err = opt_in_smem<attention_tc_kernel<D>>(smem);
+  constexpr size_t smem = TcFwdSmem<D, DV>::BYTES;
+  err = opt_in_smem<attention_tc_kernel<D, DV>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.bh, (p.lq + tc_bm(D) - 1) / tc_bm(D));
-  attention_tc_kernel<D><<<grid, tc_threads(D), smem, stream>>>(
+  attention_tc_kernel<D, DV><<<grid, tc_threads(D), smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       p.lq, p.lk, p.kv_groups, p.scale, p.causal, p.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// delta, then dK/dV, then dQ.  Every bf16 operand is read through a TMA
+// map: boxes of 64 rows, and of the dQ kernel's tcb_q_bm(D) rows for its Q
+// and dO (one box a sub-tile, as the forward's Q, so that no box lies
+// wholly past Lq).
+template <int D, int DV>
 int launch_backward_tc(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const void* lse,
                        void* delta, void* dq, void* dk, void* dv,
                        const Problem& p, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  cudaError_t err =
-      launch_delta<bf16>(out, dout, delta, p.bh * p.lq, D, stream);
+  cudaError_t err = bind_primary_context();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bhkv = p.bh / p.kv_groups;
+  CUtensorMap tq, tk, tv, tdo, tq_bm, tdo_bm;
+  if (!(encode_3d(&tq, q, p.bh, p.lq, D, TCB_BQ) &&
+        encode_3d(&tk, k, bhkv, p.lk, D, TCB_BN) &&
+        encode_3d(&tv, v, bhkv, p.lk, DV, TCB_BN) &&
+        encode_3d(&tdo, dout, p.bh, p.lq, DV, TCB_BQ) &&
+        encode_3d(&tq_bm, q, p.bh, p.lq, D, tcb_q_bm(D)) &&
+        encode_3d(&tdo_bm, dout, p.bh, p.lq, DV, tcb_q_bm(D))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = launch_delta<bf16>(out, dout, delta, p.bh * p.lq, DV, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr size_t kv_smem = tcb_kv_smem_bytes<D>();
-  err = opt_in_smem<attention_bwd_kv_tc_kernel<D>>(kv_smem);
+  constexpr size_t kv_smem = TcbKvSmem<D, DV>::BYTES;
+  err = opt_in_smem<attention_bwd_kv_tc_kernel<D, DV>>(kv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid((p.lk + TCB_ROWS - 1) / TCB_ROWS, p.bh / p.kv_groups);
-  attention_bwd_kv_tc_kernel<D><<<kv_grid, tcb_threads<D>(), kv_smem,
-                                  stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.lq, p.lk,
-      p.kv_groups, p.scale, p.causal, p.window);
+  const dim3 kv_grid(bhkv, (p.lk + TCB_BN - 1) / TCB_BN);
+  attention_bwd_kv_tc_kernel<D, DV><<<kv_grid, TCB_KV_THREADS, kv_smem,
+                                      stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
+      p.window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  constexpr size_t q_smem = tcb_q_smem_bytes<D>();
-  err = opt_in_smem<attention_bwd_q_tc_kernel<D>>(q_smem);
+  constexpr size_t q_smem = TcbQSmem<D, DV>::BYTES;
+  err = opt_in_smem<attention_bwd_q_tc_kernel<D, DV>>(q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid((p.lq + TCB_ROWS - 1) / TCB_ROWS, p.bh);
-  attention_bwd_q_tc_kernel<D><<<q_grid, tcb_threads<D>(), q_smem,
-                                 stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), p.lq, p.lk, p.kv_groups, p.scale, p.causal,
-      p.window);
+  const dim3 q_grid(p.bh, (p.lq + tcb_q_bm(D) - 1) / tcb_q_bm(D));
+  attention_bwd_q_tc_kernel<D, DV><<<q_grid, tcb_q_threads(D), q_smem,
+                                     stream>>>(
+      tq_bm, tk, tv, tdo_bm, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), p.lq, p.lk,
+      p.kv_groups, p.scale, p.causal, p.window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1631,9 +1793,9 @@ struct Forward {
   int fma() const {
     return launch_forward<T, DP, WIDE>(q, k, v, out, lse, p, stream);
   }
-  template <int D>
+  template <int D, int DV>
   int tensor_core() const {
-    return launch_forward_tc<D>(q, k, v, out, lse, p, stream);
+    return launch_forward_tc<D, DV>(q, k, v, out, lse, p, stream);
   }
 };
 
@@ -1647,17 +1809,18 @@ struct Backward {
     return launch_backward<T, DP, WIDE>(q, k, v, out, dout, lse, delta, dq,
                                         dk, dv, p, stream);
   }
-  template <int D>
+  template <int D, int DV>
   int tensor_core() const {
-    return launch_backward_tc<D>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                 p, stream);
+    return launch_backward_tc<D, DV>(q, k, v, out, dout, lse, delta, dq, dk,
+                                     dv, p, stream);
   }
 };
 
 constexpr int kRouteFma = 0;
 constexpr int kRouteTensorCore = 1;
 
-// The head dims of the tensor-core route (bf16 only).
+// The head dims of the tensor-core route (bf16 only); V's width there is
+// one of them too, at most D.
 bool tc_head_dim(int d) { return d == 64 || d == 128 || d == 192 || d == 256; }
 
 // The FMA route's kernels for element type T at the smallest bucket DP >= d,
@@ -1674,25 +1837,39 @@ int fma_bucket(int d, const Fn& fn) {
   return fn.template fma<T, 256, true>();
 }
 
-// Calls the route's kernels for the runtime dtype code and head dim: the
-// tensor-core route takes bf16 at D 64, 128, 192 and 256; the FMA route
-// float32 and float16 at every D from 1 up and bf16 at every other D.
+// The tensor-core kernels at head dim D for V's width dv (64 up to D).
+template <int D, typename Fn>
+int tc_value_width(int dv, const Fn& fn) {
+  if (dv == 64) return fn.template tensor_core<D, 64>();
+  if constexpr (D >= 128)
+    if (dv == 128) return fn.template tensor_core<D, 128>();
+  if constexpr (D >= 192)
+    if (dv == 192) return fn.template tensor_core<D, 192>();
+  if constexpr (D >= 256)
+    if (dv == 256) return fn.template tensor_core<D, 256>();
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Calls the route's kernels for the runtime dtype code, head dim d and V
+// width dv: the tensor-core route takes bf16 at d 64, 128, 192 and 256 and
+// dv one of those up to d; the FMA route float32 and float16 at every d
+// from 1 up and bf16 at every other d, with dv == d.
 // cudaErrorInvalidValue for anything else, so a route never takes a case
 // that is the other's.
 template <typename Fn>
-int dispatch(int route, int dtype, int d, const Fn& fn) {
+int dispatch(int route, int dtype, int d, int dv, const Fn& fn) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (route == kRouteTensorCore) {
     if (dtype != 1) return invalid;
     switch (d) {
-      case 64: return fn.template tensor_core<64>();
-      case 128: return fn.template tensor_core<128>();
-      case 192: return fn.template tensor_core<192>();
-      case 256: return fn.template tensor_core<256>();
+      case 64: return tc_value_width<64>(dv, fn);
+      case 128: return tc_value_width<128>(dv, fn);
+      case 192: return tc_value_width<192>(dv, fn);
+      case 256: return tc_value_width<256>(dv, fn);
       default: return invalid;
     }
   }
-  if (route != kRouteFma || d < 1) return invalid;
+  if (route != kRouteFma || d < 1 || dv != d) return invalid;
   switch (dtype) {
     case 0: return fma_bucket<float>(d, fn);
     case 1:
@@ -1712,37 +1889,38 @@ bool valid_problem(const Problem& p) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and out alike);
-// d from 1 up; route: 0 = FMA, 1 = tensor cores, as ``dispatch`` takes
-// them.  lse, (bh, lq) float32, may be null: it is then not
-// written.  Returns cudaErrorInvalidValue for anything else.
+// d from 1 up, dv V's (and out's) width; route: 0 = FMA, 1 = tensor
+// cores, as ``dispatch`` takes them.  lse, (bh, lq) float32, may be null:
+// it is then not written.  Returns cudaErrorInvalidValue for anything
+// else.
 int local_attention_forward(const void* q, const void* k, const void* v,
                             void* out, void* lse, int dtype, int bh, int lq,
-                            int lk, int d, int kv_groups, float scale,
-                            int causal, int window, int route,
+                            int lk, int d, int dv, int kv_groups,
+                            float scale, int causal, int window, int route,
                             void* stream) {
   if (bh == 0 || lq == 0) return 0;
   const Problem p{bh, lq, lk, d, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(route, dtype, d,
+  return dispatch(route, dtype, d, dv,
                   Forward{q, k, v, out, lse, p,
                           static_cast<cudaStream_t>(stream)});
 }
 
-// The gradients dq (bh, lq, d), dk and dv (bh / kv_groups, lk, d) of the
-// forward above, from its inputs, its output, its lse and dout (the
-// output's gradient), all in the forward's dtype but lse.  delta is
-// (bh, lq) float32 scratch.
+// The gradients dq (bh, lq, d), dk (bh / kv_groups, lk, d) and dv
+// (bh / kv_groups, lk, dv) of the forward above, from its inputs, its
+// output, its lse and dout (the output's gradient, (bh, lq, dv)), all in
+// the forward's dtype but lse.  delta is (bh, lq) float32 scratch.
 int local_attention_backward(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, void* delta, void* dq,
                              void* dk, void* dv, int dtype, int bh, int lq,
-                             int lk, int d, int kv_groups, float scale,
-                             int causal, int window, int route,
+                             int lk, int d, int dv_width, int kv_groups,
+                             float scale, int causal, int window, int route,
                              void* stream) {
   if (bh == 0) return 0;
   const Problem p{bh, lq, lk, d, kv_groups, scale, causal, window};
   if (!valid_problem(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(route, dtype, d,
+  return dispatch(route, dtype, d, dv_width,
                   Backward{q, k, v, out, dout, lse, delta, dq, dk, dv, p,
                            static_cast<cudaStream_t>(stream)});
 }
@@ -1757,7 +1935,7 @@ int local_attention_encode_descriptors(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   for (int i = 0; i < reps; ++i)
-    if (!encode_qkv(q, k, v, p, d, &tq, &tk, &tv))
+    if (!encode_qkv(q, k, v, p, d, d, &tq, &tk, &tv))
       return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

@@ -19,19 +19,22 @@ work (the reference's ``pick_block`` falls back to one whole-axis block).
 It takes what the reference's kernel takes: any head dim D from 1 up,
 in float32, bfloat16 or float16 (computed in fp32, stored in q's dtype).
 V may have fewer columns than q and k (Dv < D: MLA's 128 against 192),
-which the reference's kernel does not take: its plain version takes Dv
-as it is, and on the card the wrapper pads V with zero columns to D
-before the launch and slices the output back to Dv after it (P·[V | 0]
-= [P·V | 0] exactly), both as differentiable torch ops outside the
-kernel's ``autograd.Function``, so the backward's dV for the padded
-columns never reaches the caller.
+which the reference's kernel does not take.  Its plain version takes Dv
+as it is, and so does the tensor-core route at a Dv of 64, 128, 192 or
+256 (forward and backward: V, O, dO and dV at Dv columns).  Any other
+Dv (``launch_dv``) is padded on the card with zero columns, to the next
+of those widths on the tensor-core route and to D on the FMA route,
+before the launch, and the output is sliced back to Dv after it
+(P·[V | 0] = [P·V | 0] exactly), both as differentiable torch ops
+outside the kernel's ``autograd.Function``, so the backward's dV for the
+padded columns never reaches the caller.
 Past D 256 the FMA kernels split D into chunks of 256 columns: the
 scores sum over the chunks, and each output chunk is one CTA's, which
 recomputes them (forward and backward alike).  It has two routes, chosen
 by :func:`route` from the dtype and the head dim alone, never by a
 failure: ``"tensor_core"`` for bfloat16 at head dims 64, 128, 192 and 256
 (every attention of the serving and training paths: ``wgmma`` with
-TMA-fed K/V tiles forward, ``mma.sync`` backward) and ``"fma"`` for every
+TMA-fed tiles, forward and backward) and ``"fma"`` for every
 other case (fp32 FMA, which the reference's f32 bound of 2e-5 needs; a D
 that is not a power of two runs in the next bucket of 8, 16, 32, 64,
 128, 192 or 256 columns with the padding masked, and a D past 256 in
@@ -72,7 +75,7 @@ import torch
 from repro_torch.kernels.common import charged, counting
 
 __all__ = ["local_flash_attention", "local_flash_attention_plain",
-           "reset_launches", "route", "shape_key", "ROUTES"]
+           "launch_dv", "reset_launches", "route", "shape_key", "ROUTES"]
 
 _NEG = -1.0e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -90,6 +93,17 @@ def route(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
         return "tensor_core"
     return "fma"
+
+
+def launch_dv(dtype: torch.dtype, d: int, dv: int) -> int:
+    """The width of V that a launch at head dim ``d`` takes for V of
+    ``dv <= d`` columns: the tensor-core route takes 64, 128, 192 and 256
+    up to ``d`` natively, so ``dv`` itself there, or the next of those;
+    the FMA route takes V at ``d`` columns only.  The wrapper pads V with
+    zero columns to this width and slices the output back."""
+    if route(dtype, d) == "tensor_core":
+        return min(w for w in _TC_HEAD_DIMS if w >= dv)
+    return d
 
 
 def _mask(lq: int, lk: int, causal: bool, window: int,
@@ -139,10 +153,10 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import library
     lib = library("local_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.local_attention_forward.argtypes = [p] * 5 + [i] * 6 + [
+    lib.local_attention_forward.argtypes = [p] * 5 + [i] * 7 + [
         ctypes.c_float, i, i, i, p]
     lib.local_attention_forward.restype = i
-    lib.local_attention_backward.argtypes = [p] * 10 + [i] * 6 + [
+    lib.local_attention_backward.argtypes = [p] * 10 + [i] * 7 + [
         ctypes.c_float, i, i, i, p]
     lib.local_attention_backward.restype = i
     lib.local_attention_encode_descriptors.argtypes = [p] * 3 + [i] * 6
@@ -194,17 +208,20 @@ def _check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 
 def shape_key(bh: int, bh_kv: int, lq: int, lk: int, d: int, causal: bool,
-              window: int) -> str:
+              window: int, dv: int | None = None) -> str:
     """The key of one launch shape in ``launches_by_shape``: q's and k's
-    leading (batch x heads) rows, query and key lengths, head dim, mask."""
-    return (f"{bh}/{bh_kv} Lq {lq} Lk {lk} D {d} "
+    leading (batch x heads) rows, query and key lengths, head dim, V's
+    width where it is not the head dim (as the kernel took it: a padded V
+    shows its padded width), mask."""
+    width = "" if dv is None or dv == d else f" Dv {dv}"
+    return (f"{bh}/{bh_kv} Lq {lq} Lk {lk} D {d}{width} "
             f"{'causal' if causal else 'full'} window {window}")
 
 
-def _count(by_shape: dict, q: torch.Tensor, k: torch.Tensor, causal: bool,
-           window: int) -> None:
+def _count(by_shape: dict, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, causal: bool, window: int) -> None:
     key = shape_key(q.shape[0], k.shape[0], q.shape[1], k.shape[1],
-                    q.shape[2], bool(causal), window)
+                    q.shape[2], bool(causal), window, v.shape[2])
     by_shape[key] = by_shape.get(key, 0) + 1
 
 
@@ -213,7 +230,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the forward kernel: (out, lse or None)."""
     bh, lq, d = q.shape
-    out = torch.empty_like(q)
+    out = q.new_empty((bh, lq, v.shape[2]))
     lse = (torch.empty((bh, lq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if bh == 0 or lq == 0:
@@ -225,12 +242,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.local_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPE_CODE[q.dtype],
-            bh, lq, k.shape[1], d, kv_groups, scale, int(causal), window,
-            _ROUTE_CODE[path], stream)
+            bh, lq, k.shape[1], d, v.shape[2], kv_groups, scale,
+            int(causal), window, _ROUTE_CODE[path], stream)
     _check(lib, code, "")
     local_flash_attention.launches += 1
     local_flash_attention.launches_by_route[path] += 1
-    _count(local_flash_attention.launches_by_shape, q, k, causal, window)
+    _count(local_flash_attention.launches_by_shape, q, k, v, causal, window)
     return out, lse
 
 
@@ -255,7 +272,7 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp and the output's gradient: (dq, dk, dv)."""
     bh, lq, d = q.shape
     dout = dout.to(q.dtype).contiguous()
-    if dout.data_ptr() % _TMA_ALIGN:    # the kernels load 16-byte chunks
+    if dout.data_ptr() % _TMA_ALIGN:    # TMA reads it on the tensor cores
         dout = dout.clone()
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -270,12 +287,12 @@ def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODE[q.dtype], bh, lq, k.shape[1], d, kv_groups, scale,
-            int(causal), window, _ROUTE_CODE[path], stream)
+            _DTYPE_CODE[q.dtype], bh, lq, k.shape[1], d, v.shape[2],
+            kv_groups, scale, int(causal), window, _ROUTE_CODE[path], stream)
     _check(lib, code, " backward")
     local_flash_attention.backward_launches += 1
     local_flash_attention.backward_launches_by_route[path] += 1
-    _count(local_flash_attention.backward_launches_by_shape, q, k, causal,
+    _count(local_flash_attention.backward_launches_by_shape, q, k, v, causal,
            window)
     return dq, dk, dv
 
@@ -365,7 +382,8 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
       k: (BHkv, Lk, D) with BHkv = BH // kv_groups (GQA: query head
         ``bh`` reads KV head ``bh // kv_groups``).
       v: (BHkv, Lk, Dv) with 1 <= Dv <= D; the output is (BH, Lq, Dv)
-        (for Dv < D, on the card, a view of the padded launch's output).
+        (on the card, where ``launch_dv`` pads V, a view of the padded
+        launch's output).
       scale: the softmax scale, D ** -0.5 when None.
       window: 0 = unlimited; w > 0 = each query attends to at most the
         ``w`` most recent keys.
@@ -410,9 +428,10 @@ def local_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if bh > _MAX_GRID_Y:
         raise ValueError(f"local_flash_attention: BH {bh} exceeds "
                          f"{_MAX_GRID_Y}")
-    if dv < d:
-        # the kernel's V has q's D: zero columns in, their outputs out
-        v = torch.nn.functional.pad(v, (0, d - dv))
+    width = launch_dv(q.dtype, d, dv)
+    if width != dv:
+        # zero columns in, their outputs out
+        v = torch.nn.functional.pad(v, (0, width - dv))
         return _launch(q, k, v, scale, window, causal, kv_groups)[..., :dv]
     return _launch(q, k, v, scale, window, causal, kv_groups)
 

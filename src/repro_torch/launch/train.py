@@ -55,7 +55,16 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 100,
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         seed), device)
     opt_state = opt.init(params)
-    step_fn = make_train_step(model, opt, accum_steps=accum)
+    # Donated whenever the optimizer has an update_, as the reference jits
+    # its step with donate_argnums=(0, 1): 12 B a parameter at the peak, not
+    # 24.  fault_hook raises before step_fn, so an injected fault sees a
+    # whole state.  A step that fails inside update_ leaves the state half
+    # written; the runner drops it for the newest checkpoint (save_async
+    # copied every leaf to the host before its thread started, so none is
+    # half written) and replays from that step, as the reference must,
+    # whose donated buffers are gone after a failed call.
+    step_fn = make_train_step(model, opt, accum_steps=accum,
+                              donate=opt.update_ is not None)
 
     losses: list[float] = []
 
@@ -70,9 +79,9 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 100,
                   f"lr {metrics['lr']:.2e}")
         return (params, opt_state)
 
-    # the loop holds the only reference to the state it replaces each
-    # step, so one old and one new copy are alive at a time (the reference
-    # donates its buffers to the jitted step for the same reason)
+    # the loop holds the only reference to the state, which the donated
+    # step updates in place (a pure step's old copy is freed as the next
+    # one replaces it)
     state = (params, opt_state)
     del params, opt_state
     if ckpt_dir is not None:

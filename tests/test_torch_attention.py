@@ -284,7 +284,11 @@ def test_gqa_wrapper_gradients_reach_q_k_v():
 # in the design shows here, against the reference, before any card run.
 # It is held to the bounds that chip_smoke.py holds the kernel to: the
 # bf16 forward at rtol 1e-2 / atol 1e-3 against the fp32 reference output
-# rounded to bf16, the bf16 gradients within 2e-2 * max|reference|.
+# rounded to bf16, the bf16 gradients within 2e-2 * max|reference|.  V may
+# be narrower than q and k (Dv < D), as the route takes it natively.  The
+# backward's dK/dV kernel passes P^T from one warpgroup to the other
+# through shared memory in fp32, so no rounding is added there: P and dS
+# are rounded only by their hi/lo split, as below.
 
 TC_TILE = 64
 
@@ -311,7 +315,7 @@ def _tc_forward(q, k, v, *, causal, window, kv_groups):
     kk = k.repeat_interleave(kv_groups, 0)
     vv = v.repeat_interleave(kv_groups, 0)
     mask = tla._mask(lq, k.shape[1], causal, window, q.device)
-    o = torch.zeros((bh, lq, d))
+    o = torch.zeros((bh, lq, v.shape[-1]))
     m = torch.full((bh, lq, 1), -1.0e30)
     l = torch.zeros((bh, lq, 1))
     for k0 in range(0, k.shape[1], TC_TILE):
@@ -343,7 +347,7 @@ def _tc_backward(q, k, v, out, lse, dout, *, causal, window, kv_groups):
     dq = scale * _split_mm(ds, kk)
     dk = scale * _split_mm(ds.transpose(1, 2), q)
     dv = _split_mm(p.transpose(1, 2), dout)
-    fold = lambda g: g.reshape(bhkv, kv_groups, lk, d).sum(1)
+    fold = lambda g: g.reshape(bhkv, kv_groups, lk, g.shape[-1]).sum(1)
     return _bf16(dq), _bf16(fold(dk)), _bf16(fold(dv))
 
 
@@ -394,6 +398,67 @@ def test_tensor_core_backward_design_matches_reference_grads(
         w = torch.from_numpy(np.array(w))
         top = float(w.abs().max())
         torch.testing.assert_close(g, w, rtol=0, atol=2e-2 * top, msg=name)
+
+
+# (heads, KV heads, L, D, Dv): MLA's 192 / 128 with and without GQA, and
+# other widths the route takes, at ragged L; causal (MLA's mask)
+TC_DV_CASES = [(4, 4, 77, 192, 128), (8, 2, 200, 192, 128),
+               (4, 1, 130, 256, 128), (6, 3, 77, 128, 64)]
+
+
+@pytest.mark.parametrize("h,hkv,l,d,dv", TC_DV_CASES)
+def test_tensor_core_design_at_narrower_v_matches_reference_sdpa_chunked(
+        h, hkv, l, d, dv):
+    """The tensor-core design with V at its own width Dv < D, forward and
+    backward, against the reference's chunked path and its vjp
+    (``jattn._sdpa_chunked``, as ``test_narrower_v_matches_reference_
+    sdpa_chunked`` runs it) on the same bf16-rounded inputs: the output at
+    rtol 1e-2 / atol 1e-3 of the reference rounded to bf16, the gradients
+    within 2e-2 * max|reference|, each of the caller's width."""
+    rng = np.random.default_rng(30)
+    q, k, v, dout = (_bf16(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)))
+        for s in ((1, l, h, d), (1, l, hkv, d), (1, l, hkv, dv),
+                  (1, l, h, dv)))
+    want, vjp = jax.vjp(lambda *a: jattn._sdpa_chunked(
+        *a, causal=True, window=0, q_pos0=0, k_pos0=0, q_chunk=8,
+        softmax_scale=d ** -0.5), *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want_g = vjp(jnp.asarray(dout.numpy()))
+    flat = lambda t: t[0].transpose(0, 1).contiguous()    # (H, L, width)
+    kw = dict(causal=True, window=0, kv_groups=h // hkv)
+    out, lse = _tc_forward(flat(q), flat(k), flat(v), **kw)
+    assert out.shape == (h, l, dv)
+    torch.testing.assert_close(
+        out, _bf16(flat(torch.from_numpy(np.array(want)))), rtol=1e-2,
+        atol=1e-3)
+    got = _tc_backward(flat(q), flat(k), flat(v), out, lse, flat(dout), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want_g):
+        w = flat(torch.from_numpy(np.array(w)))
+        assert g.shape == w.shape, name
+        top = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-2 * top, msg=name)
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 192, 128, 128), (torch.bfloat16, 192, 192, 192),
+    (torch.bfloat16, 256, 64, 64), (torch.bfloat16, 128, 64, 64),
+    (torch.bfloat16, 192, 100, 128), (torch.bfloat16, 128, 40, 64),
+    (torch.bfloat16, 256, 130, 192), (torch.bfloat16, 64, 8, 64),
+    (torch.bfloat16, 48, 40, 48), (torch.float32, 192, 128, 192),
+    (torch.float32, 12, 8, 12), (torch.float16, 128, 64, 128)])
+def test_launch_dv_pads_only_what_the_route_does_not_take(dtype, d, dv,
+                                                          want):
+    """The wrapper's pad rule: the tensor-core route takes Dv of 64, 128,
+    192 and 256 up to D as it is and pads any other to the next of those;
+    the FMA route pads V to D."""
+    assert tla.launch_dv(dtype, d, dv) == want
+
+
+def test_shape_key_names_a_narrower_v():
+    assert tla.shape_key(256, 256, 1024, 1024, 192, True, 0, 128) == \
+        "256/256 Lq 1024 Lk 1024 D 192 Dv 128 causal window 0"
+    assert tla.shape_key(8, 8, 64, 64, 64, True, 0, 64) == \
+        tla.shape_key(8, 8, 64, 64, 64, True, 0)
 
 
 @pytest.mark.parametrize("dtype,d,want", [

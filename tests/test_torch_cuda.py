@@ -789,17 +789,23 @@ def _grads(fn, q, k, v, dout):
     return out.detach(), q.grad, k.grad, v.grad
 
 
-@pytest.mark.parametrize("lq,lk,d,groups", [
-    (128, 128, 64, 1), (256, 256, 32, 2), (77, 77, 64, 1),
-    (200, 200, 16, 4), (1000, 1000, 64, 1), (130, 130, 128, 2),
-    (256, 128, 64, 1), (5, 300, 8, 8)])
+# (lq, lk, d, groups, dv): dv None is d; MLA's D 192 / Dv 128 and D 256
+# with GQA take the tensor-core route's own widths in bf16 (the FMA route
+# pads V to D in float32)
+@pytest.mark.parametrize("lq,lk,d,groups,dv", [
+    (128, 128, 64, 1, None), (256, 256, 32, 2, None), (77, 77, 64, 1, None),
+    (200, 200, 16, 4, None), (1000, 1000, 64, 1, None),
+    (130, 130, 128, 2, None), (256, 128, 64, 1, None), (5, 300, 8, 8, None),
+    (300, 300, 192, 2, 128), (517, 517, 192, 1, 128),
+    (1000, 1000, 256, 4, None), (333, 333, 256, 8, 128)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
                                            (False, 0), (False, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain_autograd(
-        cuda_device, lq, lk, d, groups, causal, window, dtype):
+        cuda_device, lq, lk, d, groups, dv, causal, window, dtype):
     q, k, v = _attn_inputs(42, 8, lq, lk, d, groups, dtype, cuda_device)
-    dout = torch.randn(q.shape, generator=torch.Generator(
+    v = v[..., :dv or d].contiguous()
+    dout = torch.randn((*q.shape[:2], v.shape[2]), generator=torch.Generator(
         device=cuda_device).manual_seed(3), device=cuda_device, dtype=dtype)
     kw = dict(causal=causal, window=window, kv_groups=groups)
     la.reset_launches()
@@ -820,18 +826,23 @@ def test_flash_attention_backward_matches_plain_autograd(
                                    atol=tol * max(top, 1e-30), msg=name)
 
 
-@pytest.mark.parametrize("bh,l,groups", [(32, 517, 4), (128, 1024, 1)])
+@pytest.mark.parametrize("bh,l,groups,d,dv,window", [
+    (32, 517, 4, 64, 64, 0), (128, 1024, 1, 64, 64, 0),
+    (64, 1024, 1, 192, 128, 0), (32, 1000, 16, 256, 256, 300)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_is_deterministic(cuda_device, dtype, bh, l,
-                                                   groups):
-    """Two launches give bit-equal gradients, at (32, 517, 64) with GQA
-    and at the training shape (128, 1024, 64)."""
-    q, k, v = _attn_inputs(43, bh, l, l, 64, groups, dtype, cuda_device)
-    dout = torch.randn_like(q)
-    first = _grads(lambda *t: la.local_flash_attention(
-        *t, kv_groups=groups), q, k, v, dout)
-    second = _grads(lambda *t: la.local_flash_attention(
-        *t, kv_groups=groups), q, k, v, dout)
+                                                   groups, d, dv, window):
+    """Two launches give bit-equal gradients, at (32, 517, 64) with GQA,
+    at the training shape (128, 1024, 64), at MLA's D 192 / Dv 128 and at
+    D 256 with GQA and a window."""
+    q, k, v = _attn_inputs(43, bh, l, l, d, groups, dtype, cuda_device)
+    v = v[..., :dv].contiguous()
+    dout = torch.randn((bh, l, dv), device=cuda_device, dtype=dtype)
+    kw = dict(kv_groups=groups, window=window)
+    first = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                   dout)
+    second = _grads(lambda *t: la.local_flash_attention(*t, **kw), q, k, v,
+                    dout)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -844,10 +855,12 @@ def test_flash_attention_backward_is_deterministic(cuda_device, dtype, bh, l,
     (4, 4, 200, 64, 1, torch.float32)])
 def test_flash_attention_with_narrower_v_matches_plain(cuda_device, h, hkv,
                                                        l, d, dv, dtype):
-    """V of Dv < D columns (MLA: 128 against 192): the wrapper pads V on
-    the card and slices the output, so out and dV have the caller's Dv
-    columns; forward and gradients within the kernel's bounds of the
-    plain version, which takes Dv as it is."""
+    """V of Dv < D columns (MLA: 128 against 192): the tensor-core route
+    launches at Dv, unpadded (the launch counts by shape say so); the FMA
+    route, and a Dv the tensor-core route does not take, pad V with zero
+    columns (``launch_dv``) and slice the output.  Out and dV have the
+    caller's Dv columns; forward and gradients within the kernel's bounds
+    of the plain version, which takes Dv as it is."""
     q, k, v = _attn_inputs(47, h, l, l, d, h // hkv, dtype, cuda_device)
     v = v[..., :dv].contiguous()
     dout = torch.randn((h, l, dv), generator=torch.Generator(
@@ -862,6 +875,11 @@ def test_flash_attention_with_narrower_v_matches_plain(cuda_device, h, hkv,
     assert la.local_flash_attention.launches_by_route[la.route(dtype, d)] \
         == 1
     assert la.local_flash_attention.backward_launches == 1
+    width = la.launch_dv(dtype, d, dv)
+    assert (width == dv) == (dtype == torch.bfloat16)
+    key = la.shape_key(h, hkv, l, l, d, True, 0, width)
+    assert la.local_flash_attention.launches_by_shape == {key: 1}
+    assert la.local_flash_attention.backward_launches_by_shape == {key: 1}
     assert got[0].shape == (h, l, dv) and got[3].shape == v.shape
     if dtype == torch.float32:
         torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)

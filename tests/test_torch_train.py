@@ -596,6 +596,39 @@ def test_train_loop_resumes_from_its_checkpoint(tmp_path, capsys):
         assert torch.equal(a, b)
 
 
+def test_train_loop_donates_its_step(monkeypatch):
+    """The train loop's step is donated (AdamW has an ``update_``): every
+    step writes into the parameter storage of the first, and the losses
+    equal the pure step's bit for bit."""
+    real = ttrain.make_train_step
+    runs = []
+
+    def recording(model, opt, *, force_pure=False, **kw):
+        if force_pure:
+            kw["donate"] = False
+        step_fn = real(model, opt, **kw)
+        seen = {"donate": kw.get("donate", False), "storage": []}
+        runs.append(seen)
+
+        def step(params, state, batch, i):
+            new, new_state, metrics = step_fn(params, state, batch, i)
+            seen["storage"].append([p.data_ptr() for _, p in leaves(new)])
+            return new, new_state, metrics
+        return step
+
+    kw = dict(steps=4, batch=2, seq=16, log_every=1, device="cpu")
+    monkeypatch.setattr(ttrain, "make_train_step", recording)
+    _, donated, _ = ttrain.train_loop("stablelm-1.6b", **kw)
+    monkeypatch.setattr(ttrain, "make_train_step",
+                        lambda *a, **k: recording(*a, force_pure=True, **k))
+    _, pure, _ = ttrain.train_loop("stablelm-1.6b", **kw)
+    (d_run, p_run) = runs
+    assert d_run["donate"] and not p_run["donate"]
+    assert len(d_run["storage"]) == 4
+    assert all(s == d_run["storage"][0] for s in d_run["storage"])
+    assert len(donated) == 4 and donated == pure
+
+
 def test_train_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
